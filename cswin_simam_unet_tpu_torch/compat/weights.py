@@ -1,0 +1,99 @@
+"""Flax CSWinUNet parameters -> the port's state_dict.
+
+The port's own copy of ``cswin_simam_unet_tpu/compat/torch_export.py::
+export_cswin_variables``: flax params, given as nested dicts of numpy
+arrays (or anything ``numpy.asarray`` takes), become a flat name -> array
+dict with the reference scripts' names and layouts, which the port's
+``CSWinUNet`` loads with ``load_state_dict(strict=True)``.
+
+* HWIO conv kernel (kh, kw, I, O) -> (O, I, kh, kw)
+* depthwise kernel (kh, kw, 1, C) -> (C, 1, kh, kw)
+* Dense kernel (I, O)             -> (O, I)
+* LayerNorm scale / bias          -> weight / bias
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x)
+
+
+def _conv(out: Dict[str, np.ndarray], p: dict, prefix: str) -> None:
+    out[f"{prefix}.weight"] = np.transpose(_np(p["kernel"]), (3, 2, 0, 1))
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _linear(out, p: dict, prefix: str) -> None:
+    out[f"{prefix}.weight"] = np.transpose(_np(p["kernel"]), (1, 0))
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _norm(out, p: dict, prefix: str) -> None:
+    out[f"{prefix}.weight"] = _np(p["scale"])
+    out[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _cswin_block(out, p: dict, prefix: str) -> None:
+    _norm(out, p["norm1"], f"{prefix}.norm1")
+    _norm(out, p["norm2"], f"{prefix}.norm2")
+    _linear(out, p["qkv"], f"{prefix}.qkv")
+    _linear(out, p["proj"], f"{prefix}.proj")
+    _linear(out, p["mlp"]["fc1"], f"{prefix}.mlp.fc1")
+    _linear(out, p["mlp"]["fc2"], f"{prefix}.mlp.fc2")
+    for i, name in enumerate(("attn0", "attn1")):
+        if name in p:
+            out[f"{prefix}.attns.{i}.get_v.weight"] = np.transpose(
+                _np(p[name]["get_v_kernel"]), (3, 2, 0, 1))
+            out[f"{prefix}.attns.{i}.get_v.bias"] = _np(p[name]["get_v_bias"])
+
+
+def _carafe(out, p: dict, prefix: str) -> None:
+    for name in ("down", "encoder", "out"):
+        _conv(out, p[name], f"{prefix}.{name}")
+
+
+def cswin_state_dict(variables: dict,
+                     depth: Sequence[int] = (1, 2, 9, 1)) -> Dict[str, np.ndarray]:
+    """Flax CSWinUNet variables {'params': ...} (unrolled blocks) -> the
+    reference CSWinTransformer state_dict as numpy arrays."""
+    params = variables["params"]
+    if any(k.endswith("_scan") for k in params):
+        raise ValueError("scanned-stage parameters (scan_stages=True) are not "
+                         "supported; unstack them in the JAX package first")
+    out: Dict[str, np.ndarray] = {}
+    _conv(out, params["embed_conv"], "stage1_conv_embed.0")
+    _norm(out, params["embed_norm"], "stage1_conv_embed.2")
+    for s in range(4):
+        for i in range(depth[s]):
+            _cswin_block(out, params[f"stage{s + 1}_{i}"], f"stage{s + 1}.{i}")
+        if s != 3:
+            _conv(out, params[f"merge{s + 1}"]["conv"], f"merge{s + 1}.conv")
+            _norm(out, params[f"merge{s + 1}"]["norm"], f"merge{s + 1}.norm")
+    _norm(out, params["norm"], "norm")
+    for i in range(depth[3]):
+        _cswin_block(out, params[f"stage_up4_{i}"], f"stage_up4.{i}")
+    for s, ups in ((2, "upsample4"), (1, "upsample3"), (0, "upsample2")):
+        _carafe(out, params[ups], ups)
+        _linear(out, params[f"concat_linear{s + 2}"], f"concat_linear{s + 2}")
+        for i in range(depth[s]):
+            _cswin_block(out, params[f"stage_up{s + 1}_{i}"], f"stage_up{s + 1}.{i}")
+    _norm(out, params["norm_up"], "norm_up")
+    _carafe(out, params["upsample1"], "upsample1")
+    out["output.weight"] = np.transpose(_np(params["output"]["kernel"]), (3, 2, 0, 1))
+    return out
+
+
+def load_flax_params(model: torch.nn.Module, variables: dict) -> None:
+    """Load flax CSWinUNet variables into the port's ``model`` (strict)."""
+    sd = cswin_state_dict(variables, model.depth)
+    model.load_state_dict(
+        {k: torch.from_numpy(np.array(v, dtype=np.float32))
+         for k, v in sd.items()}, strict=True)
