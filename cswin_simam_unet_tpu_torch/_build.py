@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-All sources under ``csrc/`` are compiled by ONE ``nvcc`` call into a shared
-library with a plain C interface, at first use, into
+Each source under ``csrc/`` is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, at first use, into
 ``<checkout>/build/cuda_kernels/<hash>/`` (listed in ``.gitignore``).  The
 directory name is a hash of the sources and flags, so a process builds at
 most once and an edited source gets a fresh build.  The library is loaded
@@ -29,7 +30,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -46,6 +47,20 @@ _SIGNATURES = {
     # lam, gate, stream
     "csu_simam_head_fwd": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
                            _F, _I, _P],
+    # dtype, q, k, v, lepe_w, dout, dq, dk, dv, dw_part, ldq, ldk, ldv, ldg,
+    # B, H, W, hsp, wsp, heads, head_dim, scale, stream
+    "csu_stripe_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
+                                 _L, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # dtype, x, enc, dacc, dx, denc, B, H, W, C, S, vec, px, stream
+    "csu_carafe_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, fb, dy, mu, var, w, a_part, b_part, dw_part, B, H, W, C, G, F,
+    # vec, lam, stream
+    "csu_head_bwd1": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _F, _P],
+    # dtype, x, enc, fb, dy, w, mu, var, A, Bq, dx, denc, db_part, B, H, W, C,
+    # S, F, vec, px, lam, stream
+    "csu_carafe_head_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -90,19 +105,42 @@ def _build() -> Path:
         build_info.update(path=str(lib), seconds=0.0, cached=True)
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libcsu_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    jobs = []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{pid}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((src.name, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    try:
+        for name, _, proc in jobs:
+            out, _ = proc.communicate(timeout=900)
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{name} (code {proc.returncode}):\n{out[-4000:]}")
+    finally:  # no compiler outlives a failed or interrupted build
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log = "\n".join(logs)
+    if not failed:
+        tmp = out_dir / f"libcsu_kernels.{pid}.so"
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]],
+                              capture_output=True, text=True, timeout=300)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append(f"link (code {link.returncode}):\n{link.stderr[-4000:]}")
     seconds = time.perf_counter() - t0
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr[-6000:]}")
+    (out_dir / "nvcc.log").write_text(log)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
-    build_info.update(path=str(lib), seconds=seconds, cached=False,
-                      log=proc.stderr)
+    build_info.update(path=str(lib), seconds=seconds, cached=False, log=log)
     return lib
 
 
@@ -148,6 +186,16 @@ def vec_width(t: torch.Tensor, *aligned: torch.Tensor, channels: int) -> int:
     if channels % vec or any(a.data_ptr() % 16 for a in (t, *aligned)):
         return 1
     return vec
+
+
+def token_stride(t: torch.Tensor) -> int | None:
+    """Row stride of a (B, L, C) tensor whose rows are unit-stride and evenly
+    spaced (a column slice of a wider token tensor qualifies); None else."""
+    B, L, C = t.shape
+    if t.stride(2) != 1 or (L > 1 and t.stride(1) < C) or (
+            B > 1 and t.stride(0) != L * t.stride(1)):
+        return None
+    return t.stride(1)
 
 
 def check_cuda(*tensors: torch.Tensor) -> None:

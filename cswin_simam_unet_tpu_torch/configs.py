@@ -1,11 +1,12 @@
-"""The model configuration this port serves.
+"""The model configuration this port serves and trains.
 
 ``cswin_simam_512`` is the flagship geometry of the JAX package's configs
 (``cswin_simam_unet_tpu/configs.py``, the CSWin-SimAM-UNet entries with
 512^2-capable stripes [1,2,8,8]) with the binary head and bf16 compute that
 ``bench.py`` measures: embed 64, depths (1,2,9,1), heads (2,4,8,16), SimAM
-on.  The kernels are chosen per call (``forward``/``predict``, on by
-default), not here.
+on; its training settings are ``bench.py``'s too: AdamW, lr 1e-4, weight
+decay 1e-4, batch 8.  The kernels are chosen per call (``forward``/
+``predict``/``make_train_step``, on by default), not here.
 """
 
 from __future__ import annotations
@@ -34,7 +35,16 @@ class ModelConfig:
     dtype: str = "bfloat16"  # 'float32' | 'bfloat16' compute dtype
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4
+    batch_size: int = 8
+
+
 CONFIGS = {"cswin_simam_512": ModelConfig()}
+TRAIN_CONFIGS = {"cswin_simam_512": TrainConfig()}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -87,6 +87,99 @@ static cudaError_t launch_head(const void* fb, const void* mu, const void* var,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// K3: the head backward's reduction pass.
+//
+// Replaces ops/pallas_simam_head.py::_bwd1_kernel (pallas_call at :269,
+// through head_bwd1_pallas), as the fused CARAFE head's backward
+// (ops/pallas_carafe_head.py:369) calls it: bias already in the map.  For
+// each lane l = g*C + c of the biased flat map fb (B, H, W, G*C), with
+// dg = sum_f dy[g*F + f] * W[c, f] and the float32 gate terms of the forward,
+//     t = dg * x * g (1 - g)
+//     A[l] += t (x - mu_c)        B[l] += t (x - mu_c)^2
+//     dW[c, f] += round(x * g) * dy[g*F + f]
+// summed over the pixels of one image row per block; the caller sums the
+// rows and pools A and B per real channel (as head_bwd1_pallas does).
+//
+// What bounds it on the H100: one read of the 268 MB flat map at the 512^2
+// head, so device memory (about 80 us at 3.35 TB/s).  Design: a block owns
+// one image row, each thread one (g, 16-byte channel vector) slot of a pixel,
+// so each pixel's G*C values are one coalesced block-wide load; a thread
+// walks the row's pixels and keeps its A, B and dW sums in registers, and
+// writes them once, so no atomics and a fixed summation order.
+template <typename T, int VEC>
+__global__ void head_bwd1_kernel(const T* __restrict__ fb, const T* __restrict__ dy,
+                                 const float* __restrict__ mu,
+                                 const float* __restrict__ var, const T* __restrict__ w,
+                                 float* __restrict__ a_part, float* __restrict__ b_part,
+                                 float* __restrict__ dw_part, int H, int W, int C, int G,
+                                 int F, float lam) {
+  const int CV = C / VEC, GC = G * C;
+  const int g = threadIdx.x / CV, cv = threadIdx.x - g * CV, c = cv * VEC;
+  const int row = blockIdx.x, b = row / H;  // row = b*H + y
+  float mu_c[VEC], den[VEC], wv[VEC][kMaxClasses];
+  float a[VEC], bq[VEC], dw[VEC][kMaxClasses];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    mu_c[i] = mu[(int64_t)b * C + c + i];
+    den[i] = 4.f * (var[(int64_t)b * C + c + i] + lam);
+    a[i] = bq[i] = 0.f;
+#pragma unroll
+    for (int f = 0; f < kMaxClasses; ++f) {
+      wv[i][f] = f < F ? to_f(w[(int64_t)(c + i) * F + f]) : 0.f;
+      dw[i][f] = 0.f;
+    }
+  }
+  for (int xx = 0; xx < W; ++xx) {
+    const int64_t pix = (int64_t)row * W + xx;
+    float xv[VEC], dyv[kMaxClasses];
+    load_vec<T, VEC>(fb + pix * GC + g * C + c, xv);
+#pragma unroll
+    for (int f = 0; f < kMaxClasses; ++f)
+      dyv[f] = f < F ? to_f(dy[pix * G * F + g * F + f]) : 0.f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float xf = xv[i];
+      const float xc = xf - mu_c[i];
+      const float e = xc * xc / den[i] + 0.5f;
+      const float gt = 1.f / (1.f + expf(-e));
+      float dg = 0.f;
+#pragma unroll
+      for (int f = 0; f < kMaxClasses; ++f) dg = fmaf(dyv[f], wv[i][f], dg);
+      const float t = dg * xf * (gt * (1.f - gt));
+      a[i] = fmaf(t, xc, a[i]);
+      bq[i] = fmaf(t * xc, xc, bq[i]);
+      const float gated = round_to<T>(xf * gt);
+#pragma unroll
+      for (int f = 0; f < kMaxClasses; ++f) dw[i][f] = fmaf(gated, dyv[f], dw[i][f]);
+    }
+  }
+  const int64_t lane0 = (int64_t)row * GC + g * C + c;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    a_part[lane0 + i] = a[i];
+    b_part[lane0 + i] = bq[i];
+    for (int f = 0; f < F; ++f) dw_part[(lane0 + i) * F + f] = dw[i][f];
+  }
+}
+
+template <typename T, int VEC>
+static cudaError_t launch_head_bwd1(const void* fb, const void* dy, const void* mu,
+                                    const void* var, const void* w, void* a_part,
+                                    void* b_part, void* dw_part, int B, int H, int W,
+                                    int C, int G, int F, float lam, cudaStream_t stream) {
+  if (C % VEC || F < 1 || F > kMaxClasses) return cudaErrorInvalidValue;
+  const int threads = G * (C / VEC);
+  if (threads > 1024) return cudaErrorInvalidValue;
+  head_bwd1_kernel<T, VEC><<<(unsigned)(B * H), threads, 0, stream>>>(
+      static_cast<const T*>(fb), static_cast<const T*>(dy), static_cast<const float*>(mu),
+      static_cast<const float*>(var), static_cast<const T*>(w),
+      static_cast<float*>(a_part), static_cast<float*>(b_part),
+      static_cast<float*>(dw_part), H, W, C, G, F, lam);
+  return cudaGetLastError();
+}
+
 }  // namespace csu
 
 // fb (B, H, W, G*C) as items = B*H*W*G rows of C; mu, var (B, C) float32;
@@ -112,6 +205,31 @@ CSU_EXPORT int csu_simam_head_fwd(int dtype, const void* fb, const void* mu,
     return (int)csu::launch_head<__nv_bfloat16, 1>(fb, mu, var, w, out, items,
                                                    items_per_image, C, F, lanes, lam,
                                                    gate, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3: fb (B, H, W, G*C) and dy (B, H, W, G*F) in the compute dtype, mu and
+// var (B, C) float32, w (C, F) in the compute dtype; a_part and b_part
+// (B*H, G*C) and dw_part (B*H, G*C, F) float32 receive each image row's sums.
+CSU_EXPORT int csu_head_bwd1(int dtype, const void* fb, const void* dy, const void* mu,
+                             const void* var, const void* w, void* a_part, void* b_part,
+                             void* dw_part, int B, int H, int W, int C, int G, int F,
+                             int vec, float lam, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == csu::kFloat32 && vec == 4)
+    return (int)csu::launch_head_bwd1<float, 4>(fb, dy, mu, var, w, a_part, b_part,
+                                                dw_part, B, H, W, C, G, F, lam, s);
+  if (dtype == csu::kFloat32 && vec == 1)
+    return (int)csu::launch_head_bwd1<float, 1>(fb, dy, mu, var, w, a_part, b_part,
+                                                dw_part, B, H, W, C, G, F, lam, s);
+  if (dtype == csu::kBFloat16 && vec == 8)
+    return (int)csu::launch_head_bwd1<__nv_bfloat16, 8>(fb, dy, mu, var, w, a_part,
+                                                        b_part, dw_part, B, H, W, C, G,
+                                                        F, lam, s);
+  if (dtype == csu::kBFloat16 && vec == 1)
+    return (int)csu::launch_head_bwd1<__nv_bfloat16, 1>(fb, dy, mu, var, w, a_part,
+                                                        b_part, dw_part, B, H, W, C, G,
+                                                        F, lam, s);
   return (int)cudaErrorInvalidValue;
 }
 

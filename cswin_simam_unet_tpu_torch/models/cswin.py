@@ -1,4 +1,4 @@
-"""CSWin(-SimAM)-UNet, eval forward.
+"""CSWin(-SimAM)-UNet, forward for serving and training.
 
 Counterpart of ``cswin_simam_unet_tpu/models/cswin.py``: conv 7x7/s4 patch
 embed, four encoder stages with merge downsampling, the mirrored decoder
@@ -9,8 +9,12 @@ Module names are the reference scripts' state_dict names
 
 ``use_kernels=True`` (on CUDA tensors) runs attention on K-A, the decoder
 CARAFEs on K-C and the final head as flat logits through K-H1 + K-H2, then
-pixel-shuffles the (B, img/4, img/4, 16*F) logits; ``use_kernels=False``
-runs the plain CARAFE + 1x1 conv head.
+pixel-shuffles the (B, img/4, img/4, 16*F) logits; their backward runs on
+K-A', K-C', K3 and K4.  ``use_kernels=False`` runs the plain versions and
+the plain CARAFE + 1x1 conv head, differentiated by autograd.  Gradients
+reach the float32 parameters through their per-forward casts to the compute
+dtype, as the JAX package's bf16-compute / f32-params step does.  Dropout
+and drop-path are not ported (the step trains with them at 0).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..ops.simam import simam
-from ..ops.windows import nhwc_to_tokens, pixel_shuffle, tokens_to_nhwc
+from ..ops.windows import nhwc_to_tokens, pixel_shuffle, pixel_unshuffle, tokens_to_nhwc
 from .layers import (CARAFE, CARAFEHead, Conv2d, CSWinBlock, FusedLayerNorm, Linear,
                      MergeBlock)
 
@@ -133,9 +137,9 @@ class CSWinUNet(nn.Module):
     def device(self) -> torch.device:
         return self.output.weight.device
 
-    def forward(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
-        """x (B, img, img, in_chans) float -> logits (B, img, img, classes)
-        in the compute dtype."""
+    def features(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+        """x (B, img, img, in_chans) float -> the decoder's normalised
+        tokens (B, (img/4)^2, embed_dim) in the compute dtype."""
         r = self.resos
         img = self.stage1_conv_embed[0](x.to(self.dtype))
         if self.use_simam:
@@ -159,15 +163,22 @@ class CSWinUNet(nn.Module):
                 torch.cat([skips[s], tokens], dim=-1))
             for blk in getattr(self, f"stage_up{s + 1}"):
                 tokens = blk(tokens, use_kernels)
-        tokens = self.norm_up(tokens)
+        return self.norm_up(tokens)
 
+    def forward(self, x: torch.Tensor, use_kernels: bool = True,
+                flat_logits: bool = False) -> torch.Tensor:
+        """x (B, img, img, in_chans) float -> logits (B, img, img, classes)
+        in the compute dtype; with ``flat_logits`` the pre-pixel-shuffle
+        (B, img/4, img/4, 16*classes) layout, lane ``s*classes + c``."""
+        r0, S = self.resos[0], FLAT_HEAD_FACTOR
+        tokens = self.features(x, use_kernels)
         if use_kernels:
-            y, enc, b = self.upsample1.head_precursor(tokens, r[0], r[0])
+            y, enc, b = self.upsample1.head_precursor(tokens, r0, r0)
             logits = self.output.flat(y, enc, b)  # (B, r0, r0, 16*F), lane s*F + f
-            return pixel_shuffle(logits, FLAT_HEAD_FACTOR)
-        tokens = self.upsample1(tokens, r[0], r[0], False)
-        img = tokens_to_nhwc(tokens, self.img_size, self.img_size)
-        return self.output.image(img)
+            return logits if flat_logits else pixel_shuffle(logits, S)
+        tokens = self.upsample1(tokens, r0, r0, False)
+        logits = self.output.image(tokens_to_nhwc(tokens, self.img_size, self.img_size))
+        return pixel_unshuffle(logits, S) if flat_logits else logits
 
     def predict(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
         """Probabilities: sigmoid for one class, softmax over classes else."""

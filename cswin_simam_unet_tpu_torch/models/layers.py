@@ -1,12 +1,14 @@
-"""Building blocks of CSWin-UNet, eval path, in NHWC / (B, L, C) layouts.
+"""Building blocks of CSWin-UNet in NHWC / (B, L, C) layouts.
 
 Counterpart of ``cswin_simam_unet_tpu/models/layers.py``.  Parameters are
 float32 and named as the reference PyTorch scripts name them (the names
 ``compat/weights.py`` produces); each layer casts its weights to the dtype
-of its input, which is the compute dtype.  Dropout and drop-path are the
-identity in eval and are left out.  ``kernels=True`` routes attention and
-CARAFE through the CUDA kernels for CUDA tensors (CPU tensors take the
-plain versions inside the wrappers).
+of its input, which is the compute dtype, so gradients reach the float32
+parameters.  Dropout and drop-path are not ported (the identity in eval;
+the training step runs them at rate 0).  ``kernels=True`` routes attention
+and CARAFE through the autograd Functions whose forward and backward are
+CUDA kernels for CUDA tensors (CPU tensors take the plain versions inside
+them).
 """
 
 from __future__ import annotations

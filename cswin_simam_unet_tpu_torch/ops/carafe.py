@@ -1,8 +1,9 @@
 """CARAFE content-aware reassembly in plain PyTorch.
 
 Counterpart of ``cswin_simam_unet_tpu/ops/carafe.py`` and the plain version
-of kernels K-C and K-H1.  ``enc`` channel ``k*S^2 + s`` is the logit of tap
-``k = dy*3 + dx`` for sub-pixel ``s = sy*S + sx``; the softmax over the 9
+of kernels K-C, K-H1 and (:func:`carafe_bwd_reference`) K-C'.  ``enc``
+channel ``k*S^2 + s`` is the logit of tap ``k = dy*3 + dx`` for sub-pixel
+``s = sy*S + sx``; the softmax over the 9
 taps is float32, its probabilities are rounded to x's dtype, and the sum
 accumulates in x's dtype as the JAX function does.
 """
@@ -37,3 +38,25 @@ def carafe_reassemble(x: torch.Tensor, enc: torch.Tensor, up_factor: int,
                       ksize: int = 3) -> torch.Tensor:
     """Upsample x (B, H, W, C) by ``up_factor`` -> (B, S*H, S*W, C)."""
     return pixel_shuffle(carafe_flat(x, enc, up_factor, ksize), up_factor)
+
+
+def carafe_bwd_reference(x: torch.Tensor, enc: torch.Tensor, dout: torch.Tensor,
+                         up_factor: int):
+    """Gradients of :func:`carafe_flat` (ksize 3) for the cotangent ``dout``
+    of its flat output, the arithmetic of ``pallas_carafe._bwd_kernel`` in
+    float32 on the rounded tap probabilities: (dx like x, denc like enc)."""
+    B, H, W, C = x.shape
+    S2 = up_factor * up_factor
+    p = torch.softmax(enc.float().reshape(B, H, W, 9, S2), dim=3).to(x.dtype).float()
+    da = dout.float().reshape(B, H, W, S2, C)
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    dp = torch.stack([torch.einsum("bhwsc,bhwc->bhws", da, xp[:, k // 3:k // 3 + H,
+                                                                 k % 3:k % 3 + W])
+                      for k in range(9)], dim=3)                    # (B, H, W, 9, S2)
+    inner = (dp * p).sum(dim=3, keepdim=True)
+    denc = (p * (dp - inner)).reshape(B, H, W, 9 * S2)
+    q = torch.einsum("bhwks,bhwsc->bhwkc", p, da)                   # (B, H, W, 9, C)
+    dxp = torch.zeros(B, H + 2, W + 2, C, dtype=torch.float32, device=x.device)
+    for k in range(9):   # tap k of pixel (y, x) read x at (y + dy, x + dx)
+        dxp[:, k // 3:k // 3 + H, k % 3:k % 3 + W] += q[:, :, :, k]
+    return dxp[:, 1:H + 1, 1:W + 1].to(x.dtype), denc.to(enc.dtype)

@@ -1,17 +1,30 @@
-"""Kernels K-H1 and K-H2: the fused final head, forward.
+"""Kernels K-H1, K-H2, K3 and K4: the fused final head, forward and backward.
 
 Counterpart of ``cswin_simam_unet_tpu/ops/pallas_carafe_head.py::
-carafe_simam_head`` (eval path): CARAFE 4x reassembly of the low-res map,
-the out-conv bias added in the compute dtype, SimAM over the flat map with
-statistics pooled per real channel, and the grouped 1x1 head dot.
+carafe_simam_head`` and its custom VJP: CARAFE 4x reassembly of the low-res
+map, the out-conv bias added in the compute dtype, SimAM over the flat map
+with statistics pooled per real channel, and the grouped 1x1 head dot.
 
+Forward:
 * K-H1 (``csrc/carafe.cu``, ``csu_carafe_head_fwd``): reassembly + bias,
-  writing the flat map and per-block sums of it and of its square;
+  writing the flat map fb and per-block sums of it and of its square;
 * between them, plain torch pools the sums into (mu, v) per real channel
   (as the JAX package does outside its kernel);
-* K-H2 (``csrc/simam_head.cu``): gate + head dot -> flat logits.
+* K-H2 (``csrc/simam_head.cu``, ``csu_simam_head_fwd``): gate + head dot.
 
-A CUDA tensor goes to the kernels; a CPU tensor goes to :func:`reference`.
+Backward (SimAM on):
+* K3 (``csrc/simam_head.cu``, ``csu_head_bwd1``): per-row partials of the
+  SimAM VJP reductions A, B and of dW; plain torch sums them and pools A and
+  B per real channel (``pallas_simam_head.py:286-291``);
+* K4 (``csrc/carafe.cu``, ``csu_carafe_head_bwd``): the head's elementwise
+  VJP recomputed from fb and fed straight into the CARAFE backward -> dx,
+  denc and per-block bias-gradient partials.
+
+:func:`carafe_simam_head` is a ``torch.autograd.Function``; CUDA tensors go
+to the kernels, CPU tensors to the plain versions (:func:`reference`,
+:func:`head_bwd1_reference`, :func:`fused_head_bwd_reference`).  The
+backward without SimAM (``_bwd1_nogate_kernel``) is not ported: on CUDA it
+raises.
 """
 
 from __future__ import annotations
@@ -20,12 +33,14 @@ import torch
 
 from .. import _build
 from . import carafe
-from .carafe_kernels import check_carafe_args
+from .carafe_kernels import bwd_pixels_per_block, check_carafe_args, threads_for
 from .simam import LAMBDA, pooled_stats
 from .windows import pixel_unshuffle
 
 MOMENTS_KERNEL = "csu_carafe_head_fwd"
 HEAD_KERNEL = "csu_simam_head_fwd"
+BWD1_KERNEL = "csu_head_bwd1"
+FUSED_BWD_KERNEL = "csu_carafe_head_bwd"
 MAX_CLASSES = 8
 
 
@@ -50,6 +65,59 @@ def reference(x, enc, bias, w, up_factor: int, ksize: int = 3,
     return head_reference(up, bias, w, up_factor * up_factor, lam, gate)
 
 
+def _head_terms(fb, dy, mu, v, w, G, lam):
+    """(x, x - mu, g, dg, t) in float32 over (B, H, W, G, C) views: the
+    gate terms of the forward and the head dot's cotangent dg."""
+    B, H, W, GC = fb.shape
+    C = GC // G
+    xf = fb.float().reshape(B, H, W, G, C)
+    dyf = dy.float().reshape(B, H, W, G, -1)
+    dg = dyf @ w.to(fb.dtype).float().t()
+    xc = xf - mu[:, None, None, None, :]
+    g = torch.sigmoid(xc * xc / (4.0 * (v[:, None, None, None, :] + lam)) + 0.5)
+    return xf, dyf, xc, g, dg, dg * xf * g * (1.0 - g)
+
+
+def head_bwd1_reference(fb, dy, mu, v, w, G: int, lam: float = LAMBDA,
+                        gate: bool = True):
+    """Plain K3 (``pallas_simam_head._bwd1_kernel`` + the pooling of
+    ``head_bwd1_pallas``): A, B (B, C) pooled per real channel and dW (C, F),
+    all float32, for the biased flat map fb (B, H, W, G*C), the logits'
+    cotangent dy (B, H, W, G*F), mu, v (B, C) and w (C, F).  Without the
+    gate (``_bwd1_nogate_kernel``) A and B are None and dW pairs fb with dy."""
+    if not gate:
+        B, H, W, GC = fb.shape
+        return None, None, torch.einsum("bhwgc,bhwgf->cf",
+                                        fb.float().reshape(B, H, W, G, GC // G),
+                                        dy.float().reshape(B, H, W, G, -1))
+    xf, dyf, xc, g, _, t = _head_terms(fb, dy, mu, v, w, G, lam)
+    gated = (xf * g).to(fb.dtype).float()
+    return ((t * xc).sum(dim=(1, 2, 3)), (t * xc * xc).sum(dim=(1, 2, 3)),
+            torch.einsum("bhwgc,bhwgf->cf", gated, dyf))
+
+
+def fused_head_bwd_reference(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int,
+                             lam: float = LAMBDA, gate: bool = True):
+    """Plain K4 (``pallas_carafe_head._fused_bwd_kernel``): the head's
+    elementwise VJP dacc, rounded to the compute dtype, through the CARAFE
+    backward -> (dx, denc, db), db (C,) float32 summed before the rounding.
+    Without the gate dacc is the head dot's cotangent alone."""
+    B, H, W, GC = fb.shape
+    G = up_factor * up_factor
+    if gate:
+        xf, _, xc, g, dg, t = _head_terms(fb, dy, mu, v, w, G, lam)
+        w4 = 1.0 / (4.0 * (v[:, None, None, None, :] + lam))
+        N = H * W * G
+        dacc = (dg * g + 2.0 * w4 * t * xc - (2.0 * w4 / N) * A[:, None, None, None, :]
+                - (8.0 * w4 * w4 / (N - 1)) * Bq[:, None, None, None, :] * xc)
+    else:
+        dacc = dy.float().reshape(B, H, W, G, -1) @ w.to(fb.dtype).float().t()
+    db = dacc.sum(dim=(0, 1, 2, 3))
+    dx, denc = carafe.carafe_bwd_reference(x, enc, dacc.reshape(B, H, W, GC).to(x.dtype),
+                                           up_factor)
+    return dx, denc, db
+
+
 def carafe_biased_moments(x: torch.Tensor, enc: torch.Tensor, bias: torch.Tensor,
                           up_factor: int, gate: bool = True):
     """K-H1: (fb, s1, s2) with fb the biased flat map (B, H, W, S^2*C) and
@@ -67,8 +135,7 @@ def carafe_biased_moments(x: torch.Tensor, enc: torch.Tensor, bias: torch.Tensor
         s1 = torch.empty(B * H, S * S * C, dtype=torch.float32, device=x.device)
         s2 = torch.empty_like(s1)
     vec = _build.vec_width(x, fb, bias, channels=C)
-    if S * S * (C // vec) > 1024:
-        raise ValueError(f"S^2*C/{vec} = {S * S * C // vec} threads exceed one block")
+    threads_for(C, S, vec)
     _build.launch(MOMENTS_KERNEL, x.device, _build.dtype_code(x), x.data_ptr(),
                   enc.data_ptr(), bias.data_ptr(), fb.data_ptr(),
                   s1.data_ptr() if gate else None, s2.data_ptr() if gate else None,
@@ -108,24 +175,139 @@ def simam_head_flat(fb: torch.Tensor, mu: torch.Tensor | None, v: torch.Tensor |
     return out
 
 
+def _check_head_grads(fb, dy, mu, v, w, G):
+    B, H, W, GC = fb.shape
+    C = GC // G
+    Fc = w.shape[1]
+    if w.shape != (C, Fc) or not 1 <= Fc <= MAX_CLASSES:
+        raise ValueError(f"w must be ({C}, F) with F <= {MAX_CLASSES}, got {tuple(w.shape)}")
+    if dy.shape != (B, H, W, G * Fc):
+        raise ValueError(f"dy must be {(B, H, W, G * Fc)}, got {tuple(dy.shape)}")
+    for name, t in (("mu", mu), ("v", v)):
+        if t.shape != (B, C) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({B}, {C}) float32")
+    _build.check_cuda(fb, dy)
+    _build.check_cuda(mu, v)
+
+
+def head_bwd1(fb, dy, mu, v, w, G: int, lam: float = LAMBDA):
+    """K3 on CUDA tensors, :func:`head_bwd1_reference` on CPU ones:
+    (A, B, dW) float32, A and B (B, C) pooled per real channel."""
+    if fb.device.type == "cpu":
+        return head_bwd1_reference(fb, dy, mu, v, w, G, lam)
+    dy = dy.contiguous()
+    _check_head_grads(fb, dy, mu, v, w, G)
+    B, H, W, GC = fb.shape
+    C, Fc = w.shape
+    wt = w.to(fb.dtype).contiguous()
+    vec = _build.vec_width(fb, channels=C)
+    if G * (C // vec) > 1024:
+        raise ValueError(f"G*C/{vec} = {G * C // vec} threads exceed one block")
+    a_part = torch.empty(B * H, GC, dtype=torch.float32, device=fb.device)
+    b_part = torch.empty_like(a_part)
+    dw_part = torch.empty(B * H, GC, Fc, dtype=torch.float32, device=fb.device)
+    _build.launch(BWD1_KERNEL, fb.device, _build.dtype_code(fb), fb.data_ptr(),
+                  dy.data_ptr(), mu.data_ptr(), v.data_ptr(), wt.data_ptr(),
+                  a_part.data_ptr(), b_part.data_ptr(), dw_part.data_ptr(), B, H, W, C, G,
+                  Fc, vec, float(lam))
+    A = a_part.reshape(B, H, G, C).sum(dim=(1, 2))
+    Bq = b_part.reshape(B, H, G, C).sum(dim=(1, 2))
+    return A, Bq, dw_part.reshape(B * H * G, C, Fc).sum(dim=0)
+
+
+def fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int, lam: float = LAMBDA):
+    """K4 on CUDA tensors, :func:`fused_head_bwd_reference` on CPU ones:
+    (dx like x, denc like enc, db (C,) float32)."""
+    if x.device.type == "cpu":
+        return fused_head_bwd_reference(x, enc, fb, dy, mu, v, A, Bq, w, up_factor, lam)
+    check_carafe_args(x, enc, up_factor, 3)
+    S = up_factor
+    G = S * S
+    B, H, W, C = x.shape
+    if fb.shape != (B, H, W, G * C) or fb.dtype != x.dtype:
+        raise ValueError(f"fb must be {(B, H, W, G * C)} {x.dtype}")
+    dy = dy.contiguous()
+    _check_head_grads(fb, dy, mu, v, w, G)
+    A, Bq = A.float().contiguous(), Bq.float().contiguous()
+    if A.shape != (B, C) or Bq.shape != (B, C):
+        raise ValueError(f"A and B must be ({B}, {C})")
+    wt = w.to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    denc = torch.empty_like(enc)
+    vec = _build.vec_width(x, fb, dx, channels=C)
+    threads_for(C, S, vec)
+    px = bwd_pixels_per_block(C, S, vec, x.element_size(), W)
+    blocks = B * H * ((W + px - 1) // px)
+    db_part = torch.empty(blocks, G * C, dtype=torch.float32, device=x.device)
+    _build.launch(FUSED_BWD_KERNEL, x.device, _build.dtype_code(x), x.data_ptr(),
+                  enc.data_ptr(), fb.data_ptr(), dy.data_ptr(), wt.data_ptr(),
+                  mu.data_ptr(), v.data_ptr(), A.data_ptr(), Bq.data_ptr(), dx.data_ptr(),
+                  denc.data_ptr(), db_part.data_ptr(), B, H, W, C, S, w.shape[1], vec, px,
+                  float(lam))
+    return dx, denc, db_part.reshape(blocks * G, C).sum(dim=0)
+
+
+def _forward(x, enc, bias, w, S, lam, gate):
+    """(logits, fb, mu, v) of the fused head; mu, v are None without gate."""
+    B, H, W, _ = x.shape
+    G = S * S
+    if x.device.type == "cpu":
+        fb = carafe.carafe_flat(x, enc, S) + bias.to(x.dtype).repeat(G)
+        mu = v = None
+        if gate:
+            f = fb.float()
+            mu, v = pooled_stats(f.sum(dim=(1, 2)), (f * f).sum(dim=(1, 2)), H * W * G, G)
+        return head_reference(fb, torch.zeros_like(bias), w, G, lam, gate), fb, mu, v
+    fb, s1, s2 = carafe_biased_moments(x, enc, bias, S, gate)
+    mu = v = None
+    if gate:
+        mu, v = pooled_stats(s1.reshape(B, -1, s1.shape[-1]).sum(dim=1),
+                             s2.reshape(B, -1, s2.shape[-1]).sum(dim=1), H * W * G, G)
+    return simam_head_flat(fb, mu, v, w, G, lam, gate), fb, mu, v
+
+
+class CarafeSimamHead(torch.autograd.Function):
+    """The fused head: K-H1 + K-H2 forward, K3 + K4 backward on CUDA
+    tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, enc, bias, w, up_factor, lam, gate):
+        out, fb, mu, v = _forward(x, enc, bias, w, up_factor, lam, gate)
+        ctx.up_factor, ctx.lam, ctx.gate = up_factor, lam, gate
+        ctx.save_for_backward(x, enc, bias, w, fb, mu, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, enc, bias, w, fb, mu, v = ctx.saved_tensors
+        S, lam = ctx.up_factor, ctx.lam
+        G = S * S
+        if not ctx.gate:
+            if x.device.type != "cpu":
+                raise NotImplementedError(
+                    "the fused head's backward without SimAM needs _bwd1_nogate_kernel, "
+                    "which is not ported yet (ROADMAP queue B item 3)")
+            _, _, dW = head_bwd1_reference(fb, dy, mu, v, w, G, lam, gate=False)
+            dx, denc, db = fused_head_bwd_reference(x, enc, fb, dy, mu, v, None, None, w,
+                                                    S, lam, gate=False)
+        else:
+            A, Bq, dW = head_bwd1(fb, dy, mu, v, w, G, lam)
+            dx, denc, db = fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, S, lam)
+        return dx, denc, db.to(bias.dtype), dW.to(w.dtype), None, None, None
+
+
 def carafe_simam_head(x: torch.Tensor, enc: torch.Tensor, bias: torch.Tensor,
                       w: torch.Tensor, up_factor: int, ksize: int = 3,
                       lam: float = LAMBDA, gate: bool = True) -> torch.Tensor:
     """x (B, H, W, C) low-res map after the out-conv's linear part, enc
     (B, H, W, 9*S^2) kernel logits, bias (C,), w (C, F) with F <= 8 ->
-    flat logits (B, H, W, S^2*F) in x's dtype, lane ``s*F + f``."""
+    flat logits (B, H, W, S^2*F) in x's dtype, lane ``s*F + f``;
+    differentiable."""
     if w.shape[-1] > MAX_CLASSES:
         raise ValueError(f"carafe_simam_head takes at most {MAX_CLASSES} classes, "
                          f"got {w.shape[-1]}")
-    if x.device.type == "cpu":
-        return reference(x, enc, bias, w, up_factor, ksize, lam, gate)
     if ksize != 3:
         raise ValueError(f"the CARAFE kernels take ksize 3, got {ksize}")
-    B, H, W, _ = x.shape
-    G = up_factor * up_factor
-    fb, s1, s2 = carafe_biased_moments(x, enc, bias, up_factor, gate)
-    mu = v = None
-    if gate:
-        mu, v = pooled_stats(s1.reshape(B, -1, s1.shape[-1]).sum(dim=1),
-                             s2.reshape(B, -1, s2.shape[-1]).sum(dim=1), H * W * G, G)
-    return simam_head_flat(fb, mu, v, w, G, lam, gate)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    return CarafeSimamHead.apply(x, enc, bias, w, up_factor, lam, gate)

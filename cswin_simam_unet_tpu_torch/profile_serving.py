@@ -1,10 +1,12 @@
-"""Where the time of serving goes on the card.
+"""Where the time of serving, or of a training step, goes on the card.
 
-    python -m cswin_simam_unet_tpu_torch.profile_serving [--batch 8] [--steps 5] [--repeats 3]
+    python -m cswin_simam_unet_tpu_torch.profile_serving [--batch 8] [--steps 5] [--repeats 3] [--train]
 
 Builds the served configuration (``cswin_simam_512``, random weights from
 seed 0) and warms up.  Then, ``--repeats`` times, it times ``--steps``
-forwards of one ``--batch`` request on the host clock, untraced, and right
+forwards of one ``--batch`` request (with ``--train``: training steps of
+``make_train_step`` with the configuration's AdamW settings on one uint8
+batch) on the host clock, untraced, and right
 after traces ``--steps`` more under ``torch.profiler`` (device activity
 only).  For each traced window it prints the device's busy and idle share of
 that same window: the window runs from the start of its first device
@@ -14,8 +16,9 @@ the untraced one.  The script therefore also prints the traced window's
 host time beside the untraced loop's, and the idle share of the untraced
 loop's wall time, ``1 - busy / untraced wall``, with busy time from the
 trace that follows it (tracing slows the host, not the kernels).  Last, the
-device time per forward by kernel group (the port's kernels, matrix
-products, the rest) and the launches per forward.  Needs a CUDA device.
+device time per forward (or step) by kernel group (the port's kernels,
+matrix products, the rest) and the launches per forward (or step).  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ def _group(name: str) -> str:
         return "matrix products (cuBLAS)"
     if "conv" in low or "cudnn" in low or "implicit" in low:
         return "convolutions (cuDNN)"
+    if "multi_tensor_apply" in low:
+        return "optimizer (AdamW, foreach)"
     if "reduce" in low:
         return "reductions (norms, SimAM statistics)"
     if "elementwise" in low or "vectorized" in low or "copy" in low:
@@ -47,32 +52,50 @@ def _group(name: str) -> str:
 
 
 def main() -> None:
-    from .configs import build_model
+    from .configs import TRAIN_CONFIGS, build_model
     from .serving import Server
+    from .train import engine
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--train", action="store_true", help="profile training steps")
     args = ap.parse_args()
 
     model = build_model("cswin_simam_512")
-    server = Server(model)
-    images = np.random.RandomState(0).randint(0, 256, (args.batch, 512, 512, 3), np.uint8)
+    rs = np.random.RandomState(0)
+    images = rs.randint(0, 256, (args.batch, 512, 512, 3), np.uint8)
+    if args.train:
+        tcfg = TRAIN_CONFIGS["cswin_simam_512"]
+        opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
+                                    model.parameters())
+        step = engine.make_train_step(model, opt)
+        images_d = torch.from_numpy(images).cuda()
+        masks_d = torch.from_numpy(
+            (rs.randint(0, 2, (args.batch, 512, 512, 1)) * 255).astype(np.uint8)).cuda()
+
+        def run():
+            step(images_d, masks_d)
+    else:
+        server = Server(model)
+
+        def run():
+            server(images)
     for _ in range(3):
-        server(images)
+        run()
     windows = []
     for _ in range(args.repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            server(images)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / args.steps * 1e3
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(args.steps):
-                server(images)
+                run()
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) / args.steps * 1e3
         events = [e for e in prof.events()
@@ -89,7 +112,8 @@ def main() -> None:
                             events=events))
 
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"batch {args.batch}, {args.steps} forwards per window, ms per forward:")
+    unit = "training step" if args.train else "forward"
+    print(f"batch {args.batch}, {args.steps} {unit}s per window, ms per {unit}:")
     for i, w in enumerate(windows):
         print(f"window {i}: untraced host {w['untraced_wall_ms']:.3f}; traced host "
               f"{w['traced_wall_ms']:.3f}, device span {w['span_ms']:.3f}, busy "
@@ -104,16 +128,16 @@ def main() -> None:
         by_group[_group(e.name)] += us
         by_name[e.name][0] += us
         by_name[e.name][1] += 1
-    print(f"last window: {len(events) / args.steps:.0f} device activities per forward; "
-          "device ms per forward by group:")
+    print(f"last window: {len(events) / args.steps:.0f} device activities per {unit}; "
+          f"device ms per {unit} by group:")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {us / args.steps / 1e3:9.4f}  {g}")
-    print("top kernels (device ms per forward, launches per forward):")
+    print(f"top kernels (device ms per {unit}, launches per {unit}):")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, n) in top:
         print(f"  {us / args.steps / 1e3:9.4f}  {n / args.steps:5.0f}  {name[:110]}")
     print(json.dumps({
-        "batch": args.batch,
+        "batch": args.batch, "unit": unit,
         "windows": [{k: v for k, v in w.items() if k != "events"} for w in windows],
         "activities_per_forward": len(events) / args.steps,
         "groups_ms": {g: us / args.steps / 1e3 for g, us in by_group.items()}}))

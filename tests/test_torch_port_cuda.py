@@ -6,8 +6,10 @@ there without the JAX conftest:
 
     python -m pytest tests/test_torch_port_cuda.py -q -p no:cacheprovider --noconftest
 
-Shapes are small and cover what the 512^2 serving path does not: other head
-dims, scalar (non-16-byte) channel paths, several classes, gate off.
+Shapes are small and cover what the 512^2 path does not: other head dims,
+scalar (non-16-byte) channel paths, several classes, gate off.  The backward
+kernels (K-A', K-C', K3, K4) are held against their plain versions, and the
+gradients of a tiny model through the kernels against the plain path.
 """
 
 import pytest
@@ -19,6 +21,7 @@ from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head
 from cswin_simam_unet_tpu_torch.ops import carafe_kernels, stripe_attention
 from cswin_simam_unet_tpu_torch.ops.simam import pooled_stats
 from cswin_simam_unet_tpu_torch.ops.windows import stripe_geometry
+from cswin_simam_unet_tpu_torch.train import engine
 
 pytestmark = pytest.mark.cuda
 
@@ -127,8 +130,196 @@ def test_tiny_model_kernels_match_plain(dev, use_simam):
     _build.reset_launches()
     with torch.inference_mode():
         on = model.predict(x, use_kernels=True)
-        counts = dict(_build.LAUNCHES)
+        counts = {k: n for k, n in _build.LAUNCHES.items() if n}
         off = model.predict(x, use_kernels=False)
     assert counts == {stripe_attention.KERNEL: 14, carafe_kernels.KERNEL: 3,
                       carafe_head.MOMENTS_KERNEL: 1, carafe_head.HEAD_KERNEL: 1}
     torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
+
+
+# ---- backward kernels ----
+
+ATTN_BWD_GEOMS = [
+    (16, 1, 0, 8, 1),     # head dim 8, width-1 vertical stripes
+    (16, 2, 1, 32, 2),    # head dim 16, horizontal
+    (16, 4, 0, 64, 2),    # head dim 32, vertical
+    (16, 16, -1, 64, 2),  # head dim 32, 256-token global window (largest of 512^2)
+    (8, 8, -1, 128, 2),   # head dim 64, global window
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,split,idx,C,heads", ATTN_BWD_GEOMS)
+def test_stripe_attention_bwd_kernel(dev, dtype, H, split, idx, C, heads):
+    hsp, wsp = stripe_geometry(H, split, idx)
+    qkv = _randn(dev, 2, H * H, 3 * C, scale=0.5).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(dtype)
+    g = _randn(dev, 2, H * H, 2 * C, seed=2).to(dtype)[..., C:]  # strided cotangent
+    kw = dict(H=H, W=H, hsp=hsp, wsp=wsp, num_heads=heads)
+    _build.reset_launches()
+    got = stripe_attention.attention_bwd(q, k, v, lk, g, **kw)
+    assert _build.LAUNCHES[stripe_attention.BWD_KERNEL] == 1
+    want = attention.stripe_attention_bwd_reference(q.float(), k.float(), v.float(),
+                                                    lk.float(), g.float(), **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dtype
+        _check(a, b, dtype)
+
+
+def test_stripe_attention_bwd_kernel_rejects(dev):
+    q = torch.zeros(1, 256, 128, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        stripe_attention.attention_bwd(q, q, q, torch.zeros(3, 3, 1, 128, device=dev), q,
+                                       H=16, W=16, hsp=16, wsp=16, num_heads=2)
+    with pytest.raises(ValueError, match="dout"):
+        stripe_attention.attention_bwd(q, q, q, torch.zeros(3, 3, 1, 128, device=dev),
+                                       q[..., :64], H=16, W=16, hsp=1, wsp=16, num_heads=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,S", [(8, 8, 16, 2), (6, 10, 8, 4), (5, 7, 6, 2),
+                                     (4, 20, 64, 2)])
+def test_carafe_bwd_kernel(dev, dtype, H, W, C, S):
+    x = _randn(dev, 2, H, W, C).to(dtype)
+    enc = _randn(dev, 2, H, W, 9 * S * S, seed=1).to(dtype)
+    dout = _randn(dev, 2, H, W, S * S * C, seed=2).to(dtype)
+    _build.reset_launches()
+    got = carafe_kernels.carafe_flat_bwd(x, enc, dout, S)
+    assert _build.LAUNCHES[carafe_kernels.BWD_KERNEL] == 1
+    want = carafe.carafe_bwd_reference(x.float(), enc.float(), dout.float(), S)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dtype
+        _check(a, b, dtype)
+
+
+def test_carafe_bwd_kernel_rejects(dev):
+    x = torch.zeros(1, 4, 4, 8, device=dev)
+    with pytest.raises(ValueError, match="dout"):
+        carafe_kernels.carafe_flat_bwd(x, torch.zeros(1, 4, 4, 36, device=dev),
+                                       torch.zeros(1, 4, 4, 16, device=dev), 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,S,F", [(8, 8, 16, 4, 1), (4, 6, 8, 2, 3), (4, 4, 6, 2, 8),
+                                       (6, 20, 64, 4, 1)])
+def test_head_bwd_kernels(dev, dtype, H, W, C, S, F):
+    G = S * S
+    x = _randn(dev, 2, H, W, C).to(dtype)
+    enc = _randn(dev, 2, H, W, 9 * G, seed=1).to(dtype)
+    fb = _randn(dev, 2, H, W, G * C, seed=2).to(dtype)
+    dy = _randn(dev, 2, H, W, G * F, seed=3).to(dtype)
+    w = _randn(dev, C, F, scale=C ** -0.5, seed=4)
+    f = fb.float()
+    mu, v = pooled_stats(f.sum((1, 2)), (f * f).sum((1, 2)), H * W * G, G)
+    _build.reset_launches()
+    got = carafe_head.head_bwd1(fb, dy, mu, v, w, G)
+    assert _build.LAUNCHES[carafe_head.BWD1_KERNEL] == 1
+    want = carafe_head.head_bwd1_reference(f, dy.float(), mu, v, w, G)
+    for a, b in zip(got, want):
+        _check(a, b, dtype)
+    A, Bq = want[0], want[1]
+    got = carafe_head.fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, S)
+    assert _build.LAUNCHES[carafe_head.FUSED_BWD_KERNEL] == 1
+    want = carafe_head.fused_head_bwd_reference(x.float(), enc.float(), f, dy.float(), mu,
+                                                v, A, Bq, w, S)
+    assert got[0].dtype == dtype and got[1].dtype == dtype and got[2].shape == (C,)
+    for a, b in zip(got, want):
+        _check(a, b, dtype)
+
+
+def test_head_bwd_kernels_reject(dev):
+    fb = torch.zeros(1, 4, 4, 64, device=dev)
+    mu = v = torch.zeros(1, 16, device=dev)
+    w = torch.zeros(16, 1, device=dev)
+    with pytest.raises(ValueError, match="dy"):
+        carafe_head.head_bwd1(fb, torch.zeros(1, 4, 4, 8, device=dev), mu, v, w, 4)
+    with pytest.raises(ValueError, match="w must be"):
+        carafe_head.head_bwd1(fb, torch.zeros(1, 4, 4, 36, device=dev), mu, v,
+                              torch.zeros(16, 9, device=dev), 4)
+    x = torch.zeros(1, 4, 4, 16, device=dev)
+    with pytest.raises(ValueError, match="fb must be"):
+        carafe_head.fused_head_bwd(x, torch.zeros(1, 4, 4, 36, device=dev), fb[..., :32],
+                                   torch.zeros(1, 4, 4, 4, device=dev), mu, v, mu, v, w, 2)
+
+
+def test_head_backward_without_simam_raises(dev):
+    x = _randn(dev, 1, 4, 4, 8).requires_grad_()
+    enc = _randn(dev, 1, 4, 4, 36, seed=1)
+    out = carafe_head.carafe_simam_head(x, enc, torch.zeros(8, device=dev),
+                                        _randn(dev, 8, 1, seed=2), 2, gate=False)
+    with pytest.raises(NotImplementedError, match="queue B item 3"):
+        out.sum().backward()
+
+
+# ---- gradients of a tiny model through the kernels ----
+
+TINY = dict(img_size=64, embed_dim=16, depth=(1, 1, 1, 1), split_size=(1, 2, 2, 2),
+            num_heads=(2, 2, 4, 8))
+
+
+def _grads(model, x, use_kernels, fn):
+    model.zero_grad(set_to_none=True)
+    fn(model, x, use_kernels).backward()
+    return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _loss(model, x, use_kernels):
+    logits = model(x, use_kernels=use_kernels, flat_logits=True).float()
+    return (logits * torch.cos(logits)).mean()
+
+
+@pytest.mark.parametrize("use_simam", [True, False])
+def test_tiny_model_grads_match_plain(dev, use_simam):
+    """SimAM on: every parameter's gradient through the eight kernels against
+    the plain path.  SimAM off: the head's backward is not ported, so the
+    gradients of the decoder features (K-A, K-C and their backward)."""
+    model = CSWinUNet(**TINY, use_simam=use_simam, device=dev, seed=3)
+    x = torch.rand(2, 64, 64, 3, device=dev)
+    if use_simam:
+        fn = _loss
+    else:
+        cot = _randn(dev, 2, 16 * 16, 16, seed=5)
+
+        def fn(model, x, use_kernels):
+            return (model.features(x, use_kernels) * cot).sum()
+
+    _build.reset_launches()
+    on = _grads(model, x, True, fn)
+    counts = dict(_build.LAUNCHES)
+    off = _grads(model, x, False, fn)
+    assert counts[stripe_attention.BWD_KERNEL] == 14
+    assert counts[carafe_kernels.BWD_KERNEL] == 3
+    assert counts[carafe_head.BWD1_KERNEL] == counts[carafe_head.FUSED_BWD_KERNEL] == int(
+        use_simam)
+    assert set(on) == set(off) and len(on) > 0
+    for name, g in off.items():
+        err = float((on[name] - g).abs().max())
+        assert err <= 1e-3 * max(float(g.abs().max()), 1e-12), (name, err)
+
+
+def test_kernel_path_reaches_qkv_weights(dev):
+    """Regression: K-A, K-C and the head once wrote their outputs through
+    ctypes into fresh tensors and cut the autograd graph; the qkv weight of
+    every block then got no gradient through the kernel path."""
+    model = CSWinUNet(**TINY, use_simam=True, device=dev, seed=4)
+    x = torch.rand(1, 64, 64, 3, device=dev)
+    on = _grads(model, x, True, _loss)
+    off = _grads(model, x, False, _loss)
+    for name in ("stage1.0.qkv.weight", "stage3.0.qkv.weight", "stage_up1.0.qkv.weight",
+                 "upsample2.encoder.weight", "upsample1.encoder.weight"):
+        assert name in on and float(on[name].abs().max()) > 0, name
+        err = float((on[name] - off[name]).abs().max())
+        assert err <= 1e-3 * float(off[name].abs().max()), (name, err)
+
+
+def test_train_step_on_card(dev):
+    model = CSWinUNet(**TINY, use_simam=True, device=dev, seed=6)
+    opt = engine.make_optimizer("adamw", 1e-3, 1e-4, model.parameters())
+    step = engine.make_train_step(model, opt)
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (2, 64, 64, 3), generator=gen, dtype=torch.uint8)
+    masks = (torch.randint(0, 2, (2, 64, 64, 1), generator=gen) * 255).to(torch.uint8)
+    hist = [{k: float(v) for k, v in step(images, masks).items()} for _ in range(5)]
+    assert all(0.0 <= h["dice"] <= 1.0 and 0.0 <= h["iou"] <= 1.0 for h in hist)
+    assert hist[-1]["loss"] < hist[0]["loss"]
