@@ -13,31 +13,44 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    a tight tolerance, bfloat16 at batch 2 against the plain version in
    float32 on the same bf16 values with a looser one; then its time, the
    plain version's time, the library call's time where one exists and the
-   bound, all in bf16 at batch 8;
-4. each backward kernel (K-A', K-C', K3, K4) the same way, at the training
-   step's shapes, every output of the kernel checked;
+   bound, all in bf16 at batch 8.  K-A also with attention dropout at rate
+   0.3, mask for mask against the plain version with the same seed, at every
+   window geometry of ``cswin_simam_512`` and of ``cswinunet``, and timed at
+   rate 0.3 beside rate 0 (library: SDPA with ``dropout_p``);
+4. each backward kernel (K-A', K-C', K3, K4, and K3 and K4 without the gate)
+   the same way, at the training step's shapes, every output of the kernel
+   checked; K-A' with dropout as K-A; the two kernels without the gate at
+   ``cswinunet``'s head (448^2, float32, batch 2);
 5. serving: CSWin-SimAM-UNet at 512^2, full width, bf16, kernels on, random
    weights from a seed, served through ``Server`` for requests of batch 1,
    3, 8 and 11 (launch counts reset before and read after); output checks;
    kernels-on against kernels-off in bf16 (batch 2) and float32 (batch 1);
    the launch counts of one batch-8 request; ms per batch-8 request and
    images/s;
-6. training: the same model trained by ``make_train_step`` (AdamW, lr 1e-4,
-   weight decay 1e-4, dropouts 0) on one fixed uint8 batch of 8: the launch
-   counts of one step (counts reset before and read after), 3 warm-up and
-   10 timed steps (ms per step, images/s, peak device memory), a finite and
-   falling loss, Dice and IoU in [0, 1]; then one batch-2 step's gradients
-   with kernels on against kernels off from the same weights, every
-   parameter in float32, the loss in bf16.
+6. training, each path driven by ``make_train_step`` (AdamW, lr 1e-4, weight
+   decay 1e-4) on one fixed uint8 batch of bright discs: the launch counts
+   of one step (counts reset before and read after), 3 warm-up and 10 timed
+   steps (ms per step, images/s, peak device memory), a finite loss whose
+   mean over the last 3 of 13 steps is below the first, Dice and IoU in
+   [0, 1].  The paths: ``cswin_simam_512`` (bf16, batch 8) at drops 0.3, the
+   configs' headline; the same at drops 0; ``cswinunet`` (448^2, no SimAM,
+   float32, batch 2) at drops 0.3.  Then one batch-2 step's gradients with
+   kernels on against kernels off from the same weights and the same dropout
+   seed, every parameter, in float32 for both configs (the masks are the
+   same, so the gradients must agree) and the loss in bf16.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-port next to this file, it exits non-zero and prints no result.
+port next to this file, it exits non-zero and prints no result.  Each phase
+header carries the seconds since the start; a run still going after
+``DEADLINE_S`` prints every thread's traceback and exits non-zero, so a hang
+names its line instead of running into an outside time limit.
 """
 
 from __future__ import annotations
 
 import copy
+import faulthandler
 import json
 import math
 import os
@@ -45,11 +58,15 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 IMG = 512
+IMG448 = 448                        # cswinunet
 SEED = 0
+DROP = 0.3                          # the configs' drop / attention-drop / drop-path
+DROP_SEED = 2 ** 31 + 12345         # attention-dropout seed of the kernel checks
 TIME_BATCH = 8                      # kernels timed at the served bucket
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense bf16 tensor cores
@@ -65,10 +82,16 @@ TOL_MODEL_F32 = 1e-3                # probabilities, kernels on vs off, f32
 TOL_GRAD_F32 = 1e-3                 # x max|g| per parameter, kernels on vs off, f32
 TOL_LOSS_BF16 = 1e-2                # training loss, kernels on vs off, bf16
 TRAIN_WARMUP, TRAIN_STEPS, CHECK_BATCH = 3, 10, 2
+DEADLINE_S = 1100                   # the whole run takes about 70 s on the H100
+LOSS_TAIL = 3                       # the mean of the last 3 losses is below the first
 
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def phase(title: str) -> None:
+    log(f"== {title}  [{time.perf_counter() - T_START:.1f} s]")
 
 
 def run(cmd: list[str]) -> str:
@@ -148,28 +171,109 @@ def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2):
     return errs[0], errs[1], abs32
 
 
+def attention_geometries(model) -> dict:
+    """{(resolution, channels, heads, hsp, wsp): branches} of a model."""
+    from cswin_simam_unet_tpu_torch.models.layers import LePEAttention
+    geoms: dict = {}
+    for mod in model.modules():
+        if isinstance(mod, LePEAttention):
+            key = (mod.resolution, mod.get_v.weight.shape[0], mod.num_heads, mod.hsp, mod.wsp)
+            geoms[key] = geoms.get(key, 0) + 1
+    return geoms
+
+
+def disc_batch(torch, img: int, batch: int, dev):
+    """A fixed uint8 batch of bright discs on noise and their masks, on dev."""
+    import numpy as np
+    rs = np.random.RandomState(SEED + 1)
+    yy, xx = np.mgrid[:img, :img]
+    images = rs.randint(0, 160, (batch, img, img, 3)).astype("uint8")
+    masks = np.zeros((batch, img, img, 1), "uint8")
+    for i in range(batch):  # a learnable batch
+        for _ in range(3):
+            cy, cx = rs.randint(img // 8, img - img // 8, size=2)
+            rad = rs.randint(20, 60)
+            disc = (yy - cy) ** 2 + (xx - cx) ** 2 < rad * rad
+            images[i][disc] = 255
+            masks[i, disc, 0] = 255
+    return torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev)
+
+
+def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev) -> dict:
+    """Train a copy of ``model`` with ``make_train_step`` on one fixed batch:
+    the launch counts of one step (reset before, read after) must be
+    ``want_step``; then 3 warm-up and 10 timed steps.  Returns the step's ms,
+    images/s, peak memory, launches and the losses."""
+    img = model.img_size
+    phase(f"training {label}, {img}^2, {model.dtype}, kernels on: {tcfg}")
+    images_d, masks_d = disc_batch(torch, img, tcfg.batch_size, dev)
+    trained = copy.deepcopy(model)
+    opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
+                                trained.parameters())
+    step = engine.make_train_step(trained, opt, seed=SEED)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    history = [step(images_d, masks_d)]
+    torch.cuda.synchronize()
+    one_step = {k: n for k, n in _build.LAUNCHES.items() if n}
+    log(f"launches of one training step: {one_step}")
+    require(one_step == want_step, f"{label}: step launches {one_step} != {want_step}")
+    for _ in range(TRAIN_WARMUP - 1):
+        history.append(step(images_d, masks_d))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        history.append(step(images_d, masks_d))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    timed = {k: n for k, n in _build.LAUNCHES.items() if n}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(timed == {k: TRAIN_STEPS * n for k, n in want_step.items()},
+            f"{label}: timed-loop launches {timed}")
+    hist = [{k: float(v) for k, v in h.items()} for h in history]
+    for i, h in enumerate(hist):
+        log(f"  step {i}: loss {h['loss']:.6f} dice {h['dice']:.4f} iou {h['iou']:.4f}")
+        require(math.isfinite(h["loss"]), f"{label} step {i}: non-finite loss")
+        require(0.0 <= h["dice"] <= 1.0 and 0.0 <= h["iou"] <= 1.0,
+                f"{label} step {i}: dice/iou outside [0, 1]")
+    tail = sum(h["loss"] for h in hist[-LOSS_TAIL:]) / LOSS_TAIL
+    require(tail < hist[0]["loss"], f"{label}: the loss did not fall on a fixed batch")
+    ips = tcfg.batch_size * 1e3 / step_ms
+    log(f"training step {label}, batch {tcfg.batch_size}: {step_ms:.2f} ms, {ips:.1f} "
+        f"images/s (mean of {TRAIN_STEPS}, host clock after synchronize, {TRAIN_WARMUP} "
+        f"warm-up steps); peak device memory {peak_gib:.2f} GiB; loss {hist[0]['loss']:.4f} "
+        f"-> mean of last {LOSS_TAIL} {tail:.4f}")
+    del trained, opt, step
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, images_per_s=ips, peak_gib=peak_gib, launches=one_step,
+                first_loss=hist[0]["loss"], last3_mean_loss=tail,
+                batch=tcfg.batch_size, img=img)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr, flush=True)
         return 1
+    faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import torch.nn.functional as F
     from cswin_simam_unet_tpu_torch import _build
-    from cswin_simam_unet_tpu_torch.configs import TRAIN_CONFIGS, build_model
+    from cswin_simam_unet_tpu_torch.configs import NO_DROPS, TRAIN_CONFIGS, build_model
     from cswin_simam_unet_tpu_torch.models.layers import CARAFE, LePEAttention
-    from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head
+    from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head, dropout
     from cswin_simam_unet_tpu_torch.ops import carafe_kernels, stripe_attention
     from cswin_simam_unet_tpu_torch.ops.simam import pooled_stats
     from cswin_simam_unet_tpu_torch.serving import Server
     from cswin_simam_unet_tpu_torch.train import engine
 
-    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. environment ----
-    log("== environment")
+    phase("environment")
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
     nvcc_version = run([_build._nvcc(), "--version"]).splitlines()[-1]
@@ -181,16 +285,23 @@ def main() -> int:
     log(f"device 0: {kind}, {torch.cuda.device_count()} visible")
 
     # ---- 2. build ----
-    log("== build")
+    phase("build")
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
     info = _build.build_info
     log(f"built {info['path']} in {build_s:.1f} s (nvcc {info['seconds']:.1f} s, "
         f"cached={info['cached']})")
+    # -Xptxas -v: registers and spills of each kernel instantiation (the
+    # mangled name carries the template arguments, e.g. ...ILi32ELb1E...)
+    kernel, spill = "", ""
     for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+        if "Function properties for" in line:
+            kernel = line.split("Function properties for")[-1].strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            log(f"  ptxas: {kernel[:80]}: {line.split(':', 1)[-1].strip()}; {spill}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -199,38 +310,44 @@ def main() -> int:
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
     model = build_model("cswin_simam_512", device=dev, seed=SEED)
+    model448 = build_model("cswinunet", device=dev, seed=SEED)
     table = {}
 
     # ---- 3. kernels against their plain versions ----
-    log("== kernels vs plain versions (check at batch 2, time at batch 8, bf16)")
+    phase("kernels vs plain versions (check at batch 2, time at batch 8, bf16)")
 
-    # K-A at each attention geometry of the model
-    geoms: dict = {}
-    for mod in model.modules():
-        if isinstance(mod, LePEAttention):
-            key = (mod.resolution, mod.get_v.weight.shape[0], mod.num_heads,
-                   mod.hsp, mod.wsp)
-            geoms[key] = geoms.get(key, 0) + 1
+    # K-A at each attention geometry of the model, without and with dropout
+    geoms = attention_geometries(model)
     ka = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err32=0.0,
-              err16=0.0, bytes=0.0, flops=0.0)
+              err16=0.0, bytes=0.0, flops=0.0, ms_drop=0.0, plain_ms_drop=0.0,
+              library_ms_drop=0.0, err32_drop=0.0, err16_drop=0.0)
     for (reso, Cb, heads, hsp, wsp), count in sorted(geoms.items()):
         L = reso * reso
         kw = dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=heads)
+        kwd = dict(kw, attn_drop=DROP, seed=DROP_SEED)
 
         def make(B, dtype, L=L, Cb=Cb):
             qkv = randn(B, L, 6 * Cb, scale=0.5, dtype=dtype)  # branch slices
             return (qkv[..., :Cb], qkv[..., 2 * Cb:3 * Cb], qkv[..., 4 * Cb:5 * Cb],
                     randn(3, 3, 1, Cb, scale=1 / 3, dtype=dtype))
 
-        e32, e16 = check_pair(f"K-A reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads}",
-                              torch,
+        name = f"K-A reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads}"
+        e32, e16 = check_pair(name, torch,
                               lambda q, k, v, w, kw=kw: stripe_attention.stripe_attention(
                                   q, k, v, w, **kw),
                               lambda q, k, v, w, kw=kw: attention.stripe_attention(
                                   q, k, v, w, **kw), make)
+        d32, d16 = check_pair(name + " dropout 0.3", torch,
+                              lambda q, k, v, w, kw=kwd: stripe_attention.stripe_attention(
+                                  q, k, v, w, **kw),
+                              lambda q, k, v, w, kw=kwd: attention.stripe_attention(
+                                  q, k, v, w, **kw), make)
         q, k, v, w = make(TIME_BATCH, torch.bfloat16)
         ms = time_ms(torch, lambda: stripe_attention.stripe_attention(q, k, v, w, **kw))
+        ms_drop = time_ms(torch, lambda: stripe_attention.stripe_attention(q, k, v, w, **kwd))
         plain = time_ms(torch, lambda: attention.stripe_attention(q, k, v, w, **kw), iters=3)
+        plain_drop = time_ms(torch, lambda: attention.stripe_attention(q, k, v, w, **kwd),
+                             iters=3)
         D, N = Cb // heads, hsp * wsp
 
         def win_heads(t):
@@ -239,18 +356,54 @@ def main() -> int:
         qh, kh, vh = win_heads(q), win_heads(k), win_heads(v)
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, scale=D ** -0.5))
+        lib_drop = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, dropout_p=DROP, scale=D ** -0.5))
         nbytes = 4 * TIME_BATCH * L * Cb * 2 + Cb * 9 * 4
         flops = (4 * N + 18) * TIME_BATCH * L * Cb
         b_ms, _ = bound_ms(nbytes, flops, "bfloat16")
-        log(f"    x{count}/forward: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"sdpa {lib:.4f} ms  bound {b_ms:.4f} ms")
+        log(f"    x{count}/forward: kernel {ms:.4f} ms (dropout 0.3: {ms_drop:.4f})  plain "
+            f"{plain:.4f} ms ({plain_drop:.4f})  sdpa {lib:.4f} ms ({lib_drop:.4f})  "
+            f"bound {b_ms:.4f} ms")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bytes", nbytes), ("flops", flops)):
+                         ("bytes", nbytes), ("flops", flops), ("ms_drop", ms_drop),
+                         ("plain_ms_drop", plain_drop), ("library_ms_drop", lib_drop)):
             ka[key] += count * val
-        ka["err32"] = max(ka["err32"], e32)
-        ka["err16"] = max(ka["err16"], e16)
+        for key, val in (("err32", e32), ("err16", e16), ("err32_drop", d32),
+                         ("err16_drop", d16)):
+            ka[key] = max(ka[key], val)
     ka["bound_ms"], ka["bound_by"] = bound_ms(ka["bytes"], ka["flops"], "bfloat16")
     table["K-A"] = ka
+    # the geometries of cswinunet (448^2, stripes 1, 2, 7, 7): with dropout
+    geoms448 = attention_geometries(model448)
+    for (reso, Cb, heads, hsp, wsp), _ in sorted(geoms448.items()):
+        kwd = dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=DROP,
+                   seed=DROP_SEED)
+
+        def make(B, dtype, L=reso * reso, Cb=Cb):
+            qkv = randn(B, L, 6 * Cb, scale=0.5, dtype=dtype)
+            return (qkv[..., :Cb], qkv[..., 2 * Cb:3 * Cb], qkv[..., 4 * Cb:5 * Cb],
+                    randn(3, 3, 1, Cb, scale=1 / 3, dtype=dtype))
+
+        d32, d16 = check_pair(
+            f"K-A 448^2 reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads} dropout 0.3",
+            torch, lambda q, k, v, w, kw=kwd: stripe_attention.stripe_attention(q, k, v, w, **kw),
+            lambda q, k, v, w, kw=kwd: attention.stripe_attention(q, k, v, w, **kw), make)
+        ka["err32_drop"] = max(ka["err32_drop"], d32)
+        ka["err16_drop"] = max(ka["err16_drop"], d16)
+    # the keep rate read back from K-A: q = k = 0, v = 1, no LePE
+    zeros = torch.zeros(TIME_BATCH, 128 * 128, 32, device=dev)
+    out = stripe_attention.stripe_attention(
+        zeros, zeros, torch.ones_like(zeros), torch.zeros(3, 3, 1, 32, device=dev), H=128,
+        W=128, hsp=128, wsp=1, num_heads=1, attn_drop=DROP, seed=DROP_SEED)
+    n_scores = TIME_BATCH * 128 ** 3
+    p_keep = 1 - dropout.u32_threshold(DROP) / 2 ** 32
+    keep_rate = float(out[..., 0].double().mean()) * (1 - DROP)
+    sigma = (p_keep * (1 - p_keep) / n_scores) ** 0.5
+    log(f"  K-A keep rate at 0.3 read back from the kernel: {keep_rate:.6f} over "
+        f"{n_scores} scores (expected {p_keep:.6f}, 4 sigma {4 * sigma:.2e})")
+    require(abs(keep_rate - p_keep) <= 4 * sigma, f"K-A keep rate {keep_rate}")
+    ka["keep_rate"] = keep_rate
+    del zeros, out
 
     # K-C at the three decoder CARAFEs
     kc = dict(ms=0.0, plain_ms=0.0, err32=0.0, err16=0.0, bytes=0.0, flops=0.0)
@@ -353,29 +506,42 @@ def main() -> int:
     del fb, x, e
 
     # ---- 4. backward kernels against their plain versions ----
-    log("== backward kernels vs plain versions (check at batch 2, time at batch 8, bf16)")
+    phase("backward kernels vs plain versions (check at batch 2, time at batch 8, bf16)")
 
-    # K-A' at each attention geometry of the model
+    # K-A' at each attention geometry of the model, without and with dropout
     kab = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err32=0.0, err16=0.0, abs32=0.0,
-               bytes=0.0, flops=0.0)
-    for (reso, Cb, heads, hsp, wsp), count in sorted(geoms.items()):
-        L = reso * reso
-        kw = dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=heads)
+               bytes=0.0, flops=0.0, ms_drop=0.0, plain_ms_drop=0.0, library_ms_drop=0.0,
+               err32_drop=0.0, err16_drop=0.0, abs32_drop=0.0)
 
-        def make(B, dtype, L=L, Cb=Cb):
+    def make_bwd(L, Cb):
+        def make(B, dtype):
             qkv = randn(B, L, 6 * Cb, scale=0.5, dtype=dtype)  # branch slices
             return (qkv[..., :Cb], qkv[..., 2 * Cb:3 * Cb], qkv[..., 4 * Cb:5 * Cb],
                     randn(3, 3, 1, Cb, scale=1 / 3, dtype=dtype), randn(B, L, Cb, dtype=dtype))
+        return make
 
-        e32, e16, a32 = check_outputs(
-            f"K-A' reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads}", torch,
-            lambda q, k, v, w, g, kw=kw: stripe_attention.attention_bwd(q, k, v, w, g, **kw),
-            lambda q, k, v, w, g, kw=kw: attention.stripe_attention_bwd_reference(
+    def check_bwd(name, kw, make):
+        return check_outputs(
+            name, torch,
+            lambda q, k, v, w, g: stripe_attention.attention_bwd(q, k, v, w, g, **kw),
+            lambda q, k, v, w, g: attention.stripe_attention_bwd_reference(
                 q, k, v, w, g, **kw), make)
+
+    for (reso, Cb, heads, hsp, wsp), count in sorted(geoms.items()):
+        L = reso * reso
+        kw = dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=heads)
+        kwd = dict(kw, attn_drop=DROP, seed=DROP_SEED)
+        make = make_bwd(L, Cb)
+        name = f"K-A' reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads}"
+        e32, e16, a32 = check_bwd(name, kw, make)
+        d32, d16, da32 = check_bwd(name + " dropout 0.3", kwd, make)
         q, k, v, w, g = make(TIME_BATCH, torch.bfloat16)
         ms = time_ms(torch, lambda: stripe_attention.attention_bwd(q, k, v, w, g, **kw))
+        ms_drop = time_ms(torch, lambda: stripe_attention.attention_bwd(q, k, v, w, g, **kwd))
         plain = time_ms(torch, lambda: attention.stripe_attention_bwd_reference(
             q, k, v, w, g, **kw), iters=3)
+        plain_drop = time_ms(torch, lambda: attention.stripe_attention_bwd_reference(
+            q, k, v, w, g, **kwd), iters=3)
         D, N = Cb // heads, hsp * wsp
 
         def win_heads(t):
@@ -383,22 +549,39 @@ def main() -> int:
 
         qh, kh, vh = (win_heads(t).requires_grad_() for t in (q, k, v))
         gh = win_heads(g)
-        sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, scale=D ** -0.5)
-        lib = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh), gh,
-                                                         retain_graph=True))
-        del sdpa_out, qh, kh, vh, gh
+        libs = []
+        for p_drop in (0.0, DROP):
+            # the SDPA call draws its dropout mask in the forward; its backward
+            # is timed on that one graph
+            sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, dropout_p=p_drop,
+                                                      scale=D ** -0.5)
+            libs.append(time_ms(torch, lambda: torch.autograd.grad(
+                sdpa_out, (qh, kh, vh), gh, retain_graph=True)))
+            del sdpa_out
+        lib, lib_drop = libs
+        del qh, kh, vh, gh
         nbytes = 7 * TIME_BATCH * L * Cb * 2 + Cb * 9 * 4 * 2
         flops = (10 * N + 36) * TIME_BATCH * L * Cb
         b_ms, _ = bound_ms(nbytes, flops, "bfloat16")
-        log(f"    x{count}/step: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"sdpa bwd {lib:.4f} ms  bound {b_ms:.4f} ms")
+        log(f"    x{count}/step: kernel {ms:.4f} ms (dropout 0.3: {ms_drop:.4f})  plain "
+            f"{plain:.4f} ms ({plain_drop:.4f})  sdpa bwd {lib:.4f} ms ({lib_drop:.4f})  "
+            f"bound {b_ms:.4f} ms")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bytes", nbytes), ("flops", flops)):
+                         ("bytes", nbytes), ("flops", flops), ("ms_drop", ms_drop),
+                         ("plain_ms_drop", plain_drop), ("library_ms_drop", lib_drop)):
             kab[key] += count * val
-        kab["err32"] = max(kab["err32"], e32)
-        kab["err16"] = max(kab["err16"], e16)
-        kab["abs32"] = max(kab["abs32"], a32)
+        for key, val in (("err32", e32), ("err16", e16), ("abs32", a32), ("err32_drop", d32),
+                         ("err16_drop", d16), ("abs32_drop", da32)):
+            kab[key] = max(kab[key], val)
     kab["bound_ms"], kab["bound_by"] = bound_ms(kab["bytes"], kab["flops"], "bfloat16")
+    for (reso, Cb, heads, hsp, wsp), _ in sorted(geoms448.items()):
+        kwd = dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=DROP,
+                   seed=DROP_SEED)
+        d32, d16, da32 = check_bwd(
+            f"K-A' 448^2 reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads} dropout 0.3",
+            kwd, make_bwd(reso * reso, Cb))
+        for key, val in (("err32_drop", d32), ("err16_drop", d16), ("abs32_drop", da32)):
+            kab[key] = max(kab[key], val)
     table["K-A'"] = kab
 
     # K-C' at the three decoder CARAFEs
@@ -482,10 +665,63 @@ def main() -> int:
     table["K4"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=None, err32=e32, err16=e16, abs32=a32)
     del args, x, e, fb, dy
+
+    # K3 and K4 without the gate at cswinunet's head: fb (2,112,112,1024),
+    # S 4, one class, float32 (its compute dtype), batch 2 (its batch)
+    r448, B448 = IMG448 // 4, TRAIN_CONFIGS["cswinunet"].batch_size
+
+    def make_ng(B, dtype):
+        return (randn(B, r448, r448, G * E, dtype=dtype),
+                randn(B, r448, r448, G * F_cls, dtype=dtype), randn(E, F_cls, scale=E ** -0.5))
+
+    e32, e16, a32 = check_outputs(
+        "K3 no gate fb (112,112,1024) G 16", torch,
+        lambda fb, dy, w: carafe_head.head_bwd1(fb, dy, None, None, w, G, gate=False)[2:],
+        lambda fb, dy, w: carafe_head.head_bwd1_reference(fb, dy, None, None, w, G,
+                                                          gate=False)[2:], make_ng)
+    fb, dy, w = make_ng(B448, torch.float32)
+    ms = time_ms(torch, lambda: carafe_head.head_bwd1(fb, dy, None, None, w, G, gate=False))
+    plain = time_ms(torch, lambda: carafe_head.head_bwd1_reference(fb, dy, None, None, w, G,
+                                                                   gate=False), iters=3)
+    nbytes = (fb.numel() + dy.numel()) * 4 + E * F_cls * 4
+    flops = 2 * F_cls * fb.numel()
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    log(f"    x1/step (batch {B448}, float32): kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+        f"bound {b_ms:.4f} ms")
+    table["K3 no gate"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                               library_ms=None, err32=e32, err16=e16, abs32=a32)
+
+    def make_k4ng(B, dtype):
+        fb, dy, w = make_ng(B, dtype)
+        return (randn(B, r448, r448, E, dtype=dtype), randn(B, r448, r448, 9 * G, dtype=dtype),
+                fb, dy, w)
+
+    def k4ng(x, e, fb, dy, w):
+        return carafe_head.fused_head_bwd(x, e, fb, dy, None, None, None, None, w, S_HEAD,
+                                          gate=False)
+
+    def k4ng_plain(x, e, fb, dy, w):
+        return carafe_head.fused_head_bwd_reference(x, e, fb, dy, None, None, None, None, w,
+                                                    S_HEAD, gate=False)
+
+    e32, e16, a32 = check_outputs("K4 no gate x (112,112,64) S 4", torch, k4ng, k4ng_plain,
+                                  make_k4ng)
+    args = make_k4ng(B448, torch.float32)
+    ms = time_ms(torch, lambda: k4ng(*args))
+    plain = time_ms(torch, lambda: k4ng_plain(*args), iters=3)
+    x, e, _, dy, _ = args
+    nbytes = (2 * x.numel() + 2 * e.numel() + dy.numel()) * 4 + E * F_cls * 4 + E * 4
+    flops = 6 * 9 * x.numel() * G + 2 * F_cls * x.numel() * G
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    log(f"    x1/step (batch {B448}, float32): kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+        f"bound {b_ms:.4f} ms")
+    table["K4 no gate"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                               library_ms=None, err32=e32, err16=e16, abs32=a32)
+    del args, x, e, fb, dy
     torch.cuda.empty_cache()
 
     # ---- 5. serving ----
-    log("== serving CSWin-SimAM-UNet 512^2 bf16, kernels on")
+    phase("serving CSWin-SimAM-UNet 512^2 bf16, kernels on")
     server = Server(model)
     rs = __import__("numpy").random.RandomState(SEED)
     requests = [rs.randint(0, 256, (b, IMG, IMG, 3), dtype="uint8") for b in (1, 3, 8, 11)]
@@ -553,91 +789,67 @@ def main() -> int:
 
 
     # ---- 6. training ----
-    tcfg = TRAIN_CONFIGS["cswin_simam_512"]
-    log(f"== training CSWin-SimAM-UNet 512^2 bf16, kernels on: {tcfg}")
-    rs = __import__("numpy").random.RandomState(SEED + 1)
-    yy, xx = __import__("numpy").mgrid[:IMG, :IMG]
-    images = rs.randint(0, 160, (tcfg.batch_size, IMG, IMG, 3)).astype("uint8")
-    masks = __import__("numpy").zeros((tcfg.batch_size, IMG, IMG, 1), "uint8")
-    for i in range(tcfg.batch_size):  # bright discs and their masks: a learnable batch
-        for _ in range(3):
-            cy, cx, rad = rs.randint(64, IMG - 64), rs.randint(64, IMG - 64), rs.randint(20, 60)
-            disc = (yy - cy) ** 2 + (xx - cx) ** 2 < rad * rad
-            images[i][disc] = 255
-            masks[i, disc, 0] = 255
-    images_d = torch.from_numpy(images).to(dev)
-    masks_d = torch.from_numpy(masks).to(dev)
-    trained = copy.deepcopy(model)
-    opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
-                                trained.parameters())
-    step = engine.make_train_step(trained, opt)
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    history = [step(images_d, masks_d)]
-    torch.cuda.synchronize()
-    per_step = dict(_build.LAUNCHES)
-    log(f"launches of one training step: {per_step}")
-    want_step = {**per_forward, stripe_attention.BWD_KERNEL: per_forward[stripe_attention.KERNEL],
-                 carafe_kernels.BWD_KERNEL: per_forward[carafe_kernels.KERNEL],
-                 carafe_head.BWD1_KERNEL: 1, carafe_head.FUSED_BWD_KERNEL: 1}
-    require(per_step == want_step, f"training-step launches {per_step} != {want_step}")
-    for _ in range(TRAIN_WARMUP - 1):
-        history.append(step(images_d, masks_d))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        history.append(step(images_d, masks_d))
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
-    timed = dict(_build.LAUNCHES)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    require(timed == {k: TRAIN_STEPS * n for k, n in want_step.items()},
-            f"timed-loop launches {timed}")
-    hist = [{k: float(v) for k, v in h.items()} for h in history]
-    for i, h in enumerate(hist):
-        log(f"  step {i}: loss {h['loss']:.6f} dice {h['dice']:.4f} iou {h['iou']:.4f}")
-        require(math.isfinite(h["loss"]), f"step {i}: non-finite loss")
-        require(0.0 <= h["dice"] <= 1.0 and 0.0 <= h["iou"] <= 1.0,
-                f"step {i}: dice/iou outside [0, 1]")
-    require(hist[-1]["loss"] < hist[0]["loss"], "the loss did not fall on a fixed batch")
-    log(f"training step, batch {tcfg.batch_size}: {step_ms:.2f} ms, "
-        f"{tcfg.batch_size * 1e3 / step_ms:.1f} images/s (mean of {TRAIN_STEPS}, host clock "
-        f"after synchronize, {TRAIN_WARMUP} warm-up steps); peak device memory "
-        f"{peak_gib:.2f} GiB")
-    del trained, opt, step
+    per_step = {**per_forward, stripe_attention.BWD_KERNEL: per_forward[stripe_attention.KERNEL],
+                carafe_kernels.BWD_KERNEL: per_forward[carafe_kernels.KERNEL],
+                carafe_head.BWD1_KERNEL: 1, carafe_head.FUSED_BWD_KERNEL: 1}
+    n_attn448 = len([m for m in model448.modules() if isinstance(m, LePEAttention)])
+    per_step448 = {stripe_attention.KERNEL: n_attn448, stripe_attention.BWD_KERNEL: n_attn448,
+                   carafe_kernels.KERNEL: len(ups), carafe_kernels.BWD_KERNEL: len(ups),
+                   carafe_head.MOMENTS_KERNEL: 1, carafe_head.HEAD_KERNEL: 1,
+                   carafe_head.BWD1_NOGATE_KERNEL: 1, carafe_head.FUSED_BWD_NOGATE_KERNEL: 1}
+    model0 = build_model("cswin_simam_512", device=dev, seed=SEED, **NO_DROPS)
+    runs = {}
+    for label, net, cfg_name, want_step in (
+            ("cswin_simam_512 drops 0.3", model, "cswin_simam_512", per_step),
+            ("cswin_simam_512 drops 0", model0, "cswin_simam_512", per_step),
+            ("cswinunet drops 0.3", model448, "cswinunet", per_step448)):
+        runs[label] = train_phase(torch, engine, _build, label, net, TRAIN_CONFIGS[cfg_name],
+                                  want_step, dev)
+    del model0
+    train_launches = runs["cswin_simam_512 drops 0.3"]["launches"]
+    train_launches448 = runs["cswinunet drops 0.3"]["launches"]
 
     # kernels on against kernels off, one batch-2 step from the same weights
-    def grads_of(net, use_kernels):
+    # and the same dropout seed (so the same masks)
+    def grads_of(net, use_kernels, images_d, masks_d):
         net.zero_grad(set_to_none=True)
         loss, _, _ = engine.compute_gradients(net, images_d[:CHECK_BATCH],
-                                              masks_d[:CHECK_BATCH], 1, use_kernels)
+                                              masks_d[:CHECK_BATCH], 1, use_kernels,
+                                              rng=DROP_SEED)
         grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
         net.zero_grad(set_to_none=True)
         return float(loss), grads
 
-    loss_on, g_on = grads_of(model32, True)
-    loss_off, g_off = grads_of(model32, False)
-    worst_name, worst = "", 0.0
-    for name, g in g_off.items():
-        rel = float((g_on[name] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
-        if rel > worst:
-            worst_name, worst = name, rel
-        require(rel <= TOL_GRAD_F32, f"float32 gradient of {name}: rel gap {rel}")
-    log(f"gradients, kernels on vs off, float32, batch {CHECK_BATCH}: loss {loss_on:.6f} "
-        f"vs {loss_off:.6f}; largest gap {worst:.3e} x max|g| ({worst_name}) over "
-        f"{len(g_off)} parameters (tol {TOL_GRAD_F32:g})")
-    del model32, g_on, g_off
-    loss_on, g_on = grads_of(model, True)
-    loss_off, g_off = grads_of(model, False)
+    def compare_f32(label, net, img):
+        images_d, masks_d = disc_batch(torch, img, CHECK_BATCH, dev)
+        loss_on, g_on = grads_of(net, True, images_d, masks_d)
+        loss_off, g_off = grads_of(net, False, images_d, masks_d)
+        worst_name, worst = "", 0.0
+        for name, g in g_off.items():
+            rel = float((g_on[name] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+            if rel > worst:
+                worst_name, worst = name, rel
+            require(rel <= TOL_GRAD_F32, f"{label}: float32 gradient of {name}: rel gap {rel}")
+        log(f"gradients, kernels on vs off, {label}, float32, batch {CHECK_BATCH}, dropout "
+            f"seed {DROP_SEED}: loss {loss_on:.6f} vs {loss_off:.6f}; largest gap "
+            f"{worst:.3e} x max|g| ({worst_name}) over {len(g_off)} parameters "
+            f"(tol {TOL_GRAD_F32:g})")
+        return worst
+
+    phase("gradients, kernels on vs off, drops 0.3, one dropout seed")
+    grad_gap = compare_f32("cswin_simam_512 drops 0.3", model32, IMG)
+    del model32
+    grad_gap448 = compare_f32("cswinunet drops 0.3", model448, IMG448)
+    images_d, masks_d = disc_batch(torch, IMG, CHECK_BATCH, dev)
+    loss_on, g_on = grads_of(model, True, images_d, masks_d)
+    loss_off, g_off = grads_of(model, False, images_d, masks_d)
     groups: dict = {}
     for name, g in g_off.items():
         rel = float((g_on[name] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
         grp = name.split(".")[0]
         groups[grp] = max(groups.get(grp, 0.0), rel)
-    log(f"gradients, kernels on vs off, bf16, batch {CHECK_BATCH}: loss {loss_on:.6f} vs "
-        f"{loss_off:.6f} (tol {TOL_LOSS_BF16:g}); largest rel gap per group: "
+    log(f"gradients, kernels on vs off, bf16, drops 0.3, batch {CHECK_BATCH}: loss "
+        f"{loss_on:.6f} vs {loss_off:.6f} (tol {TOL_LOSS_BF16:g}); largest rel gap per group: "
         + ", ".join(f"{k} {v:.2e}" for k, v in groups.items()))
     require(abs(loss_on - loss_off) <= TOL_LOSS_BF16, "bf16 loss, kernels on vs off")
     del g_on, g_off
@@ -653,7 +865,7 @@ def main() -> int:
         "K-H2": ("csu_simam_head_fwd", "cswin_simam_unet_tpu_torch/csrc/simam_head.cu",
                  "cswin_simam_unet_tpu/ops/pallas_simam_head.py:109"),
         "K-A'": ("csu_stripe_attention_bwd",
-                 "cswin_simam_unet_tpu_torch/csrc/stripe_attention.cu",
+                 "cswin_simam_unet_tpu_torch/csrc/stripe_attention_bwd.cu",
                  "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:219"),
         "K-C'": ("csu_carafe_bwd", "cswin_simam_unet_tpu_torch/csrc/carafe.cu",
                  "cswin_simam_unet_tpu/ops/pallas_carafe.py:196"),
@@ -661,13 +873,21 @@ def main() -> int:
                "cswin_simam_unet_tpu/ops/pallas_simam_head.py:124"),
         "K4": ("csu_carafe_head_bwd", "cswin_simam_unet_tpu_torch/csrc/carafe.cu",
                "cswin_simam_unet_tpu/ops/pallas_carafe_head.py:163"),
+        "K3 no gate": ("csu_head_bwd1_nogate", "cswin_simam_unet_tpu_torch/csrc/simam_head.cu",
+                       "cswin_simam_unet_tpu/ops/pallas_simam_head.py:178"),
+        "K4 no gate": ("csu_carafe_head_bwd_nogate",
+                       "cswin_simam_unet_tpu_torch/csrc/carafe.cu",
+                       "cswin_simam_unet_tpu/ops/pallas_carafe_head.py:163"),
     }
     kernels = []
     for label, (fn, src, replaces) in sources.items():
         row = table[label]
-        kernels.append({
+        # launches: one training step of the path that runs the kernel
+        # (cswin_simam_512 at drops 0.3, or cswinunet for the two without gate)
+        path = train_launches if train_launches.get(fn) else train_launches448
+        entry = {
             "name": f"{label} {fn}", "route": "cuda", "source": src, "replaces": replaces,
-            "launches": per_step[fn], "launches_timed_steps": timed[fn],
+            "launches": path[fn], "launches_cswinunet_step": train_launches448.get(fn, 0),
             "launches_serving": launches.get(fn, 0),
             "launches_per_forward": batch8.get(fn, 0),
             "max_abs_err": row.get("abs32", row["err32"]),
@@ -675,10 +895,21 @@ def main() -> int:
             "err_scaled_by_max_plain": "abs32" in row,
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "pass": True,
-        })
-    log(f"build {build_s:.1f} s, whole run {time.perf_counter() - t_start:.1f} s")
+        }
+        if "ms_drop" in row:
+            entry.update(ms_dropout=row["ms_drop"], plain_ms_dropout=row["plain_ms_drop"],
+                         library_ms_dropout=row["library_ms_drop"],
+                         max_abs_err_dropout=row.get("abs32_drop", row["err32_drop"]),
+                         max_abs_err_bf16_dropout=row["err16_drop"])
+        kernels.append(entry)
+    log("training: " + json.dumps({k: {m: v for m, v in r.items() if m != "launches"}
+                                   for k, r in runs.items()}))
+    log(f"f32 gradient gaps, kernels on vs off at drops 0.3: cswin_simam_512 {grad_gap:.3e}, "
+        f"cswinunet {grad_gap448:.3e}; K-A keep rate {table['K-A']['keep_rate']:.6f}")
+    log(f"build {build_s:.1f} s, whole run {time.perf_counter() - T_START:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
+    faulthandler.cancel_dump_traceback_later()
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -31,13 +31,16 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# a compile or the link that runs this long has hung (each takes seconds)
+NVCC_TIMEOUT_S = 300
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_U = ctypes.c_uint32
 _SIGNATURES = {
     # dtype, q, k, v, lepe_w, out, ldq, ldk, ldv, ldo,
-    # B, H, W, hsp, wsp, heads, head_dim, scale, stream
+    # B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, stream
     "csu_stripe_attention_fwd": [_I, _P, _P, _P, _P, _P, _L, _L, _L, _L,
-                                 _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
     # dtype, x, enc, out, B, H, W, C, S, vec, px, stream
     "csu_carafe_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, enc, bias, fb, s1, s2, B, H, W, C, S, vec, px, stream
@@ -48,9 +51,9 @@ _SIGNATURES = {
     "csu_simam_head_fwd": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
                            _F, _I, _P],
     # dtype, q, k, v, lepe_w, dout, dq, dk, dv, dw_part, ldq, ldk, ldv, ldg,
-    # B, H, W, hsp, wsp, heads, head_dim, scale, stream
+    # B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, stream
     "csu_stripe_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
-                                 _L, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                                 _L, _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
     # dtype, x, enc, dacc, dx, denc, B, H, W, C, S, vec, px, stream
     "csu_carafe_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, fb, dy, mu, var, w, a_part, b_part, dw_part, B, H, W, C, G, F,
@@ -61,6 +64,11 @@ _SIGNATURES = {
     # S, F, vec, px, lam, stream
     "csu_carafe_head_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # dtype, fb, dy, dw_part, B, H, W, C, G, F, vec, stream
+    "csu_head_bwd1_nogate": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, enc, dy, w, dx, denc, db_part, B, H, W, C, S, F, vec, px, stream
+    "csu_carafe_head_bwd_nogate": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -116,7 +124,7 @@ def _build() -> Path:
     logs, failed = [], []
     try:
         for name, _, proc in jobs:
-            out, _ = proc.communicate(timeout=900)
+            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
             logs.append(f"== {name}\n{out}")
             if proc.returncode != 0:
                 failed.append(f"{name} (code {proc.returncode}):\n{out[-4000:]}")
@@ -129,7 +137,8 @@ def _build() -> Path:
     if not failed:
         tmp = out_dir / f"libcsu_kernels.{pid}.so"
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]],
-                              capture_output=True, text=True, timeout=300)
+                              capture_output=True, text=True,
+                              timeout=NVCC_TIMEOUT_S)
         log += link.stdout + link.stderr
         if link.returncode != 0:
             failed.append(f"link (code {link.returncode}):\n{link.stderr[-4000:]}")

@@ -1,12 +1,17 @@
-"""The model configuration this port serves and trains.
+"""The model configurations this port serves and trains.
 
 ``cswin_simam_512`` is the flagship geometry of the JAX package's configs
 (``cswin_simam_unet_tpu/configs.py``, the CSWin-SimAM-UNet entries with
 512^2-capable stripes [1,2,8,8]) with the binary head and bf16 compute that
 ``bench.py`` measures: embed 64, depths (1,2,9,1), heads (2,4,8,16), SimAM
 on; its training settings are ``bench.py``'s too: AdamW, lr 1e-4, weight
-decay 1e-4, batch 8.  The kernels are chosen per call (``forward``/
-``predict``/``make_train_step``, on by default), not here.
+decay 1e-4, batch 8.  ``cswinunet`` is the JAX package's reference default
+run (``configs.py`` ``CONFIGS["cswinunet"]``): 448^2, stripes [1,2,7,7], no
+SimAM, float32, AdamW lr 1e-4, weight decay 1e-4, batch 2.  Both train with
+drop / attention-drop / drop-path 0.3, as every CSWin config of the JAX
+package does (``_cswin_model``); ``build_model(name, **NO_DROPS)`` gives the
+drops-0 variant (``bench.py --no-train-drops``).  The kernels are chosen per
+call (``forward``/``predict``/``make_train_step``, on by default), not here.
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ class ModelConfig:
     num_heads: tuple = (2, 4, 8, 16)
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
     use_simam: bool = True
     dtype: str = "bfloat16"  # 'float32' | 'bfloat16' compute dtype
 
@@ -43,8 +51,19 @@ class TrainConfig:
     batch_size: int = 8
 
 
-CONFIGS = {"cswin_simam_512": ModelConfig()}
-TRAIN_CONFIGS = {"cswin_simam_512": TrainConfig()}
+# every CSWin config of the JAX package trains with these (_cswin_model)
+DROPS = dict(drop_rate=0.3, attn_drop_rate=0.3, drop_path_rate=0.3)
+NO_DROPS = dict(drop_rate=0.0, attn_drop_rate=0.0, drop_path_rate=0.0)
+
+CONFIGS = {
+    "cswin_simam_512": ModelConfig(**DROPS),
+    "cswinunet": ModelConfig(img_size=448, split_size=(1, 2, 7, 7), use_simam=False,
+                             dtype="float32", **DROPS),
+}
+TRAIN_CONFIGS = {
+    "cswin_simam_512": TrainConfig(),
+    "cswinunet": TrainConfig(batch_size=2),
+}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -165,6 +165,11 @@ static cudaError_t dispatch_carafe(int dtype, int vec, const void* x, const void
 // pixel the dp partials of each thread meet in shared memory and are summed
 // in a fixed order (deterministic), and the dx gather reads the staged
 // neighbours.  The halo costs (px+2)/px x 3 recomputations of dacc in K4.
+//
+// K4 without the gate replaces the gate=False branch of the same
+// _fused_bwd_kernel (pallas_carafe_head.py:370-397, the head without SimAM):
+// dacc is the head dot's cotangent dy W^T alone, so fb, the statistics and A,
+// B are not read; everything else is K4.
 struct HeadGrad {
   const void* fb;     // (B, H, W, S*S*C) biased flat map, compute dtype
   const void* dy;     // (B, H, W, S*S*F) cotangent of the flat logits
@@ -175,6 +180,7 @@ struct HeadGrad {
   const float* Bq;    // (B, C) pooled sum of t * (x - mu)^2 (K3)
   float* db_part;     // (blocks, S*S*C) float32 partial sums of dacc
   int F;
+  int gate;           // 0: dacc = dy W^T (fb, mu, var, A, Bq unused)
   float lam, inv_count, inv_count_m1;  // 1/(H*W*S*S), 1/(H*W*S*S - 1)
 };
 
@@ -236,7 +242,7 @@ __global__ void carafe_bwd_kernel(const T* __restrict__ x, const T* __restrict__
   float mu_c[VEC], w4[VEC], a_c[VEC], b_c[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) db[i] = mu_c[i] = w4[i] = a_c[i] = b_c[i] = 0.f;
-  if constexpr (HEAD) {
+  if (HEAD && hg.gate) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       const int64_t bc = (int64_t)b * C + c + i;
@@ -259,13 +265,18 @@ __global__ void carafe_bwd_kernel(const T* __restrict__ x, const T* __restrict__
         const T* dy = static_cast<const T*>(hg.dy) + pix * S2 * hg.F + s * hg.F;
         const T* w = static_cast<const T*>(hg.w);
         float xv[VEC];
-        load_vec<T, VEC>(fb + pix * SC + s * C + c, xv);
+        if (hg.gate) load_vec<T, VEC>(fb + pix * SC + s * C + c, xv);
         const bool local = r == 1 && jj >= 1 && jj <= px;
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           float dg = 0.f;
           for (int f = 0; f < hg.F; ++f)
             dg = fmaf(to_f(dy[f]), to_f(w[(int64_t)(c + i) * hg.F + f]), dg);
+          if (!hg.gate) {
+            val[i] = dg;
+            if (local) db[i] += dg;
+            continue;
+          }
           const float xf = xv[i];
           const float xc = xf - mu_c[i];
           const float e = xc * xc * w4[i] + 0.5f;
@@ -452,8 +463,22 @@ CSU_EXPORT int csu_carafe_head_bwd(int dtype, const void* x, const void* enc,
   const double count = (double)H * W * S * S;
   const csu::HeadGrad hg{fb, dy, w, static_cast<const float*>(mu),
                          static_cast<const float*>(var), static_cast<const float*>(A),
-                         static_cast<const float*>(Bq), static_cast<float*>(db_part), F,
+                         static_cast<const float*>(Bq), static_cast<float*>(db_part), F, 1,
                          lam, (float)(1.0 / count), (float)(1.0 / (count - 1.0))};
+  return (int)csu::dispatch_carafe_bwd<true>(dtype, vec, x, enc, nullptr, hg, dx, denc, B,
+                                             H, W, C, S, px,
+                                             static_cast<cudaStream_t>(stream));
+}
+
+// K4 without the gate (the head without SimAM): as csu_carafe_head_bwd with
+// dacc = dy W^T, from dy (B, H, W, S*S*F) and w (C, F) alone.
+CSU_EXPORT int csu_carafe_head_bwd_nogate(int dtype, const void* x, const void* enc,
+                                          const void* dy, const void* w, void* dx,
+                                          void* denc, void* db_part, int B, int H, int W,
+                                          int C, int S, int F, int vec, int px,
+                                          void* stream) {
+  const csu::HeadGrad hg{nullptr, dy, w, nullptr, nullptr, nullptr, nullptr,
+                         static_cast<float*>(db_part), F, 0, 0.f, 0.f, 0.f};
   return (int)csu::dispatch_carafe_bwd<true>(dtype, vec, x, enc, nullptr, hg, dx, denc, B,
                                              H, W, C, S, px,
                                              static_cast<cudaStream_t>(stream));

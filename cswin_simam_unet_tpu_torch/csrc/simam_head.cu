@@ -108,7 +108,12 @@ static cudaError_t launch_head(const void* fb, const void* mu, const void* var,
 // so each pixel's G*C values are one coalesced block-wide load; a thread
 // walks the row's pixels and keeps its A, B and dW sums in registers, and
 // writes them once, so no atomics and a fixed summation order.
-template <typename T, int VEC>
+//
+// K3 without the gate (GATE false) replaces ops/pallas_simam_head.py::
+// _bwd1_nogate_kernel (launched at pallas_carafe_head.py:382, the fused head
+// without SimAM): dW[c, f] = sum over the map of fb * dy[g*F + f], the same
+// per-row float32 partials in the same order, and no A, B, mu, var or W.
+template <typename T, int VEC, bool GATE>
 __global__ void head_bwd1_kernel(const T* __restrict__ fb, const T* __restrict__ dy,
                                  const float* __restrict__ mu,
                                  const float* __restrict__ var, const T* __restrict__ w,
@@ -122,12 +127,12 @@ __global__ void head_bwd1_kernel(const T* __restrict__ fb, const T* __restrict__
   float a[VEC], bq[VEC], dw[VEC][kMaxClasses];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    mu_c[i] = mu[(int64_t)b * C + c + i];
-    den[i] = 4.f * (var[(int64_t)b * C + c + i] + lam);
+    mu_c[i] = GATE ? mu[(int64_t)b * C + c + i] : 0.f;
+    den[i] = GATE ? 4.f * (var[(int64_t)b * C + c + i] + lam) : 1.f;
     a[i] = bq[i] = 0.f;
 #pragma unroll
     for (int f = 0; f < kMaxClasses; ++f) {
-      wv[i][f] = f < F ? to_f(w[(int64_t)(c + i) * F + f]) : 0.f;
+      wv[i][f] = GATE && f < F ? to_f(w[(int64_t)(c + i) * F + f]) : 0.f;
       dw[i][f] = 0.f;
     }
   }
@@ -141,6 +146,11 @@ __global__ void head_bwd1_kernel(const T* __restrict__ fb, const T* __restrict__
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       const float xf = xv[i];
+      if constexpr (!GATE) {
+#pragma unroll
+        for (int f = 0; f < kMaxClasses; ++f) dw[i][f] = fmaf(xf, dyv[f], dw[i][f]);
+        continue;
+      }
       const float xc = xf - mu_c[i];
       const float e = xc * xc / den[i] + 0.5f;
       const float gt = 1.f / (1.f + expf(-e));
@@ -158,13 +168,15 @@ __global__ void head_bwd1_kernel(const T* __restrict__ fb, const T* __restrict__
   const int64_t lane0 = (int64_t)row * GC + g * C + c;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    a_part[lane0 + i] = a[i];
-    b_part[lane0 + i] = bq[i];
+    if constexpr (GATE) {
+      a_part[lane0 + i] = a[i];
+      b_part[lane0 + i] = bq[i];
+    }
     for (int f = 0; f < F; ++f) dw_part[(lane0 + i) * F + f] = dw[i][f];
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool GATE>
 static cudaError_t launch_head_bwd1(const void* fb, const void* dy, const void* mu,
                                     const void* var, const void* w, void* a_part,
                                     void* b_part, void* dw_part, int B, int H, int W,
@@ -172,13 +184,35 @@ static cudaError_t launch_head_bwd1(const void* fb, const void* dy, const void* 
   if (C % VEC || F < 1 || F > kMaxClasses) return cudaErrorInvalidValue;
   const int threads = G * (C / VEC);
   if (threads > 1024) return cudaErrorInvalidValue;
-  head_bwd1_kernel<T, VEC><<<(unsigned)(B * H), threads, 0, stream>>>(
+  head_bwd1_kernel<T, VEC, GATE><<<(unsigned)(B * H), threads, 0, stream>>>(
       static_cast<const T*>(fb), static_cast<const T*>(dy), static_cast<const float*>(mu),
       static_cast<const float*>(var), static_cast<const T*>(w),
       static_cast<float*>(a_part), static_cast<float*>(b_part),
       static_cast<float*>(dw_part), H, W, C, G, F, lam);
   return cudaGetLastError();
 }
+
+template <bool GATE>
+static cudaError_t dispatch_head_bwd1(int dtype, int vec, const void* fb, const void* dy,
+                                      const void* mu, const void* var, const void* w,
+                                      void* a_part, void* b_part, void* dw_part, int B,
+                                      int H, int W, int C, int G, int F, float lam,
+                                      cudaStream_t s) {
+  if (dtype == kFloat32 && vec == 4)
+    return launch_head_bwd1<float, 4, GATE>(fb, dy, mu, var, w, a_part, b_part, dw_part, B,
+                                            H, W, C, G, F, lam, s);
+  if (dtype == kFloat32 && vec == 1)
+    return launch_head_bwd1<float, 1, GATE>(fb, dy, mu, var, w, a_part, b_part, dw_part, B,
+                                            H, W, C, G, F, lam, s);
+  if (dtype == kBFloat16 && vec == 8)
+    return launch_head_bwd1<__nv_bfloat16, 8, GATE>(fb, dy, mu, var, w, a_part, b_part,
+                                                    dw_part, B, H, W, C, G, F, lam, s);
+  if (dtype == kBFloat16 && vec == 1)
+    return launch_head_bwd1<__nv_bfloat16, 1, GATE>(fb, dy, mu, var, w, a_part, b_part,
+                                                    dw_part, B, H, W, C, G, F, lam, s);
+  return cudaErrorInvalidValue;
+}
+
 
 }  // namespace csu
 
@@ -208,6 +242,7 @@ CSU_EXPORT int csu_simam_head_fwd(int dtype, const void* fb, const void* mu,
   return (int)cudaErrorInvalidValue;
 }
 
+
 // K3: fb (B, H, W, G*C) and dy (B, H, W, G*F) in the compute dtype, mu and
 // var (B, C) float32, w (C, F) in the compute dtype; a_part and b_part
 // (B*H, G*C) and dw_part (B*H, G*C, F) float32 receive each image row's sums.
@@ -215,22 +250,19 @@ CSU_EXPORT int csu_head_bwd1(int dtype, const void* fb, const void* dy, const vo
                              const void* var, const void* w, void* a_part, void* b_part,
                              void* dw_part, int B, int H, int W, int C, int G, int F,
                              int vec, float lam, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == csu::kFloat32 && vec == 4)
-    return (int)csu::launch_head_bwd1<float, 4>(fb, dy, mu, var, w, a_part, b_part,
-                                                dw_part, B, H, W, C, G, F, lam, s);
-  if (dtype == csu::kFloat32 && vec == 1)
-    return (int)csu::launch_head_bwd1<float, 1>(fb, dy, mu, var, w, a_part, b_part,
-                                                dw_part, B, H, W, C, G, F, lam, s);
-  if (dtype == csu::kBFloat16 && vec == 8)
-    return (int)csu::launch_head_bwd1<__nv_bfloat16, 8>(fb, dy, mu, var, w, a_part,
-                                                        b_part, dw_part, B, H, W, C, G,
-                                                        F, lam, s);
-  if (dtype == csu::kBFloat16 && vec == 1)
-    return (int)csu::launch_head_bwd1<__nv_bfloat16, 1>(fb, dy, mu, var, w, a_part,
-                                                        b_part, dw_part, B, H, W, C, G,
-                                                        F, lam, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)csu::dispatch_head_bwd1<true>(dtype, vec, fb, dy, mu, var, w, a_part, b_part,
+                                            dw_part, B, H, W, C, G, F, lam,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+// K3 without the gate: dw_part (B*H, G*C, F) float32 receives each image
+// row's sums of fb * dy for fb (B, H, W, G*C) and dy (B, H, W, G*F).
+CSU_EXPORT int csu_head_bwd1_nogate(int dtype, const void* fb, const void* dy,
+                                    void* dw_part, int B, int H, int W, int C, int G,
+                                    int F, int vec, void* stream) {
+  return (int)csu::dispatch_head_bwd1<false>(dtype, vec, fb, dy, nullptr, nullptr, nullptr,
+                                             nullptr, nullptr, dw_part, B, H, W, C, G, F,
+                                             0.f, static_cast<cudaStream_t>(stream));
 }
 
 // The message of a CUDA error code returned by the functions above.

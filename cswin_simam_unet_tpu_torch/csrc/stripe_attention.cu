@@ -5,7 +5,13 @@
 // window of N = hsp*wsp tokens and per head:
 //     out = softmax(round(q*scale) k^T) v + LePE(v)
 // where LePE is the window-local, zero-padded depthwise 3x3 conv of v.  The
-// get_v bias is added by the caller, after attention.
+// get_v bias is added by the caller, after attention.  With attention
+// dropout (the DROP instantiation, picked when the threshold is non-zero) the
+// float32 probabilities are dropped and rescaled by 1 / (1 - rate) before
+// their rounding to the compute dtype (pallas_attention_v2.py:211-213); the
+// keep bit of each score is recomputed from the counter hash of
+// common.cuh::drop_keep, so no mask is stored and shared memory does not
+// grow.
 //
 // What bounds it on the H100: at the 512^2 shapes (N = 128 or 256, head dim
 // 32) every window is small, so the work is 4*B*L*N*Cb flops over only
@@ -26,14 +32,13 @@
 
 namespace csu {
 
-constexpr int kAttnThreads = 256;
-
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kAttnThreads)
 stripe_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const float* __restrict__ lepe_w,
                         T* __restrict__ out, int64_t ldq, int64_t ldk, int64_t ldv,
-                        int64_t ldo, int H, int W, int hsp, int wsp, float scale) {
+                        int64_t ldo, int H, int W, int hsp, int wsp, float scale,
+                        AttnDrop drop) {
   extern __shared__ float smem[];
   constexpr int KS = D + 1;
   const int N = hsp * wsp;
@@ -47,6 +52,7 @@ stripe_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wy = (win / nw) % nh, wx = win % nw;
   const int64_t row0 = (int64_t)b * H * W;
   const int c0 = head * D;
+  const uint32_t hbase = DROP ? drop_base(drop.seed, win, head) : 0u;
   // token n of the window (row-major in hsp x wsp) -> row of (B, H*W, C)
   auto tok = [&](int n) -> int64_t {
     const int ty = n / wsp, tx = n - ty * wsp;
@@ -92,7 +98,12 @@ stripe_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < N; j += 32) P[j] = round_to<T>(P[j] / sum);
+    for (int j = lane; j < N; j += 32) {
+      float p = P[j] / sum;
+      if constexpr (DROP)
+        p = drop_keep(hbase, (uint32_t)(i * N + j), drop.threshold) ? p * drop.inv_keep : 0.f;
+      P[j] = round_to<T>(p);
+    }
     __syncwarp();
 
     float acc[CPL];
@@ -135,23 +146,23 @@ stripe_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 static cudaError_t launch_attention(const void* q, const void* k, const void* v,
                                     const void* lepe_w, void* out, int64_t ldq,
                                     int64_t ldk, int64_t ldv, int64_t ldo, int B,
                                     int H, int W, int hsp, int wsp, int heads,
-                                    float scale, cudaStream_t stream) {
+                                    float scale, AttnDrop drop, cudaStream_t stream) {
   const int N = hsp * wsp;
   const size_t smem = sizeof(float) * ((size_t)N * (D + 1) + (size_t)N * D +
                                        (size_t)(kAttnThreads / 32) * N);
   static std::atomic<int> opted[kMaxDevices];
-  const cudaError_t e = opt_in_smem(stripe_attention_kernel<T, D>, smem, opted);
+  const cudaError_t e = opt_in_smem(stripe_attention_kernel<T, D, DROP>, smem, opted);
   if (e != cudaSuccess) return e;
   const dim3 grid((unsigned)(B * (H / hsp) * (W / wsp)), (unsigned)heads);
-  stripe_attention_kernel<T, D><<<grid, kAttnThreads, smem, stream>>>(
+  stripe_attention_kernel<T, D, DROP><<<grid, kAttnThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(lepe_w), static_cast<T*>(out), ldq, ldk, ldv, ldo,
-      H, W, hsp, wsp, scale);
+      H, W, hsp, wsp, scale, drop);
   return cudaGetLastError();
 }
 
@@ -160,306 +171,23 @@ static cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k,
                                      const void* v, const void* lepe_w, void* out,
                                      int64_t ldq, int64_t ldk, int64_t ldv,
                                      int64_t ldo, int B, int H, int W, int hsp,
-                                     int wsp, int heads, float scale,
+                                     int wsp, int heads, float scale, AttnDrop drop,
                                      cudaStream_t stream) {
+#define CSU_ATTN_FWD(DIM)                                                                 \
+  return drop.threshold                                                                   \
+             ? launch_attention<T, DIM, true>(q, k, v, lepe_w, out, ldq, ldk, ldv, ldo, B, \
+                                              H, W, hsp, wsp, heads, scale, drop, stream) \
+             : launch_attention<T, DIM, false>(q, k, v, lepe_w, out, ldq, ldk, ldv, ldo,  \
+                                               B, H, W, hsp, wsp, heads, scale, drop,     \
+                                               stream)
   switch (head_dim) {
-    case 8:
-      return launch_attention<T, 8>(q, k, v, lepe_w, out, ldq, ldk, ldv, ldo, B, H,
-                                    W, hsp, wsp, heads, scale, stream);
-    case 16:
-      return launch_attention<T, 16>(q, k, v, lepe_w, out, ldq, ldk, ldv, ldo, B, H,
-                                     W, hsp, wsp, heads, scale, stream);
-    case 32:
-      return launch_attention<T, 32>(q, k, v, lepe_w, out, ldq, ldk, ldv, ldo, B, H,
-                                     W, hsp, wsp, heads, scale, stream);
-    case 64:
-      return launch_attention<T, 64>(q, k, v, lepe_w, out, ldq, ldk, ldv, ldo, B, H,
-                                     W, hsp, wsp, heads, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// K-A': the backward of K-A.
-//
-// Replaces cswin_simam_unet_tpu/ops/pallas_attention_v2.py::_attn_bwd_kernel
-// (pallas_call at :401, reached through _branch_bwd_impl).  Per window and
-// head, with s = round(q*scale) k^T, p = softmax(s), dO the output cotangent:
-//     dv = round(p)^T dO + LePE^T(dO)       dp = dO v^T
-//     ds = round(p * (dp - rowsum(dp * p)))
-//     dq = scale * ds k                     dk = scale * ds^T q
-//     dw[tap, c] += sum over the window of dO * shift_tap(v)
-// rounding where the TPU kernel rounds to the compute dtype.  dw crosses
-// windows: each block writes its (9, head_dim) partial in float32 and the
-// caller sums the partials in a fixed order, so the result is deterministic.
-//
-// What bounds it on the H100: about 10 N flops per q/k/v/dO element against
-// 14 bytes of q, k, v, dO read and dq, dk, dv written (bf16), so device
-// memory by the roofline; this version does its products on the CUDA cores
-// in float32 and is bound by shared-memory reads and FMA throughput.
-// Design: one block per (window, head) holds Q, K, V and dO of the window
-// (float32, rows padded to D+1) in shared memory: 154 KB at N = 256, D = 32,
-// so a 256-token window fits one block and nothing of size N x N leaves the
-// SM.  Two phases, as FlashAttention-2's backward splits them, so that no
-// two warps add into one row: phase 1 gives each warp query rows (recompute
-// the score row, softmax, dp row, ds row; dq of the row; keep the row's
-// max, sum and rowsum(dp*p)); phase 2 gives each warp key rows and
-// recomputes p and ds column-wise from those row statistics (bitwise the
-// same values, the same FMA chains), accumulating dk and dv of its key with
-// lanes over the head dim.  bf16 copies in shared memory or wgmma tiles are
-// later work.
-template <typename T, int D>
-__global__ void __launch_bounds__(kAttnThreads)
-stripe_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, const float* __restrict__ lepe_w,
-                            const T* __restrict__ dout, T* __restrict__ dq,
-                            T* __restrict__ dk, T* __restrict__ dv,
-                            float* __restrict__ dw_part, int64_t ldq, int64_t ldk,
-                            int64_t ldv, int64_t ldg, int64_t ldd, int H, int W,
-                            int hsp, int wsp, float scale) {
-  extern __shared__ float smem[];
-  constexpr int KS = D + 1;
-  const int N = hsp * wsp;
-  const int nwarps = blockDim.x >> 5;
-  float* Qs = smem;             // N x (D + 1), q as given (unscaled)
-  float* Ks = Qs + N * KS;
-  float* Vs = Ks + N * KS;
-  float* Gs = Vs + N * KS;      // dO
-  float* row_max = Gs + N * KS;
-  float* row_sum = row_max + N;
-  float* row_dot = row_sum + N;  // rowsum(dp * p)
-  float* bufs = row_dot + N;     // two rows of N per warp
-
-  const int nh = H / hsp, nw = W / wsp;
-  const int win = blockIdx.x, head = blockIdx.y;
-  const int C = gridDim.y * D;
-  const int b = win / (nh * nw);
-  const int wy = (win / nw) % nh, wx = win % nw;
-  const int64_t row0 = (int64_t)b * H * W;
-  const int c0 = head * D;
-  auto tok = [&](int n) -> int64_t {
-    const int ty = n / wsp, tx = n - ty * wsp;
-    return row0 + (int64_t)(wy * hsp + ty) * W + (wx * wsp + tx);
-  };
-
-  for (int idx = threadIdx.x; idx < N * D; idx += blockDim.x) {
-    const int n = idx / D, d = idx - n * D;
-    const int64_t t = tok(n);
-    Qs[n * KS + d] = to_f(q[t * ldq + c0 + d]);
-    Ks[n * KS + d] = to_f(k[t * ldk + c0 + d]);
-    Vs[n * KS + d] = to_f(v[t * ldv + c0 + d]);
-    Gs[n * KS + d] = to_f(dout[t * ldg + c0 + d]);
-  }
-  __syncthreads();
-
-  // dw partial of this (window, head): tap (dy+1)*3 + (dx+1) pairs dO at
-  // (y, x) with v at (y+dy, x+dx) inside the window
-  for (int idx = threadIdx.x; idx < 9 * D; idx += blockDim.x) {
-    const int tap = idx / D, d = idx - tap * D;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    float acc = 0.f;
-    for (int n = 0; n < N; ++n) {
-      const int ty = n / wsp, tx = n - ty * wsp;
-      const int yy = ty + dy, xx = tx + dx;
-      if (yy < 0 || yy >= hsp || xx < 0 || xx >= wsp) continue;
-      acc = fmaf(Gs[n * KS + d], Vs[(yy * wsp + xx) * KS + d], acc);
-    }
-    dw_part[((int64_t)win * 9 + tap) * C + c0 + d] = acc;
-  }
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* P = bufs + warp * 2 * N;  // p row, then round(p) column
-  float* P2 = P + N;               // dp row, then ds
-  constexpr int G = D >= 32 ? 1 : 32 / D;     // lanes that share one column
-  constexpr int CPL = D >= 32 ? D / 32 : 1;   // columns per lane
-  const int dcol = D >= 32 ? lane : lane % D;
-  const int part = D >= 32 ? 0 : lane / D;
-
-  // phase 1: query rows
-  for (int i = warp; i < N; i += nwarps) {
-    float qr[D], gr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qr[d] = round_to<T>(Qs[i * KS + d] * scale);
-      gr[d] = Gs[i * KS + d];
-    }
-    float mx = -INFINITY;
-    for (int j = lane; j < N; j += 32) {
-      const float* kr = Ks + j * KS;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      P[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(P[j] - mx);
-      P[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float dot = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float p = P[j] / sum;
-      const float* vr = Vs + j * KS;
-      float dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dp = fmaf(gr[d], vr[d], dp);
-      P2[j] = dp;
-      P[j] = p;
-      dot = fmaf(dp, p, dot);
-    }
-    dot = warp_sum(dot);
-    for (int j = lane; j < N; j += 32) P2[j] = round_to<T>(P[j] * (P2[j] - dot));
-    if (lane == 0) {
-      row_max[i] = mx;
-      row_sum[i] = sum;
-      row_dot[i] = dot;
-    }
-    __syncwarp();
-
-    float acc[CPL];
-#pragma unroll
-    for (int r = 0; r < CPL; ++r) acc[r] = 0.f;
-    for (int j = part; j < N; j += G) {
-      const float ds = P2[j];
-      const float* kr = Ks + j * KS + dcol;
-#pragma unroll
-      for (int r = 0; r < CPL; ++r) acc[r] = fmaf(ds, kr[32 * r], acc[r]);
-    }
-    if constexpr (G > 1) {
-#pragma unroll
-      for (int off = D; off < 32; off <<= 1)
-        acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], off);
-    }
-    if (part == 0) {
-      const int64_t ti = tok(i);
-#pragma unroll
-      for (int r = 0; r < CPL; ++r)
-        dq[ti * ldd + c0 + dcol + 32 * r] = from_f<T>(acc[r] * scale);
-    }
-    __syncwarp();  // P and P2 are rewritten by the warp's next row
-  }
-  __syncthreads();  // the row statistics of every warp
-
-  // phase 2: key rows
-  for (int j = warp; j < N; j += nwarps) {
-    float kr[D], vr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      kr[d] = Ks[j * KS + d];
-      vr[d] = Vs[j * KS + d];
-    }
-    for (int i = lane; i < N; i += 32) {
-      const float* qi = Qs + i * KS;
-      const float* gi = Gs + i * KS;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(round_to<T>(qi[d] * scale), kr[d], s);
-        dp = fmaf(gi[d], vr[d], dp);
-      }
-      const float p = expf(s - row_max[i]) / row_sum[i];
-      P[i] = round_to<T>(p);
-      P2[i] = round_to<T>(p * (dp - row_dot[i]));
-    }
-    __syncwarp();
-
-    float av[CPL], ak[CPL];
-#pragma unroll
-    for (int r = 0; r < CPL; ++r) av[r] = ak[r] = 0.f;
-    for (int i = part; i < N; i += G) {
-      const float p = P[i], ds = P2[i];
-      const float* gi = Gs + i * KS + dcol;
-      const float* qi = Qs + i * KS + dcol;
-#pragma unroll
-      for (int r = 0; r < CPL; ++r) {
-        av[r] = fmaf(p, gi[32 * r], av[r]);
-        ak[r] = fmaf(ds, qi[32 * r], ak[r]);
-      }
-    }
-    if constexpr (G > 1) {
-#pragma unroll
-      for (int off = D; off < 32; off <<= 1) {
-        av[0] += __shfl_xor_sync(0xffffffffu, av[0], off);
-        ak[0] += __shfl_xor_sync(0xffffffffu, ak[0], off);
-      }
-    }
-    if (part == 0) {
-      const int64_t tj = tok(j);
-      const int ty = j / wsp, tx = j - ty * wsp;
-#pragma unroll
-      for (int r = 0; r < CPL; ++r) {
-        const int d = dcol + 32 * r;
-        // LePE transpose: out(y, x) took w[dy, dx] * v(y+dy, x+dx)
-        const float* w9 = lepe_w + (int64_t)(c0 + d) * 9;
-        float lt = 0.f;
-#pragma unroll
-        for (int dy = -1; dy <= 1; ++dy) {
-          const int yy = ty - dy;
-          if (yy < 0 || yy >= hsp) continue;
-#pragma unroll
-          for (int dx = -1; dx <= 1; ++dx) {
-            const int xx = tx - dx;
-            if (xx < 0 || xx >= wsp) continue;
-            lt = fmaf(w9[(dy + 1) * 3 + (dx + 1)], Gs[(yy * wsp + xx) * KS + d], lt);
-          }
-        }
-        dk[tj * ldd + c0 + d] = from_f<T>(ak[r] * scale);
-        dv[tj * ldd + c0 + d] = from_f<T>(av[r] + lt);
-      }
-    }
-    __syncwarp();
-  }
-}
-
-template <typename T, int D>
-static cudaError_t launch_attention_bwd(const void* q, const void* k, const void* v,
-                                        const void* lepe_w, const void* dout, void* dq,
-                                        void* dk, void* dv, void* dw_part, int64_t ldq,
-                                        int64_t ldk, int64_t ldv, int64_t ldg, int B,
-                                        int H, int W, int hsp, int wsp, int heads,
-                                        float scale, cudaStream_t stream) {
-  const int N = hsp * wsp;
-  const size_t smem = sizeof(float) * ((size_t)4 * N * (D + 1) + (size_t)3 * N +
-                                       (size_t)2 * (kAttnThreads / 32) * N);
-  static std::atomic<int> opted[kMaxDevices];
-  const cudaError_t e = opt_in_smem(stripe_attention_bwd_kernel<T, D>, smem, opted);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)(B * (H / hsp) * (W / wsp)), (unsigned)heads);
-  stripe_attention_bwd_kernel<T, D><<<grid, kAttnThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(lepe_w), static_cast<const T*>(dout),
-      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<float*>(dw_part), ldq, ldk, ldv, ldg, (int64_t)heads * D, H, W, hsp,
-      wsp, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-static cudaError_t dispatch_bwd_head_dim(int head_dim, const void* q, const void* k,
-                                         const void* v, const void* lepe_w,
-                                         const void* dout, void* dq, void* dk, void* dv,
-                                         void* dw_part, int64_t ldq, int64_t ldk,
-                                         int64_t ldv, int64_t ldg, int B, int H, int W,
-                                         int hsp, int wsp, int heads, float scale,
-                                         cudaStream_t stream) {
-#define CSU_ATTN_BWD(DIM)                                                              \
-  return launch_attention_bwd<T, DIM>(q, k, v, lepe_w, dout, dq, dk, dv, dw_part, ldq, \
-                                      ldk, ldv, ldg, B, H, W, hsp, wsp, heads, scale,  \
-                                      stream)
-  switch (head_dim) {
-    case 8: CSU_ATTN_BWD(8);
-    case 16: CSU_ATTN_BWD(16);
-    case 32: CSU_ATTN_BWD(32);
-    case 64: CSU_ATTN_BWD(64);
+    case 8: CSU_ATTN_FWD(8);
+    case 16: CSU_ATTN_FWD(16);
+    case 32: CSU_ATTN_FWD(32);
+    case 64: CSU_ATTN_FWD(64);
     default: return cudaErrorInvalidValue;
   }
-#undef CSU_ATTN_BWD
+#undef CSU_ATTN_FWD
 }
 
 }  // namespace csu
@@ -467,43 +195,23 @@ static cudaError_t dispatch_bwd_head_dim(int head_dim, const void* q, const void
 // q, k, v: (B, H*W, *) token tensors whose channel block [0, heads*head_dim)
 // of each row is read, rows ldq/ldk/ldv elements apart; lepe_w: (C, 9) float32
 // taps, tap (dy+1)*3 + (dx+1) multiplies v at (y+dy, x+dx); out rows ldo apart.
+// seed, threshold, inv_keep: the attention dropout (threshold 0: none).
 CSU_EXPORT int csu_stripe_attention_fwd(int dtype, const void* q, const void* k,
                                         const void* v, const void* lepe_w, void* out,
                                         int64_t ldq, int64_t ldk, int64_t ldv,
                                         int64_t ldo, int B, int H, int W, int hsp,
                                         int wsp, int heads, int head_dim, float scale,
+                                        uint32_t seed, uint32_t threshold, float inv_keep,
                                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const csu::AttnDrop drop{seed, threshold, inv_keep};
   if (dtype == csu::kFloat32)
     return (int)csu::dispatch_head_dim<float>(head_dim, q, k, v, lepe_w, out, ldq, ldk,
                                               ldv, ldo, B, H, W, hsp, wsp, heads,
-                                              scale, s);
+                                              scale, drop, s);
   if (dtype == csu::kBFloat16)
     return (int)csu::dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, lepe_w, out,
                                                       ldq, ldk, ldv, ldo, B, H, W, hsp,
-                                                      wsp, heads, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Backward of csu_stripe_attention_fwd.  q, k, v, lepe_w as there; dout the
-// output cotangent, rows ldg apart; dq, dk, dv (B, H*W, heads*head_dim)
-// contiguous; dw_part (B * windows, 9, heads*head_dim) float32 receives each
-// window's LePE-weight gradient, which the caller sums over windows.
-CSU_EXPORT int csu_stripe_attention_bwd(int dtype, const void* q, const void* k,
-                                        const void* v, const void* lepe_w,
-                                        const void* dout, void* dq, void* dk, void* dv,
-                                        void* dw_part, int64_t ldq, int64_t ldk,
-                                        int64_t ldv, int64_t ldg, int B, int H, int W,
-                                        int hsp, int wsp, int heads, int head_dim,
-                                        float scale, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == csu::kFloat32)
-    return (int)csu::dispatch_bwd_head_dim<float>(head_dim, q, k, v, lepe_w, dout, dq,
-                                                  dk, dv, dw_part, ldq, ldk, ldv, ldg, B,
-                                                  H, W, hsp, wsp, heads, scale, s);
-  if (dtype == csu::kBFloat16)
-    return (int)csu::dispatch_bwd_head_dim<__nv_bfloat16>(
-        head_dim, q, k, v, lepe_w, dout, dq, dk, dv, dw_part, ldq, ldk, ldv, ldg, B, H, W,
-        hsp, wsp, heads, scale, s);
+                                                      wsp, heads, scale, drop, s);
   return (int)cudaErrorInvalidValue;
 }

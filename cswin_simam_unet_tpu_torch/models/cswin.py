@@ -13,8 +13,14 @@ pixel-shuffles the (B, img/4, img/4, 16*F) logits; their backward runs on
 K-A', K-C', K3 and K4.  ``use_kernels=False`` runs the plain versions and
 the plain CARAFE + 1x1 conv head, differentiated by autograd.  Gradients
 reach the float32 parameters through their per-forward casts to the compute
-dtype, as the JAX package's bf16-compute / f32-params step does.  Dropout
-and drop-path are not ported (the step trains with them at 0).
+dtype, as the JAX package's bf16-compute / f32-params step does.
+
+Dropout (after the patch embed and twice in each MLP, ``drop_rate``),
+attention dropout (``attn_drop_rate``) and drop-path (``drop_path_rate``,
+the linspace schedule that encoder stage i shares with its decoder twin) act
+only in ``forward(..., train=True, rng=seed)``.  They key on that explicit
+argument, never on the module's ``training`` flag; ``predict`` always runs
+with ``train=False``.
 """
 
 from __future__ import annotations
@@ -22,10 +28,12 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from .. import resolve_device
+from ..ops.dropout import DropoutRng, fast_dropout
 from ..ops.simam import simam
 from ..ops.windows import nhwc_to_tokens, pixel_shuffle, pixel_unshuffle, tokens_to_nhwc
 from .layers import (CARAFE, CARAFEHead, Conv2d, CSWinBlock, FusedLayerNorm, Linear,
@@ -74,7 +82,8 @@ class CSWinUNet(nn.Module):
                  split_size: Sequence[int] = (1, 2, 7, 7),
                  num_heads: Sequence[int] = (2, 4, 8, 16), mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: float | None = None,
-                 use_simam: bool = False,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, use_simam: bool = False,
                  dtype: torch.dtype = torch.float32, device=None, seed: int = 0):
         super().__init__()
         validate_geometry(img_size, split_size)
@@ -83,14 +92,20 @@ class CSWinUNet(nn.Module):
         self.img_size, self.num_classes = img_size, num_classes
         self.depth = tuple(depth)
         self.dtype = dtype
+        self.drop_rates = (drop_rate, attn_drop_rate, drop_path_rate)
         E = embed_dim
         self.resos = [img_size // (4 * 2 ** i) for i in range(4)]
+        # stochastic-depth schedule, shared by encoder stage i and its decoder
+        # twin (the JAX model's dpr indices)
+        dpr = [float(r) for r in np.linspace(0.0, drop_path_rate, int(sum(depth)))]
+        starts = np.concatenate([[0], np.cumsum(depth)]).astype(int)
 
         def stage(s: int, last: bool) -> nn.ModuleList:
             return nn.ModuleList(
                 CSWinBlock(E * 2 ** s, self.resos[s], num_heads[s], split_size[s],
-                           mlp_ratio, qkv_bias, qk_scale, last_stage=last)
-                for _ in range(depth[s]))
+                           mlp_ratio, qkv_bias, qk_scale, last_stage=last, drop=drop_rate,
+                           attn_drop=attn_drop_rate, drop_path=dpr[starts[s] + i])
+                for i in range(depth[s]))
 
         self.use_simam = use_simam
         self.stage1_conv_embed = nn.Sequential(
@@ -137,41 +152,56 @@ class CSWinUNet(nn.Module):
     def device(self) -> torch.device:
         return self.output.weight.device
 
-    def features(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+    def features(self, x: torch.Tensor, use_kernels: bool = True,
+                 rng: DropoutRng | None = None) -> torch.Tensor:
         """x (B, img, img, in_chans) float -> the decoder's normalised
-        tokens (B, (img/4)^2, embed_dim) in the compute dtype."""
+        tokens (B, (img/4)^2, embed_dim) in the compute dtype; dropout and
+        drop-path act only with an ``rng``."""
         r = self.resos
         img = self.stage1_conv_embed[0](x.to(self.dtype))
         if self.use_simam:
             img = simam(img)
         tokens = self.stage1_conv_embed[2](nhwc_to_tokens(img))
+        if rng is not None:
+            tokens = fast_dropout(tokens, self.drop_rates[0], rng.generator)
 
         skips = []
         for s in range(4):
             for blk in getattr(self, f"stage{s + 1}"):
-                tokens = blk(tokens, use_kernels)
+                tokens = blk(tokens, use_kernels, rng)
             if s < 3:
                 skips.append(tokens)
                 tokens = getattr(self, f"merge{s + 1}")(tokens, r[s], r[s])
         tokens = self.norm(tokens)
 
         for blk in self.stage_up4:
-            tokens = blk(tokens, use_kernels)
+            tokens = blk(tokens, use_kernels, rng)
         for s in (2, 1, 0):
             tokens = getattr(self, f"upsample{s + 2}")(tokens, r[s + 1], r[s + 1], use_kernels)
             tokens = getattr(self, f"concat_linear{s + 2}")(
                 torch.cat([skips[s], tokens], dim=-1))
             for blk in getattr(self, f"stage_up{s + 1}"):
-                tokens = blk(tokens, use_kernels)
+                tokens = blk(tokens, use_kernels, rng)
         return self.norm_up(tokens)
 
-    def forward(self, x: torch.Tensor, use_kernels: bool = True,
-                flat_logits: bool = False) -> torch.Tensor:
+    def dropout_rng(self, train: bool, rng: int | None) -> DropoutRng | None:
+        """The randomness of one forward: None unless ``train`` and a drop
+        rate is positive; then the host integer seed ``rng`` is required."""
+        if not train or not any(r > 0.0 for r in self.drop_rates):
+            return None
+        if rng is None:
+            raise ValueError("a training forward with dropout needs rng (an integer seed)")
+        return DropoutRng(rng, self.device)
+
+    def forward(self, x: torch.Tensor, use_kernels: bool = True, flat_logits: bool = False,
+                train: bool = False, rng: int | None = None) -> torch.Tensor:
         """x (B, img, img, in_chans) float -> logits (B, img, img, classes)
         in the compute dtype; with ``flat_logits`` the pre-pixel-shuffle
-        (B, img/4, img/4, 16*classes) layout, lane ``s*classes + c``."""
+        (B, img/4, img/4, 16*classes) layout, lane ``s*classes + c``.
+        ``train=True`` applies dropout, attention dropout and drop-path with
+        the randomness of ``rng`` (see :meth:`dropout_rng`)."""
         r0, S = self.resos[0], FLAT_HEAD_FACTOR
-        tokens = self.features(x, use_kernels)
+        tokens = self.features(x, use_kernels, self.dropout_rng(train, rng))
         if use_kernels:
             y, enc, b = self.upsample1.head_precursor(tokens, r0, r0)
             logits = self.output.flat(y, enc, b)  # (B, r0, r0, 16*F), lane s*F + f
@@ -181,8 +211,9 @@ class CSWinUNet(nn.Module):
         return pixel_unshuffle(logits, S) if flat_logits else logits
 
     def predict(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
-        """Probabilities: sigmoid for one class, softmax over classes else."""
-        logits = self.forward(x, use_kernels)
+        """Probabilities (sigmoid for one class, softmax over classes else)
+        of an eval forward: never any dropout."""
+        logits = self.forward(x, use_kernels, train=False)
         if self.num_classes == 1:
             return torch.sigmoid(logits)
         return torch.softmax(logits, dim=-1)

@@ -4,11 +4,14 @@ Counterpart of ``cswin_simam_unet_tpu/models/layers.py``.  Parameters are
 float32 and named as the reference PyTorch scripts name them (the names
 ``compat/weights.py`` produces); each layer casts its weights to the dtype
 of its input, which is the compute dtype, so gradients reach the float32
-parameters.  Dropout and drop-path are not ported (the identity in eval;
-the training step runs them at rate 0).  ``kernels=True`` routes attention
-and CARAFE through the autograd Functions whose forward and backward are
-CUDA kernels for CUDA tensors (CPU tensors take the plain versions inside
-them).
+parameters.  ``kernels=True`` routes attention and CARAFE through the
+autograd Functions whose forward and backward are CUDA kernels for CUDA
+tensors (CPU tensors take the plain versions inside them).
+
+Dropout, attention dropout and drop-path act only where a forward is given
+an ``rng`` (:class:`..ops.dropout.DropoutRng`, which the model makes for a
+training forward); with ``rng=None`` every one of them is the identity.
+They never read the module's ``training`` flag.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention, carafe, carafe_head, carafe_kernels, stripe_attention
+from ..ops.dropout import DropoutRng, drop_path, fast_dropout
 from ..ops.simam import LAMBDA, simam
 from ..ops.windows import nhwc_to_tokens, stripe_geometry, tokens_to_nhwc
 
@@ -93,71 +97,90 @@ class FusedLayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class Mlp(nn.Module):
-    """Linear -> exact-erf GELU -> Linear."""
+def _dropout(x: torch.Tensor, rate: float, rng: DropoutRng | None) -> torch.Tensor:
+    return x if rng is None else fast_dropout(x, rate, rng.generator)
 
-    def __init__(self, dim: int, hidden: int):
+
+class Mlp(nn.Module):
+    """Linear -> exact-erf GELU -> dropout -> Linear -> dropout."""
+
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim)
+        self.drop = drop
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, rng: DropoutRng | None = None) -> torch.Tensor:
+        x = _dropout(F.gelu(self.fc1(x)), self.drop, rng)
+        return _dropout(self.fc2(x), self.drop, rng)
 
 
 class LePEAttention(nn.Module):
     """One stripe/global attention branch; owns the depthwise 3x3 ``get_v``
-    whose bias is added after attention, as the JAX layer does."""
+    whose bias is added after attention, as the JAX layer does.  With an
+    ``rng``, the scores drop at ``attn_drop`` under a seed of their own."""
 
     def __init__(self, dim: int, resolution: int, idx: int, split_size: int,
-                 num_heads: int, qk_scale: float | None = None):
+                 num_heads: int, qk_scale: float | None = None, attn_drop: float = 0.0):
         super().__init__()
         self.resolution, self.num_heads, self.qk_scale = resolution, num_heads, qk_scale
         self.hsp, self.wsp = stripe_geometry(resolution, split_size, idx)
+        self.attn_drop = attn_drop
         self.get_v = Conv2d(dim, dim, 3, padding=1, groups=dim)
 
-    def forward(self, q, k, v, kernels: bool) -> torch.Tensor:
+    def forward(self, q, k, v, kernels: bool, rng: DropoutRng | None = None) -> torch.Tensor:
         lepe_kernel = self.get_v.weight.permute(2, 3, 1, 0).to(q.dtype)  # (3, 3, 1, C)
         impl = stripe_attention.stripe_attention if kernels else attention.stripe_attention
+        drop = dict(attn_drop=self.attn_drop, seed=rng.next_seed()) if (
+            rng is not None and self.attn_drop > 0.0) else {}
         out = impl(q, k, v, lepe_kernel, H=self.resolution, W=self.resolution,
                    hsp=self.hsp, wsp=self.wsp, num_heads=self.num_heads,
-                   scale=self.qk_scale)
+                   scale=self.qk_scale, **drop)
         return out + self.get_v.bias.to(out.dtype)
 
 
 class CSWinBlock(nn.Module):
     """Pre-norm CSWin block: two half-channel stripe branches (or one global
-    branch in the last stage), projection, MLP, both residual."""
+    branch in the last stage), projection, MLP, both residual, each residual
+    branch under drop-path.  The reference defines a projection dropout but
+    never applies it; neither does this block."""
 
     def __init__(self, dim: int, reso: int, num_heads: int, split_size: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 qk_scale: float | None = None, last_stage: bool = False):
+                 qk_scale: float | None = None, last_stage: bool = False,
+                 drop: float = 0.0, attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.last = last_stage or reso == split_size
+        self.drop_path = drop_path
         self.norm1 = FusedLayerNorm(dim)
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
         self.norm2 = FusedLayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
         if self.last:
-            branches = [LePEAttention(dim, reso, -1, split_size, num_heads, qk_scale)]
+            branches = [LePEAttention(dim, reso, -1, split_size, num_heads, qk_scale,
+                                      attn_drop)]
         else:
             branches = [LePEAttention(dim // 2, reso, i, split_size, num_heads // 2,
-                                      qk_scale) for i in (0, 1)]
+                                      qk_scale, attn_drop) for i in (0, 1)]
         self.attns = nn.ModuleList(branches)
 
-    def forward(self, x: torch.Tensor, kernels: bool) -> torch.Tensor:
+    def _drop_path(self, x: torch.Tensor, rng: DropoutRng | None) -> torch.Tensor:
+        return x if rng is None else drop_path(x, self.drop_path, rng.generator)
+
+    def forward(self, x: torch.Tensor, kernels: bool,
+                rng: DropoutRng | None = None) -> torch.Tensor:
         C = x.shape[-1]
         q, k, v = self.qkv(self.norm1(x)).chunk(3, dim=-1)
         if self.last:
-            a = self.attns[0](q, k, v, kernels)
+            a = self.attns[0](q, k, v, kernels, rng)
         else:
             h = C // 2
-            a = torch.cat([self.attns[0](q[..., :h], k[..., :h], v[..., :h], kernels),
-                           self.attns[1](q[..., h:], k[..., h:], v[..., h:], kernels)],
+            a = torch.cat([self.attns[0](q[..., :h], k[..., :h], v[..., :h], kernels, rng),
+                           self.attns[1](q[..., h:], k[..., h:], v[..., h:], kernels, rng)],
                           dim=-1)
-        x = x + self.proj(a)
-        return x + self.mlp(self.norm2(x))
+        x = x + self._drop_path(self.proj(a), rng)
+        return x + self._drop_path(self.mlp(self.norm2(x), rng), rng)
 
 
 class MergeBlock(nn.Module):

@@ -1,11 +1,19 @@
 """Stripe / global window attention with LePE in plain PyTorch.
 
-Counterpart of ``cswin_simam_unet_tpu/ops/attention.py`` (no dropout) and
-the plain version of kernels K-A and K-A'
+Counterpart of ``cswin_simam_unet_tpu/ops/attention.py`` and the plain
+version of kernels K-A and K-A'
 (:mod:`cswin_simam_unet_tpu_torch.ops.stripe_attention`).  Tokens are
 (B, L, C); the LePE kernel is (3, 3, 1, C) HWIO as in the JAX package.
 Products of the compute dtype accumulate in float32, the softmax is float32
 and its probabilities are rounded to the compute dtype before ``p . v``.
+
+Attention dropout (``attn_drop > 0``) drops the float32 probabilities before
+that rounding and rescales the kept ones by the nominal 1 / (1 - rate): the
+rounding point of the TPU kernel (``pallas_attention_v2.py:211-213``), which
+the CUDA kernels share.  The JAX package's XLA path drops the probabilities
+after rounding (``ops/attention.py:99-110``); in float32 the two agree.  The
+keep mask is :func:`..dropout.window_keep_mask` of the call's ``seed``, or
+an explicit ``keep`` (B*nWin, heads, N, N) bool tensor.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .dropout import u32_threshold, window_keep_mask
 from .windows import img2windows, tokens_to_nhwc, windows2img
 
 
@@ -34,12 +43,36 @@ def lepe_depthwise(v_wins: torch.Tensor, lepe_kernel: torch.Tensor,
     return out.permute(0, 2, 3, 1).reshape(Bw, N, C)
 
 
+def _dropout_mask(attn_drop: float, seed: int | None, keep, n_windows: int, heads: int,
+                  n: int, device):
+    """(keep (n_windows, heads, n, n) bool, 1 / (1 - rate)), or None when
+    the rate rounds to a zero threshold."""
+    if u32_threshold(attn_drop) == 0:
+        return None
+    if keep is None:
+        if seed is None:
+            raise ValueError("attention dropout needs a seed (or an explicit keep mask)")
+        keep = window_keep_mask(seed, n_windows, heads, n, u32_threshold(attn_drop), device)
+    if keep.shape != (n_windows, heads, n, n):
+        raise ValueError(f"keep must be {(n_windows, heads, n, n)}, got {tuple(keep.shape)}")
+    return keep, 1.0 / (1.0 - attn_drop)
+
+
+def _drop(t: torch.Tensor, mask) -> torch.Tensor:
+    if mask is None:
+        return t
+    keep, inv_keep = mask
+    return torch.where(keep, t * inv_keep, torch.zeros((), dtype=t.dtype, device=t.device))
+
+
 def stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lepe_kernel: torch.Tensor, *, H: int, W: int, hsp: int,
-                     wsp: int, num_heads: int,
-                     scale: float | None = None) -> torch.Tensor:
+                     wsp: int, num_heads: int, scale: float | None = None,
+                     attn_drop: float = 0.0, seed: int | None = None,
+                     keep: torch.Tensor | None = None) -> torch.Tensor:
     """One attention branch over (B, L, C) tokens with windows (hsp, wsp);
-    returns (B, L, C) in image order."""
+    returns (B, L, C) in image order.  ``attn_drop > 0`` drops scores with
+    the keep mask of ``seed`` (or ``keep``)."""
     B, L, C = q.shape
     if L != H * W:
         raise ValueError(f"token count {L} != {H}*{W}")
@@ -55,7 +88,8 @@ def stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lepe_h = lepe.reshape(Bw, N, num_heads, d_head).permute(0, 2, 1, 3)
 
     attn = torch.matmul((qh * scale).float(), kh.float().transpose(-1, -2))
-    attn = torch.softmax(attn, dim=-1).to(q.dtype)
+    mask = _dropout_mask(attn_drop, seed, keep, Bw, num_heads, N, q.device)
+    attn = _drop(torch.softmax(attn, dim=-1), mask).to(q.dtype)
     out = torch.matmul(attn.float(), vh.float()).to(q.dtype) + lepe_h
     out = out.permute(0, 2, 1, 3).reshape(Bw, N, C)
     return windows2img(out, hsp, wsp, H, W).reshape(B, L, C)
@@ -82,10 +116,13 @@ def _window_lepe_grads(v_wins: torch.Tensor, g_wins: torch.Tensor,
 
 def stripe_attention_bwd_reference(q, k, v, lepe_kernel, dout, *, H: int, W: int,
                                    hsp: int, wsp: int, num_heads: int,
-                                   scale: float | None = None):
+                                   scale: float | None = None, attn_drop: float = 0.0,
+                                   seed: int | None = None, keep=None):
     """Gradients of :func:`stripe_attention` with ``pallas_attention_v2.
     _attn_bwd_kernel``'s rounding points: (dq, dk, dv) (B, L, C) in q's dtype
-    and dw (3, 3, 1, C) in lepe_kernel's dtype."""
+    and dw (3, 3, 1, C) in lepe_kernel's dtype.  With dropout, the keep mask
+    of the forward scales p for dv and dp before the softmax VJP
+    (``pallas_attention_v2.py:253-262``)."""
     B, L, C = q.shape
     d_head = C // num_heads
     if scale is None:
@@ -97,8 +134,9 @@ def stripe_attention_bwd_reference(q, k, v, lepe_kernel, dout, *, H: int, W: int
 
     s = torch.matmul((qh * scale).float(), kh.transpose(-1, -2))
     p = torch.softmax(s, dim=-1)
-    dvh = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), gh)
-    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    mask = _dropout_mask(attn_drop, seed, keep, qh.shape[0], num_heads, hsp * wsp, q.device)
+    dvh = torch.matmul(_drop(p, mask).to(q.dtype).float().transpose(-1, -2), gh)
+    dp = _drop(torch.matmul(gh, vh.transpose(-1, -2)), mask)
     ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(q.dtype).float()
     dqh = torch.matmul(ds, kh) * scale
     dkh = torch.matmul(ds.transpose(-1, -2), qh.float()) * scale

@@ -20,11 +20,17 @@ Backward (SimAM on):
   VJP recomputed from fb and fed straight into the CARAFE backward -> dx,
   denc and per-block bias-gradient partials.
 
+Backward without SimAM (``gate=False``):
+* K3 without the gate (``csu_head_bwd1_nogate``, for
+  ``pallas_simam_head.py::_bwd1_nogate_kernel``): per-row partials of
+  dW = sum fb * dy;
+* K4 without the gate (``csu_carafe_head_bwd_nogate``, the ``gate=False``
+  branch of ``pallas_carafe_head.py::_fused_bwd_kernel``): dacc = dy W^T
+  into the CARAFE backward.
+
 :func:`carafe_simam_head` is a ``torch.autograd.Function``; CUDA tensors go
 to the kernels, CPU tensors to the plain versions (:func:`reference`,
-:func:`head_bwd1_reference`, :func:`fused_head_bwd_reference`).  The
-backward without SimAM (``_bwd1_nogate_kernel``) is not ported: on CUDA it
-raises.
+:func:`head_bwd1_reference`, :func:`fused_head_bwd_reference`).
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ MOMENTS_KERNEL = "csu_carafe_head_fwd"
 HEAD_KERNEL = "csu_simam_head_fwd"
 BWD1_KERNEL = "csu_head_bwd1"
 FUSED_BWD_KERNEL = "csu_carafe_head_bwd"
+BWD1_NOGATE_KERNEL = "csu_head_bwd1_nogate"
+FUSED_BWD_NOGATE_KERNEL = "csu_carafe_head_bwd_nogate"
 MAX_CLASSES = 8
 
 
@@ -175,7 +183,7 @@ def simam_head_flat(fb: torch.Tensor, mu: torch.Tensor | None, v: torch.Tensor |
     return out
 
 
-def _check_head_grads(fb, dy, mu, v, w, G):
+def _check_head_grads(fb, dy, mu, v, w, G, gate=True):
     B, H, W, GC = fb.shape
     C = GC // G
     Fc = w.shape[1]
@@ -183,30 +191,37 @@ def _check_head_grads(fb, dy, mu, v, w, G):
         raise ValueError(f"w must be ({C}, F) with F <= {MAX_CLASSES}, got {tuple(w.shape)}")
     if dy.shape != (B, H, W, G * Fc):
         raise ValueError(f"dy must be {(B, H, W, G * Fc)}, got {tuple(dy.shape)}")
-    for name, t in (("mu", mu), ("v", v)):
-        if t.shape != (B, C) or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be ({B}, {C}) float32")
     _build.check_cuda(fb, dy)
-    _build.check_cuda(mu, v)
+    if gate:
+        for name, t in (("mu", mu), ("v", v)):
+            if t.shape != (B, C) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be ({B}, {C}) float32")
+        _build.check_cuda(mu, v)
 
 
-def head_bwd1(fb, dy, mu, v, w, G: int, lam: float = LAMBDA):
+def head_bwd1(fb, dy, mu, v, w, G: int, lam: float = LAMBDA, gate: bool = True):
     """K3 on CUDA tensors, :func:`head_bwd1_reference` on CPU ones:
-    (A, B, dW) float32, A and B (B, C) pooled per real channel."""
+    (A, B, dW) float32, A and B (B, C) pooled per real channel.  Without the
+    gate, K3 without the gate: (None, None, dW), mu and v unused."""
     if fb.device.type == "cpu":
-        return head_bwd1_reference(fb, dy, mu, v, w, G, lam)
+        return head_bwd1_reference(fb, dy, mu, v, w, G, lam, gate)
     dy = dy.contiguous()
-    _check_head_grads(fb, dy, mu, v, w, G)
+    _check_head_grads(fb, dy, mu, v, w, G, gate)
     B, H, W, GC = fb.shape
     C, Fc = w.shape
-    wt = w.to(fb.dtype).contiguous()
     vec = _build.vec_width(fb, channels=C)
     if G * (C // vec) > 1024:
         raise ValueError(f"G*C/{vec} = {G * C // vec} threads exceed one block")
+    dw_part = torch.empty(B * H, GC, Fc, dtype=torch.float32, device=fb.device)
+    dtype = _build.dtype_code(fb)
+    if not gate:
+        _build.launch(BWD1_NOGATE_KERNEL, fb.device, dtype, fb.data_ptr(), dy.data_ptr(),
+                      dw_part.data_ptr(), B, H, W, C, G, Fc, vec)
+        return None, None, dw_part.reshape(B * H * G, C, Fc).sum(dim=0)
+    wt = w.to(fb.dtype).contiguous()
     a_part = torch.empty(B * H, GC, dtype=torch.float32, device=fb.device)
     b_part = torch.empty_like(a_part)
-    dw_part = torch.empty(B * H, GC, Fc, dtype=torch.float32, device=fb.device)
-    _build.launch(BWD1_KERNEL, fb.device, _build.dtype_code(fb), fb.data_ptr(),
+    _build.launch(BWD1_KERNEL, fb.device, dtype, fb.data_ptr(),
                   dy.data_ptr(), mu.data_ptr(), v.data_ptr(), wt.data_ptr(),
                   a_part.data_ptr(), b_part.data_ptr(), dw_part.data_ptr(), B, H, W, C, G,
                   Fc, vec, float(lam))
@@ -215,11 +230,14 @@ def head_bwd1(fb, dy, mu, v, w, G: int, lam: float = LAMBDA):
     return A, Bq, dw_part.reshape(B * H * G, C, Fc).sum(dim=0)
 
 
-def fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int, lam: float = LAMBDA):
+def fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int, lam: float = LAMBDA,
+                   gate: bool = True):
     """K4 on CUDA tensors, :func:`fused_head_bwd_reference` on CPU ones:
-    (dx like x, denc like enc, db (C,) float32)."""
+    (dx like x, denc like enc, db (C,) float32).  Without the gate, K4
+    without the gate, which reads neither fb nor mu, v, A, Bq."""
     if x.device.type == "cpu":
-        return fused_head_bwd_reference(x, enc, fb, dy, mu, v, A, Bq, w, up_factor, lam)
+        return fused_head_bwd_reference(x, enc, fb, dy, mu, v, A, Bq, w, up_factor, lam,
+                                        gate)
     check_carafe_args(x, enc, up_factor, 3)
     S = up_factor
     G = S * S
@@ -227,10 +245,7 @@ def fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int, lam: float =
     if fb.shape != (B, H, W, G * C) or fb.dtype != x.dtype:
         raise ValueError(f"fb must be {(B, H, W, G * C)} {x.dtype}")
     dy = dy.contiguous()
-    _check_head_grads(fb, dy, mu, v, w, G)
-    A, Bq = A.float().contiguous(), Bq.float().contiguous()
-    if A.shape != (B, C) or Bq.shape != (B, C):
-        raise ValueError(f"A and B must be ({B}, {C})")
+    _check_head_grads(fb, dy, mu, v, w, G, gate)
     wt = w.to(x.dtype).contiguous()
     dx = torch.empty_like(x)
     denc = torch.empty_like(enc)
@@ -239,11 +254,20 @@ def fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int, lam: float =
     px = bwd_pixels_per_block(C, S, vec, x.element_size(), W)
     blocks = B * H * ((W + px - 1) // px)
     db_part = torch.empty(blocks, G * C, dtype=torch.float32, device=x.device)
-    _build.launch(FUSED_BWD_KERNEL, x.device, _build.dtype_code(x), x.data_ptr(),
-                  enc.data_ptr(), fb.data_ptr(), dy.data_ptr(), wt.data_ptr(),
-                  mu.data_ptr(), v.data_ptr(), A.data_ptr(), Bq.data_ptr(), dx.data_ptr(),
-                  denc.data_ptr(), db_part.data_ptr(), B, H, W, C, S, w.shape[1], vec, px,
-                  float(lam))
+    if gate:
+        A, Bq = A.float().contiguous(), Bq.float().contiguous()
+        if A.shape != (B, C) or Bq.shape != (B, C):
+            raise ValueError(f"A and B must be ({B}, {C})")
+        _build.launch(FUSED_BWD_KERNEL, x.device, _build.dtype_code(x), x.data_ptr(),
+                      enc.data_ptr(), fb.data_ptr(), dy.data_ptr(), wt.data_ptr(),
+                      mu.data_ptr(), v.data_ptr(), A.data_ptr(), Bq.data_ptr(),
+                      dx.data_ptr(), denc.data_ptr(), db_part.data_ptr(), B, H, W, C, S,
+                      w.shape[1], vec, px, float(lam))
+    else:
+        _build.launch(FUSED_BWD_NOGATE_KERNEL, x.device, _build.dtype_code(x), x.data_ptr(),
+                      enc.data_ptr(), dy.data_ptr(), wt.data_ptr(), dx.data_ptr(),
+                      denc.data_ptr(), db_part.data_ptr(), B, H, W, C, S, w.shape[1], vec,
+                      px)
     return dx, denc, db_part.reshape(blocks * G, C).sum(dim=0)
 
 
@@ -280,19 +304,9 @@ class CarafeSimamHead(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, enc, bias, w, fb, mu, v = ctx.saved_tensors
-        S, lam = ctx.up_factor, ctx.lam
-        G = S * S
-        if not ctx.gate:
-            if x.device.type != "cpu":
-                raise NotImplementedError(
-                    "the fused head's backward without SimAM needs _bwd1_nogate_kernel, "
-                    "which is not ported yet (ROADMAP queue B item 3)")
-            _, _, dW = head_bwd1_reference(fb, dy, mu, v, w, G, lam, gate=False)
-            dx, denc, db = fused_head_bwd_reference(x, enc, fb, dy, mu, v, None, None, w,
-                                                    S, lam, gate=False)
-        else:
-            A, Bq, dW = head_bwd1(fb, dy, mu, v, w, G, lam)
-            dx, denc, db = fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, S, lam)
+        S, lam, gate = ctx.up_factor, ctx.lam, ctx.gate
+        A, Bq, dW = head_bwd1(fb, dy, mu, v, w, S * S, lam, gate)
+        dx, denc, db = fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, S, lam, gate)
         return dx, denc, db.to(bias.dtype), dW.to(w.dtype), None, None, None
 
 

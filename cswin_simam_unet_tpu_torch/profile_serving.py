@@ -1,9 +1,11 @@
 """Where the time of serving, or of a training step, goes on the card.
 
-    python -m cswin_simam_unet_tpu_torch.profile_serving [--batch 8] [--steps 5] [--repeats 3] [--train]
+    python -m cswin_simam_unet_tpu_torch.profile_serving [--batch 8] [--steps 5] [--repeats 3]
+        [--train] [--config cswin_simam_512] [--no-drops]
 
-Builds the served configuration (``cswin_simam_512``, random weights from
-seed 0) and warms up.  Then, ``--repeats`` times, it times ``--steps``
+Builds the configuration (``--config``, default ``cswin_simam_512``, random
+weights from seed 0; ``--no-drops`` sets its dropout, attention dropout and
+drop-path rates to 0, which only training uses) and warms up.  Then, ``--repeats`` times, it times ``--steps``
 forwards of one ``--batch`` request (with ``--train``: training steps of
 ``make_train_step`` with the configuration's AdamW settings on one uint8
 batch) on the host clock, untraced, and right
@@ -52,7 +54,7 @@ def _group(name: str) -> str:
 
 
 def main() -> None:
-    from .configs import TRAIN_CONFIGS, build_model
+    from .configs import NO_DROPS, TRAIN_CONFIGS, build_model
     from .serving import Server
     from .train import engine
 
@@ -61,19 +63,22 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--train", action="store_true", help="profile training steps")
+    ap.add_argument("--config", default="cswin_simam_512")
+    ap.add_argument("--no-drops", action="store_true", help="dropout rates 0")
     args = ap.parse_args()
 
-    model = build_model("cswin_simam_512")
+    model = build_model(args.config, **(NO_DROPS if args.no_drops else {}))
+    img = model.img_size
     rs = np.random.RandomState(0)
-    images = rs.randint(0, 256, (args.batch, 512, 512, 3), np.uint8)
+    images = rs.randint(0, 256, (args.batch, img, img, 3), np.uint8)
     if args.train:
-        tcfg = TRAIN_CONFIGS["cswin_simam_512"]
+        tcfg = TRAIN_CONFIGS[args.config]
         opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
                                     model.parameters())
         step = engine.make_train_step(model, opt)
         images_d = torch.from_numpy(images).cuda()
         masks_d = torch.from_numpy(
-            (rs.randint(0, 2, (args.batch, 512, 512, 1)) * 255).astype(np.uint8)).cuda()
+            (rs.randint(0, 2, (args.batch, img, img, 1)) * 255).astype(np.uint8)).cuda()
 
         def run():
             step(images_d, masks_d)
@@ -111,7 +116,8 @@ def main() -> None:
                             untraced_idle_share=1 - busy_ms / wall_ms,
                             events=events))
 
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}; {args.config}, drop rates "
+          f"{model.drop_rates}, {model.dtype}")
     unit = "training step" if args.train else "forward"
     print(f"batch {args.batch}, {args.steps} {unit}s per window, ms per {unit}:")
     for i, w in enumerate(windows):

@@ -5,7 +5,10 @@ Counterpart of ``cswin_simam_unet_tpu/train/engine.py::make_optimizer`` and
 accumulation: uint8 images and masks in, the masks unshuffled to the flat
 logit layout while still uint8, forward with flat logits, BCE, backward,
 AdamW, and Dice / IoU thresholded at 0 on the logits (``sigmoid(x) > 0.5``
-exactly when ``x > 0``).  Dropout, drop-path, augmentation, gradient
+exactly when ``x > 0``).  The forward is a training forward
+(``train=True``): dropout, attention dropout and drop-path act at the
+model's rates, with randomness from a host seed that the step hands down;
+the module's ``training`` flag is never set or read.  Augmentation, gradient
 accumulation, the L2-coupled Adam and the plateau schedule are not ported
 yet (ROADMAP queue A).
 """
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from ..models.cswin import FLAT_HEAD_FACTOR
+from ..ops.dropout import mix_seed
 from ..ops.windows import pixel_unshuffle
 from .losses import segmentation_loss
 from .metrics import dice_coefficient, iou_score, threshold_predictions
@@ -32,7 +36,7 @@ def make_optimizer(kind: str, learning_rate: float, weight_decay: float,
                                  weight_decay=weight_decay)
     if kind == "adam":
         raise NotImplementedError("the L2-coupled 'adam' optimizer is not ported yet "
-                                  "(ROADMAP queue A item 5)")
+                                  "(ROADMAP queue A item 4)")
     raise ValueError(f"unknown optimizer: {kind}")
 
 
@@ -44,8 +48,9 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
 
 
 def compute_gradients(model: torch.nn.Module, images_u8, masks_u8, n_classes: int = 1,
-                      use_kernels: bool = True):
-    """Forward with flat logits, loss and backward on one uint8 batch; the
+                      use_kernels: bool = True, rng=None):
+    """Training forward (``train=True``, dropout randomness from the host
+    seed ``rng``) with flat logits, loss and backward on one uint8 batch; the
     gradients are added to the parameters' ``.grad``.  Returns the loss, the
     flat logits and the flat targets, detached."""
     device = model.device
@@ -53,8 +58,7 @@ def compute_gradients(model: torch.nn.Module, images_u8, masks_u8, n_classes: in
     # unshuffle while uint8: the same values, a quarter of the bytes
     masks = pixel_unshuffle(_to_device(masks_u8, device), FLAT_HEAD_FACTOR)
     targets = masks.float() / 255.0
-    model.train()
-    logits = model(images, use_kernels=use_kernels, flat_logits=True)
+    logits = model(images, use_kernels=use_kernels, flat_logits=True, train=True, rng=rng)
     loss = segmentation_loss(logits, targets, n_classes)
     loss.backward()
     return loss.detach(), logits.detach(), targets
@@ -62,24 +66,30 @@ def compute_gradients(model: torch.nn.Module, images_u8, masks_u8, n_classes: in
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     n_classes: int = 1, use_kernels: bool = True,
-                    augment=None, grad_accum: int = 1) -> Callable:
+                    augment=None, grad_accum: int = 1, seed: int = 0) -> Callable:
     """The step ``(images_u8 (B, H, W, C), masks_u8 (B, H, W, 1)) ->
     {'loss', 'dice', 'iou'}`` (0-d float32 tensors on the model's device;
-    reading them synchronises).  One optimizer step per call."""
+    reading them synchronises).  One optimizer step per call.  The step owns
+    a counter: call k runs its training forward with the host seed
+    ``mix_seed(seed, k)``, so two steps made from the same seed and weights
+    drop the same elements and give the same loss."""
     if n_classes != 1:
         raise NotImplementedError("the multi-class training step is not ported yet "
-                                  "(ROADMAP queue A item 5)")
+                                  "(ROADMAP queue A item 4)")
     if augment is not None:
         raise NotImplementedError("on-device augmentation is not ported yet "
-                                  "(ROADMAP queue A item 7)")
+                                  "(ROADMAP queue A item 5)")
     if grad_accum != 1:
         raise NotImplementedError("gradient accumulation is not ported yet "
-                                  "(ROADMAP queue A item 5)")
+                                  "(ROADMAP queue A item 4)")
+
+    calls = [0]
 
     def step(images_u8, masks_u8) -> dict:
         optimizer.zero_grad(set_to_none=True)
         loss, logits, targets = compute_gradients(model, images_u8, masks_u8, n_classes,
-                                                  use_kernels)
+                                                  use_kernels, mix_seed(seed, calls[0]))
+        calls[0] += 1
         optimizer.step()
         with torch.no_grad():
             preds = threshold_predictions(logits.float(), 0.0)

@@ -8,8 +8,11 @@ there without the JAX conftest:
 
 Shapes are small and cover what the 512^2 path does not: other head dims,
 scalar (non-16-byte) channel paths, several classes, gate off.  The backward
-kernels (K-A', K-C', K3, K4) are held against their plain versions, and the
-gradients of a tiny model through the kernels against the plain path.
+kernels (K-A', K-C', K3, K4 and the head's two kernels without the gate) are
+held against their plain versions, and the gradients of a tiny model through
+the kernels against the plain path.  Attention dropout is held mask for mask
+against the plain version at every window geometry of ``cswin_simam_512``
+and ``cswinunet``.
 """
 
 import pytest
@@ -17,7 +20,7 @@ import torch
 
 from cswin_simam_unet_tpu_torch import _build
 from cswin_simam_unet_tpu_torch.models import CSWinUNet
-from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head
+from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head, dropout
 from cswin_simam_unet_tpu_torch.ops import carafe_kernels, stripe_attention
 from cswin_simam_unet_tpu_torch.ops.simam import pooled_stats
 from cswin_simam_unet_tpu_torch.ops.windows import stripe_geometry
@@ -244,12 +247,109 @@ def test_head_bwd_kernels_reject(dev):
 
 
 def test_head_backward_without_simam_raises(dev):
+    """The head's backward without SimAM once raised on CUDA; it now runs K3
+    and K4 without the gate and matches the plain versions."""
     x = _randn(dev, 1, 4, 4, 8).requires_grad_()
-    enc = _randn(dev, 1, 4, 4, 36, seed=1)
-    out = carafe_head.carafe_simam_head(x, enc, torch.zeros(8, device=dev),
-                                        _randn(dev, 8, 1, seed=2), 2, gate=False)
-    with pytest.raises(NotImplementedError, match="queue B item 3"):
-        out.sum().backward()
+    enc = _randn(dev, 1, 4, 4, 36, seed=1).requires_grad_()
+    w = _randn(dev, 8, 1, seed=2)
+    out = carafe_head.carafe_simam_head(x, enc, torch.zeros(8, device=dev), w, 2, gate=False)
+    _build.reset_launches()
+    out.sum().backward()
+    assert _build.LAUNCHES[carafe_head.BWD1_NOGATE_KERNEL] == 1
+    assert _build.LAUNCHES[carafe_head.FUSED_BWD_NOGATE_KERNEL] == 1
+    assert _build.LAUNCHES[carafe_head.BWD1_KERNEL] == 0
+    xp, ep = x.detach().requires_grad_(), enc.detach().requires_grad_()
+    carafe_head.reference(xp, ep, torch.zeros(8, device=dev), w, 2, gate=False).sum().backward()
+    _check(x.grad, xp.grad, torch.float32)
+    _check(enc.grad, ep.grad, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,S,F", [(8, 8, 16, 4, 1), (4, 6, 8, 2, 3), (4, 4, 6, 2, 8),
+                                       (6, 20, 64, 4, 1)])
+def test_head_bwd_nogate_kernels(dev, dtype, H, W, C, S, F):
+    G = S * S
+    x = _randn(dev, 2, H, W, C).to(dtype)
+    enc = _randn(dev, 2, H, W, 9 * G, seed=1).to(dtype)
+    fb = _randn(dev, 2, H, W, G * C, seed=2).to(dtype)
+    dy = _randn(dev, 2, H, W, G * F, seed=3).to(dtype)
+    w = _randn(dev, C, F, scale=C ** -0.5, seed=4)
+    _build.reset_launches()
+    got = carafe_head.head_bwd1(fb, dy, None, None, w, G, gate=False)
+    assert _build.LAUNCHES[carafe_head.BWD1_NOGATE_KERNEL] == 1
+    want = carafe_head.head_bwd1_reference(fb.float(), dy.float(), None, None, w, G,
+                                           gate=False)
+    assert got[0] is None and got[1] is None
+    _check(got[2], want[2], dtype)
+    got = carafe_head.fused_head_bwd(x, enc, fb, dy, None, None, None, None, w, S, gate=False)
+    assert _build.LAUNCHES[carafe_head.FUSED_BWD_NOGATE_KERNEL] == 1
+    want = carafe_head.fused_head_bwd_reference(x.float(), enc.float(), fb.float(),
+                                                dy.float(), None, None, None, None, w, S,
+                                                gate=False)
+    assert got[0].dtype == dtype and got[1].dtype == dtype and got[2].shape == (C,)
+    for a, b in zip(got, want):
+        _check(a, b, dtype)
+
+
+# ---- attention dropout in K-A and K-A' ----
+
+# every branch geometry of cswin_simam_512 and cswinunet: (H, hsp, wsp, Cb, heads)
+DROP_GEOMS = [
+    (128, 128, 1, 32, 1), (128, 1, 128, 32, 1), (64, 64, 2, 64, 2), (64, 2, 64, 64, 2),
+    (32, 32, 8, 128, 4), (32, 8, 32, 128, 4), (16, 16, 16, 512, 16),
+    (112, 112, 1, 32, 1), (112, 1, 112, 32, 1), (56, 56, 2, 64, 2), (56, 2, 56, 64, 2),
+    (28, 28, 7, 128, 4), (28, 7, 28, 128, 4), (14, 14, 14, 512, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hsp,wsp,C,heads", DROP_GEOMS)
+def test_stripe_attention_dropout_kernels(dev, dtype, H, hsp, wsp, C, heads):
+    """K-A and K-A' at rate 0.3 against the plain versions with the hash
+    mask of the same seed; q, k, v strided thirds of one tensor."""
+    qkv = _randn(dev, 1, H * H, 3 * C, scale=0.5).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(dtype)
+    g = _randn(dev, 1, H * H, C, seed=2).to(dtype)
+    kw = dict(H=H, W=H, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=0.3, seed=2 ** 31 + 7)
+    f32 = [t.float() for t in (q, k, v, lk, g)]
+    got = stripe_attention.attention_fwd(q, k, v, lk, **kw)
+    want = attention.stripe_attention(*f32[:4], **kw)
+    _check(got, want, dtype)
+    nodrop = attention.stripe_attention(*f32[:4], **{**kw, "attn_drop": 0.0})
+    assert float((want - nodrop).abs().max()) > 1e-2
+    got = stripe_attention.attention_bwd(q, k, v, lk, g, **kw)
+    want = attention.stripe_attention_bwd_reference(*f32, **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dtype
+        _check(a, b, dtype)
+
+
+def test_attention_keep_rate_from_kernel(dev):
+    """q = k = 0 and v = 1, no LePE: each output of K-A is the kept share of
+    its row over 0.7, so the kernel's keep rate reads back from its output;
+    it lies within 4 sigma of 1 - threshold / 2^32."""
+    H, C, heads = 128, 32, 1
+    zeros = torch.zeros(2, H * H, C, device=dev)
+    ones = torch.ones(2, H * H, C, device=dev)
+    out = stripe_attention.attention_fwd(zeros, zeros, ones, torch.zeros(3, 3, 1, C, device=dev),
+                                         H=H, W=H, hsp=H, wsp=1, num_heads=heads,
+                                         attn_drop=0.3, seed=5)
+    n = 2 * H * H * H
+    p_keep = 1 - dropout.u32_threshold(0.3) / 2 ** 32
+    rate = float(out[..., 0].double().mean()) * 0.7
+    assert abs(rate - p_keep) <= 4 * (p_keep * (1 - p_keep) / n) ** 0.5, rate
+
+
+def test_attention_dropout_rate_zero_launches_unchanged(dev):
+    """attn_drop 0 with a seed is the no-dropout kernel: bitwise the same."""
+    qkv = _randn(dev, 2, 256, 96, scale=0.5)
+    q, k, v = qkv[..., :32], qkv[..., 32:64], qkv[..., 64:]
+    lk = _randn(dev, 3, 3, 1, 32, seed=1)
+    kw = dict(H=16, W=16, hsp=16, wsp=2, num_heads=1)
+    assert torch.equal(stripe_attention.attention_fwd(q, k, v, lk, **kw),
+                       stripe_attention.attention_fwd(q, k, v, lk, **kw, attn_drop=0.0,
+                                                      seed=3))
 
 
 # ---- gradients of a tiny model through the kernels ----
@@ -271,27 +371,21 @@ def _loss(model, x, use_kernels):
 
 @pytest.mark.parametrize("use_simam", [True, False])
 def test_tiny_model_grads_match_plain(dev, use_simam):
-    """SimAM on: every parameter's gradient through the eight kernels against
-    the plain path.  SimAM off: the head's backward is not ported, so the
-    gradients of the decoder features (K-A, K-C and their backward)."""
+    """Every parameter's gradient through the kernels against the plain
+    path: the head's backward runs K3 and K4 with SimAM, and their variants
+    without the gate without it."""
     model = CSWinUNet(**TINY, use_simam=use_simam, device=dev, seed=3)
     x = torch.rand(2, 64, 64, 3, device=dev)
-    if use_simam:
-        fn = _loss
-    else:
-        cot = _randn(dev, 2, 16 * 16, 16, seed=5)
-
-        def fn(model, x, use_kernels):
-            return (model.features(x, use_kernels) * cot).sum()
-
     _build.reset_launches()
-    on = _grads(model, x, True, fn)
+    on = _grads(model, x, True, _loss)
     counts = dict(_build.LAUNCHES)
-    off = _grads(model, x, False, fn)
+    off = _grads(model, x, False, _loss)
     assert counts[stripe_attention.BWD_KERNEL] == 14
     assert counts[carafe_kernels.BWD_KERNEL] == 3
     assert counts[carafe_head.BWD1_KERNEL] == counts[carafe_head.FUSED_BWD_KERNEL] == int(
         use_simam)
+    assert counts[carafe_head.BWD1_NOGATE_KERNEL] == int(not use_simam)
+    assert counts[carafe_head.FUSED_BWD_NOGATE_KERNEL] == int(not use_simam)
     assert set(on) == set(off) and len(on) > 0
     for name, g in off.items():
         err = float((on[name] - g).abs().max())
@@ -323,3 +417,26 @@ def test_train_step_on_card(dev):
     hist = [{k: float(v) for k, v in step(images, masks).items()} for _ in range(5)]
     assert all(0.0 <= h["dice"] <= 1.0 and 0.0 <= h["iou"] <= 1.0 for h in hist)
     assert hist[-1]["loss"] < hist[0]["loss"]
+
+
+@pytest.mark.parametrize("use_simam", [True, False])
+def test_train_step_at_drops_kernels_match_plain(dev, use_simam):
+    """Drops 0.3, one seed: the kernels and the plain path drop the same
+    elements, so float32 gradients agree; predict after the step is eval."""
+    model = CSWinUNet(**TINY, use_simam=use_simam, drop_rate=0.3, attn_drop_rate=0.3,
+                      drop_path_rate=0.3, device=dev, seed=7)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randint(0, 256, (2, 64, 64, 3), generator=gen, dtype=torch.uint8)
+    masks = (torch.randint(0, 2, (2, 64, 64, 1), generator=gen) * 255).to(torch.uint8)
+    grads = []
+    for use_kernels in (True, False):
+        model.zero_grad(set_to_none=True)
+        loss, _, _ = engine.compute_gradients(model, images, masks, 1, use_kernels, rng=17)
+        grads.append((float(loss), {n: p.grad.clone() for n, p in model.named_parameters()}))
+    assert abs(grads[0][0] - grads[1][0]) <= 1e-4
+    for name, g in grads[1][1].items():
+        err = float((grads[0][1][name] - g).abs().max())
+        assert err <= 1e-3 * max(float(g.abs().max()), 1e-12), (name, err)
+    x = images.to(dev).float() / 255
+    with torch.inference_mode():
+        torch.testing.assert_close(model.predict(x), torch.sigmoid(model(x)), rtol=0, atol=0)
