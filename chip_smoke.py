@@ -21,12 +21,25 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    the same way, at the training step's shapes, every output of the kernel
    checked; K-A' with dropout as K-A; the two kernels without the gate at
    ``cswinunet``'s head (448^2, float32, batch 2);
+4b. the flash-attention family (the tiled K-A / K-A' of windows of up to
+   2048 tokens, and the flash fwd, dq and dk/dv kernels of longer ones)
+   against their plain versions at every attention geometry of
+   ``cswin_simam_1024`` and ``cswin_simam_2048`` (vertical stripes among
+   them; the whole-window K-A / K-A' where they still hold the window), at
+   rates 0 and 0.3, mask for mask, batch 1, float32 within 1e-4 (scaled by
+   max(1, max|plain|) for backward outputs) and bf16 within 2e-2 x max(1,
+   max|plain|) per output; the tiled entry against K-A / K-A' at 256
+   tokens; each kernel's time, its plain version's and SDPA's at the 2048^2
+   path's shapes (batch 1, bf16, rates 0 and 0.3);
 5. serving: CSWin-SimAM-UNet at 512^2, full width, bf16, kernels on, random
    weights from a seed, served through ``Server`` for requests of batch 1,
    3, 8 and 11 (launch counts reset before and read after); output checks;
    kernels-on against kernels-off in bf16 (batch 2) and float32 (batch 1);
    the launch counts of one batch-8 request; ms per batch-8 request and
-   images/s;
+   images/s.  Then ``cswin_simam_2048`` (full width and depth) for requests
+   of batch 1 and 2: the launches of each (48 tiled K-A, 2 flash forwards,
+   K-C, K-H1, K-H2), output checks, kernels on against off in bf16 (batch
+   2, max |dp| <= 5e-2), ms per request and images/s;
 6. training, each path driven by ``make_train_step`` (AdamW, lr 1e-4, weight
    decay 1e-4) on one fixed uint8 batch of bright discs: the launch counts
    of one step (counts reset before and read after), 3 warm-up and 10 timed
@@ -34,10 +47,15 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    mean over the last 3 of 13 steps is below the first, Dice and IoU in
    [0, 1].  The paths: ``cswin_simam_512`` (bf16, batch 8) at drops 0.3, the
    configs' headline; the same at drops 0; ``cswinunet`` (448^2, no SimAM,
-   float32, batch 2) at drops 0.3.  Then one batch-2 step's gradients with
-   kernels on against kernels off from the same weights and the same dropout
-   seed, every parameter, in float32 for both configs (the masks are the
-   same, so the gradients must agree) and the loss in bf16.
+   float32, batch 2) at drops 0.3; ``cswin_simam_2048`` (bf16, batch 1) at
+   drops 0.3, the long-window path (48 launches each of the tiled K-A, dq
+   and dk/dv, 2 each of the flash kernels per step).  Then one batch-2
+   step's gradients with kernels on against kernels off from the same
+   weights and the same dropout seed, every parameter, in float32 for both
+   512^2 and 448^2 configs (the masks are the same, so the gradients must
+   agree) and the loss in bf16; and one batch-1 step of ``cswin_simam_2048``
+   at full width and depth (1,1,1,1), float32, drops 0.3 with attention
+   dropout 0 (the flash path's mask is not the plain path's).
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -64,6 +82,7 @@ sys.path.insert(0, HERE)
 
 IMG = 512
 IMG448 = 448                        # cswinunet
+IMG2048 = 2048                      # cswin_simam_2048
 SEED = 0
 DROP = 0.3                          # the configs' drop / attention-drop / drop-path
 DROP_SEED = 2 ** 31 + 12345         # attention-dropout seed of the kernel checks
@@ -82,7 +101,7 @@ TOL_MODEL_F32 = 1e-3                # probabilities, kernels on vs off, f32
 TOL_GRAD_F32 = 1e-3                 # x max|g| per parameter, kernels on vs off, f32
 TOL_LOSS_BF16 = 1e-2                # training loss, kernels on vs off, bf16
 TRAIN_WARMUP, TRAIN_STEPS, CHECK_BATCH = 3, 10, 2
-DEADLINE_S = 1100                   # the whole run takes about 70 s on the H100
+DEADLINE_S = 1100                   # the whole run takes about 200 s on the H100
 LOSS_TAIL = 3                       # the mean of the last 3 losses is below the first
 
 
@@ -252,6 +271,218 @@ def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev) -> di
                 batch=tcfg.batch_size, img=img)
 
 
+def check_outputs_by_kernel(name, torch, kernel_fn, plain_fn, make, groups, scaled32,
+                            batch=1):
+    """Kernel vs plain at float32 and at bf16, every output, each output
+    credited to the kernel (``groups``: kernel -> output indices) that
+    writes it.  bf16 errors are scaled by max(1, max|plain|) of the output;
+    float32 ones too where ``scaled32`` (backward outputs: dw sums over a
+    branch), else absolute.  Returns {kernel: (f32 err, bf16 err)}."""
+    res = {g: [0.0, 0.0] for g in groups}
+    for col, (dtype, tol) in enumerate(((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16))):
+        args = make(batch, dtype)
+        got = kernel_fn(*args)
+        want = plain_fn(*[t.float() if t.is_floating_point() else t for t in args])
+        for g, idx in groups.items():
+            for i in idx:
+                require(got[i].numel() == want[i].numel(),
+                        f"{name}: output {i} has {got[i].numel()} elements, plain "
+                        f"{want[i].numel()}")
+                err = max_err(got[i].reshape(want[i].shape), want[i])
+                if col == 1 or scaled32:
+                    err /= max(1.0, float(want[i].abs().max()))
+                require(err <= tol, f"{name}: {g} output {i} {dtype} error {err} > {tol}")
+                res[g][col] = max(res[g][col], err)
+        torch.cuda.synchronize()
+    log(f"  {name}: " + "  ".join(f"{g} f32 {e[0]:.3e} bf16 {e[1]:.3e}"
+                                   for g, e in res.items())
+        + f" (tol f32 {TOL_F32:g}{' scaled' if scaled32 else ''}, bf16 {TOL_BF16:g} scaled)")
+    return res
+
+
+def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
+    """Phase 4b: the flash family against its plain versions at every
+    attention geometry of ``cswin_simam_1024`` and ``cswin_simam_2048``
+    (``geoms``; the whole-window K-A / K-A' where they still hold the
+    window), at rates 0 and 0.3, mask for mask; the tiled entry against the
+    whole-window kernels at 256 tokens; then each kernel's time at the
+    2048^2 path's shapes (batch 1, bf16; ``path_geoms``: launches per
+    forward), its plain version's, SDPA's on the same windows and the
+    bound.  Returns the three kernel-table rows."""
+    from cswin_simam_unet_tpu_torch.ops import attention, flash_attention as fa
+    from cswin_simam_unet_tpu_torch.ops import stripe_attention as sa
+    rows = {k: dict(ms=0.0, ms_drop=0.0, plain_ms=0.0, plain_ms_drop=0.0, library_ms=0.0,
+                    library_ms_drop=0.0, bytes=0.0, flops=0.0, err32=0.0, err16=0.0,
+                    err32_drop=0.0, err16_drop=0.0, ms_window=0.0, ms_flash=0.0,
+                    bound_ms_window=0.0, bound_ms_flash=0.0)
+            for k in ("fwd", "dq", "dkv")}
+
+    def fold(res, rate):
+        sfx = "_drop" if rate else ""
+        for g, (e32, e16) in res.items():
+            rows[g]["err32" + sfx] = max(rows[g]["err32" + sfx], e32)
+            rows[g]["err16" + sfx] = max(rows[g]["err16" + sfx], e16)
+
+    def make_tokens(L, Cb, grad):
+        def make(B, dtype):
+            qkv = randn(B, L, 6 * Cb, scale=0.5, dtype=dtype)  # branch slices
+            out = [qkv[..., :Cb], qkv[..., 2 * Cb:3 * Cb], qkv[..., 4 * Cb:5 * Cb],
+                   randn(3, 3, 1, Cb, scale=1 / 3, dtype=dtype)]
+            return out + [randn(B, L, Cb, dtype=dtype)] if grad else out
+        return make
+
+    for (reso, Cb, heads, hsp, wsp) in sorted(geoms):
+        L, N, D = reso * reso, hsp * wsp, Cb // heads
+        kw = dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=heads)
+        for rate in (0.0, DROP):
+            kwr = dict(kw, attn_drop=rate, seed=DROP_SEED)
+            name = f"reso {reso} window {hsp}x{wsp} ({N} tokens) Cb {Cb} heads {heads} rate {rate}"
+            if sa.whole_window(N, D):
+                check_pair("K-A " + name, torch,
+                           lambda q, k, v, w, kw=kwr: sa.attention_fwd(q, k, v, w, **kw),
+                           lambda q, k, v, w, kw=kwr: attention.stripe_attention(q, k, v, w,
+                                                                                 **kw),
+                           make_tokens(L, Cb, False), batch=1)
+                check_outputs("K-A' " + name, torch,
+                              lambda q, k, v, w, g, kw=kwr: sa.attention_bwd(q, k, v, w, g,
+                                                                             **kw),
+                              lambda q, k, v, w, g, kw=kwr:
+                              attention.stripe_attention_bwd_reference(q, k, v, w, g, **kw),
+                              make_tokens(L, Cb, True), batch=1)
+            elif N <= fa.FLASH_MIN_TOKENS:
+                fold(check_outputs_by_kernel(
+                    "tiled K-A " + name, torch,
+                    lambda q, k, v, w, kw=kwr: sa.tiled_fwd(q, k, v, w, **kw)[:1],
+                    lambda q, k, v, w, kw=kwr: (attention.stripe_attention(q, k, v, w, **kw),),
+                    make_tokens(L, Cb, False), {"fwd": [0]}, scaled32=False), rate)
+                fold(check_outputs_by_kernel(
+                    "tiled K-A' " + name, torch,
+                    lambda q, k, v, w, g, kw=kwr: sa.tiled_bwd(
+                        q, k, v, w, sa.tiled_fwd(q, k, v, w, **kw)[1], g, **kw),
+                    lambda q, k, v, w, g, kw=kwr: attention.stripe_attention_bwd_reference(
+                        q, k, v, w, g, **kw),
+                    make_tokens(L, Cb, True), {"dq": [0], "dkv": [1, 2, 3]}, scaled32=True),
+                    rate)
+            else:
+                flip, Ht, Wt, wht = fa.band_geometry(reso, reso, hsp, wsp)
+                require(not flip, "the flash geometries of the configs are global windows")
+                geo = dict(H=Ht, W=Wt, hsp=wht, wsp=Wt, num_heads=heads, attn_drop=rate,
+                           seed=DROP_SEED)
+                ref_kw = dict(heads=heads, attn_drop=rate, seed=DROP_SEED)
+
+                def bands(t, N=N, Cb=Cb):
+                    return t.reshape(-1, N, Cb)
+
+                def make_fwd(B, dtype, L=L, Cb=Cb):
+                    return [randn(B, L, Cb, scale=0.5, dtype=dtype) for _ in range(3)]
+
+                def make_bwd(B, dtype, L=L, Cb=Cb, ref_kw=ref_kw, bands=bands):
+                    q, k, v, g = [randn(B, L, Cb, scale=0.5, dtype=dtype) for _ in range(4)]
+                    o, lse = fa.flash_attention_reference(
+                        *(bands(t.float()) for t in (q, k, v)), **ref_kw)
+                    return q, k, v, g, o.to(dtype).reshape(q.shape), lse
+
+                fold(check_outputs_by_kernel(
+                    "flash fwd " + name, torch,
+                    lambda q, k, v, geo=geo: fa.kernel_fwd(q, k, v, None, **geo, mode="flash"),
+                    lambda q, k, v, ref_kw=ref_kw, bands=bands: fa.flash_attention_reference(
+                        bands(q), bands(k), bands(v), **ref_kw),
+                    make_fwd, {"fwd": [0, 1]}, scaled32=False), rate)
+                fold(check_outputs_by_kernel(
+                    "flash dq, dkv " + name, torch,
+                    lambda q, k, v, g, o, lse, geo=geo, bands=bands: fa.kernel_bwd(
+                        q, k, v, None, lse, g, **geo, mode="flash",
+                        delta=fa.flash_delta(bands(o), bands(g), geo["num_heads"]))[:3],
+                    lambda q, k, v, g, o, lse, ref_kw=ref_kw, bands=bands:
+                    fa.flash_attention_bwd_reference(*(bands(t) for t in (q, k, v, o)), lse,
+                                                     bands(g), **ref_kw),
+                    make_bwd, {"dq": [0], "dkv": [1, 2]}, scaled32=True), rate)
+
+    # the tiled entry against the whole-window kernels where both run: the
+    # flagship's stage-4 global window (256 tokens), dropout 0.3
+    kwc = dict(H=16, W=16, hsp=16, wsp=16, num_heads=16, attn_drop=DROP, seed=DROP_SEED)
+    fold(check_outputs_by_kernel(
+        "tiled vs whole-window K-A, 16x16 window, Cb 512", torch,
+        lambda q, k, v, w: sa.tiled_fwd(q, k, v, w, **kwc)[:1],
+        lambda q, k, v, w: (sa.attention_fwd(q, k, v, w, **kwc),),
+        make_tokens(256, 512, False), {"fwd": [0]}, scaled32=False, batch=2), DROP)
+    fold(check_outputs_by_kernel(
+        "tiled vs whole-window K-A', 16x16 window, Cb 512", torch,
+        lambda q, k, v, w, g: sa.tiled_bwd(q, k, v, w, sa.tiled_fwd(q, k, v, w, **kwc)[1], g,
+                                           **kwc),
+        lambda q, k, v, w, g: sa.attention_bwd(q, k, v, w, g, **kwc),
+        make_tokens(256, 512, True), {"dq": [0], "dkv": [1, 2, 3]}, scaled32=True, batch=2),
+        DROP)
+
+    # times at the 2048^2 path's shapes: batch 1, bf16; per forward or step
+    for (reso, Cb, heads, hsp, wsp), count in sorted(path_geoms.items()):
+        L, N, D = reso * reso, hsp * wsp, Cb // heads
+        kw = dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=heads)
+        mode = "window" if N <= fa.FLASH_MIN_TOKENS else "flash"
+        q, k, v, w, g = make_tokens(L, Cb, True)(1, torch.bfloat16)
+        qh, kh, vh = (attention.window_heads(t, hsp, wsp, reso, reso, heads).contiguous()
+                      for t in (q, k, v))
+        gh = attention.window_heads(g, hsp, wsp, reso, reso, heads).contiguous()
+        tiled = mode == "window"
+        for rate in (0.0, DROP):
+            kwr = dict(kw, attn_drop=rate, seed=DROP_SEED)
+            sfx = "_drop" if rate else ""
+            lepe = w if tiled else None
+            out, lse = fa.kernel_fwd(q, k, v, lepe, **kwr, mode=mode)
+            delta = None if tiled else fa.flash_delta(out, g, heads).reshape(lse.shape)
+            dq, delta = fa.kernel_dq(q, k, v, lse, g, **kwr, delta=delta, mode=mode)
+            ms = {"fwd": time_ms(torch, lambda: fa.kernel_fwd(q, k, v, lepe, **kwr, mode=mode)),
+                  "dq": time_ms(torch, lambda: fa.kernel_dq(
+                      q, k, v, lse, g, **kwr, delta=None if tiled else delta, mode=mode)),
+                  "dkv": time_ms(torch, lambda: fa.kernel_dkv(q, k, v, lepe, lse, delta, g,
+                                                              **kwr, mode=mode))}
+            if tiled:
+                plain_f = time_ms(torch, lambda: attention.stripe_attention(q, k, v, w, **kwr),
+                                  iters=3)
+                plain_b = time_ms(torch, lambda: attention.stripe_attention_bwd_reference(
+                    q, k, v, w, g, **kwr), iters=3)
+            else:
+                rk = dict(heads=heads, attn_drop=rate, seed=DROP_SEED)
+                qb, kb, vb, gb, ob = (t.reshape(-1, N, Cb) for t in (q, k, v, g, out))
+                plain_f = time_ms(torch, lambda: fa.flash_attention_reference(qb, kb, vb, **rk),
+                                  iters=3)
+                plain_b = time_ms(torch, lambda: fa.flash_attention_bwd_reference(
+                    qb, kb, vb, ob, lse, gb, **rk), iters=3)
+            lib_f = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, dropout_p=rate, scale=D ** -0.5))
+            qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
+            sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate,
+                                                      scale=D ** -0.5)
+            lib_b = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), gh,
+                                                               retain_graph=True))
+            del sdpa_out, qg, kg, vg
+            for key, plain, lib in (("fwd", plain_f, lib_f), ("dq", plain_b, lib_b),
+                                    ("dkv", plain_b, lib_b)):
+                rows[key]["ms" + sfx] += count * ms[key]
+                rows[key]["plain_ms" + sfx] += count * plain
+                rows[key]["library_ms" + sfx] += count * lib
+                if not rate:
+                    rows[key]["ms_" + mode] += count * ms[key]
+            log(f"    {mode} reso {reso} window {hsp}x{wsp} Cb {Cb} rate {rate} x{count}/step: "
+                f"fwd {ms['fwd']:.4f} dq {ms['dq']:.4f} dkv {ms['dkv']:.4f} ms  plain fwd "
+                f"{plain_f:.4f} bwd {plain_b:.4f} ms  sdpa fwd {lib_f:.4f} bwd {lib_b:.4f} ms")
+        stat = L * heads * 4
+        taps = Cb * 9 * 4 if tiled else 0
+        work = {"fwd": (4 * L * Cb * 2 + stat + taps, (4 * N + (18 if tiled else 0)) * L * Cb),
+                "dq": (5 * L * Cb * 2 + 2 * stat, 6 * N * L * Cb),
+                "dkv": (6 * L * Cb * 2 + 2 * stat + 2 * taps,
+                        (8 * N + (36 if tiled else 0)) * L * Cb)}
+        for key, (nbytes, flops) in work.items():
+            rows[key]["bytes"] += count * nbytes
+            rows[key]["flops"] += count * flops
+            rows[key]["bound_ms_" + mode] += count * bound_ms(nbytes, flops, "bfloat16")[0]
+        del q, k, v, w, g, qh, kh, vh, gh, out, lse, delta, dq
+    for row in rows.values():
+        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"], "bfloat16")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -264,7 +495,7 @@ def main() -> int:
     from cswin_simam_unet_tpu_torch.configs import NO_DROPS, TRAIN_CONFIGS, build_model
     from cswin_simam_unet_tpu_torch.models.layers import CARAFE, LePEAttention
     from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head, dropout
-    from cswin_simam_unet_tpu_torch.ops import carafe_kernels, stripe_attention
+    from cswin_simam_unet_tpu_torch.ops import carafe_kernels, flash_attention, stripe_attention
     from cswin_simam_unet_tpu_torch.ops.simam import pooled_stats
     from cswin_simam_unet_tpu_torch.serving import Server
     from cswin_simam_unet_tpu_torch.train import engine
@@ -720,6 +951,15 @@ def main() -> int:
     del args, x, e, fb, dy
     torch.cuda.empty_cache()
 
+    # ---- 4b. long windows: the flash family ----
+    phase("long-window kernels vs plain versions (windows of cswin_simam_1024 and _2048)")
+    model2048 = build_model("cswin_simam_2048", device=dev, seed=SEED)
+    geoms2048 = attention_geometries(model2048)
+    geoms_long = set(geoms2048) | set(attention_geometries(
+        build_model("cswin_simam_1024", device=dev, seed=SEED)))
+    long_rows = long_window_phase(torch, F, dev, randn, geoms_long, geoms2048)
+    table.update({f"flash {k}": row for k, row in long_rows.items()})
+
     # ---- 5. serving ----
     phase("serving CSWin-SimAM-UNet 512^2 bf16, kernels on")
     server = Server(model)
@@ -787,6 +1027,52 @@ def main() -> int:
     log(f"batch-8 request: {req_ms:.2f} ms, {8e3 / req_ms:.1f} images/s "
         f"(mean of {n_req}, host clock, after 3 warm-up requests)")
 
+    # 2048^2: the tiled K-A at stages 1-3 and the flash forward at stage 4
+    phase("serving CSWin-SimAM-UNet 2048^2 bf16, kernels on")
+    server2048 = Server(model2048)
+    requests2048 = [rs.randint(0, 256, (b, IMG2048, IMG2048, 3), dtype="uint8") for b in (1, 2)]
+    per_forward2048 = {stripe_attention.TILED_KERNEL: 48, flash_attention.FWD_KERNEL + ":flash": 2,
+                       carafe_kernels.KERNEL: len(ups), carafe_head.MOMENTS_KERNEL: 1,
+                       carafe_head.HEAD_KERNEL: 1}
+    require(sum(geoms2048.values()) == 50, f"2048^2 attention branches {geoms2048}")
+    for req in requests2048:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = server2048(req)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in _build.LAUNCHES.items() if n}
+        b = req.shape[0]
+        log(f"  batch {b}: launches {got}; shape {tuple(out.shape)} range "
+            f"[{float(out.min()):.4f}, {float(out.max()):.4f}]")
+        require(got == per_forward2048, f"2048^2 batch-{b} launches {got} != {per_forward2048}")
+        require(tuple(out.shape) == (b, IMG2048, IMG2048, 1), f"output shape {tuple(out.shape)}")
+        require(bool(torch.isfinite(out).all()), "non-finite probabilities at 2048^2")
+        require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
+                "probabilities outside [0, 1] at 2048^2")
+    serve2048 = dict(launches_per_forward=per_forward2048)
+    x2 = torch.from_numpy(requests2048[1]).to(dev).float() / 255.0
+    with torch.inference_mode():
+        on = model2048.predict(x2, use_kernels=True).float()
+        off = model2048.predict(x2, use_kernels=False).float()
+    diff2048 = float((on - off).abs().max())
+    log(f"kernels on vs off, 2048^2, bf16, batch 2: max |dp| {diff2048:.3e} "
+        f"mean {float((on - off).abs().mean()):.3e} (tol {TOL_MODEL_BF16:g})")
+    require(diff2048 <= TOL_MODEL_BF16, f"2048^2 bf16 model diff {diff2048}")
+    del on, off, x2
+    torch.cuda.empty_cache()
+    for b, req in zip((1, 2), requests2048):
+        server2048(req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            server2048(req)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        serve2048[f"batch{b}_ms"], serve2048[f"batch{b}_images_per_s"] = ms, b * 1e3 / ms
+        log(f"2048^2 batch-{b} request: {ms:.2f} ms, {b * 1e3 / ms:.2f} images/s (mean of 3, "
+            f"host clock, after 1 warm-up request)")
+    serve2048["max_abs_dp_on_off_bf16"] = diff2048
+
 
     # ---- 6. training ----
     per_step = {**per_forward, stripe_attention.BWD_KERNEL: per_forward[stripe_attention.KERNEL],
@@ -797,31 +1083,39 @@ def main() -> int:
                    carafe_kernels.KERNEL: len(ups), carafe_kernels.BWD_KERNEL: len(ups),
                    carafe_head.MOMENTS_KERNEL: 1, carafe_head.HEAD_KERNEL: 1,
                    carafe_head.BWD1_NOGATE_KERNEL: 1, carafe_head.FUSED_BWD_NOGATE_KERNEL: 1}
+    per_step2048 = {**per_forward2048, carafe_kernels.BWD_KERNEL: len(ups),
+                    carafe_head.BWD1_KERNEL: 1, carafe_head.FUSED_BWD_KERNEL: 1,
+                    **{n: 48 for n in stripe_attention.TILED_BWD_KERNELS},
+                    flash_attention.DQ_KERNEL + ":flash": 2,
+                    flash_attention.DKV_KERNEL + ":flash": 2}
     model0 = build_model("cswin_simam_512", device=dev, seed=SEED, **NO_DROPS)
     runs = {}
     for label, net, cfg_name, want_step in (
             ("cswin_simam_512 drops 0.3", model, "cswin_simam_512", per_step),
             ("cswin_simam_512 drops 0", model0, "cswin_simam_512", per_step),
-            ("cswinunet drops 0.3", model448, "cswinunet", per_step448)):
+            ("cswinunet drops 0.3", model448, "cswinunet", per_step448),
+            ("cswin_simam_2048 drops 0.3", model2048, "cswin_simam_2048", per_step2048)):
         runs[label] = train_phase(torch, engine, _build, label, net, TRAIN_CONFIGS[cfg_name],
                                   want_step, dev)
     del model0
     train_launches = runs["cswin_simam_512 drops 0.3"]["launches"]
     train_launches448 = runs["cswinunet drops 0.3"]["launches"]
+    train_launches2048 = runs["cswin_simam_2048 drops 0.3"]["launches"]
+    del model2048, server2048
+    torch.cuda.empty_cache()
 
     # kernels on against kernels off, one batch-2 step from the same weights
     # and the same dropout seed (so the same masks)
     def grads_of(net, use_kernels, images_d, masks_d):
         net.zero_grad(set_to_none=True)
-        loss, _, _ = engine.compute_gradients(net, images_d[:CHECK_BATCH],
-                                              masks_d[:CHECK_BATCH], 1, use_kernels,
+        loss, _, _ = engine.compute_gradients(net, images_d, masks_d, 1, use_kernels,
                                               rng=DROP_SEED)
         grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
         net.zero_grad(set_to_none=True)
         return float(loss), grads
 
-    def compare_f32(label, net, img):
-        images_d, masks_d = disc_batch(torch, img, CHECK_BATCH, dev)
+    def compare_f32(label, net, img, batch=CHECK_BATCH):
+        images_d, masks_d = disc_batch(torch, img, batch, dev)
         loss_on, g_on = grads_of(net, True, images_d, masks_d)
         loss_off, g_off = grads_of(net, False, images_d, masks_d)
         worst_name, worst = "", 0.0
@@ -830,7 +1124,7 @@ def main() -> int:
             if rel > worst:
                 worst_name, worst = name, rel
             require(rel <= TOL_GRAD_F32, f"{label}: float32 gradient of {name}: rel gap {rel}")
-        log(f"gradients, kernels on vs off, {label}, float32, batch {CHECK_BATCH}, dropout "
+        log(f"gradients, kernels on vs off, {label}, float32, batch {batch}, dropout "
             f"seed {DROP_SEED}: loss {loss_on:.6f} vs {loss_off:.6f}; largest gap "
             f"{worst:.3e} x max|g| ({worst_name}) over {len(g_off)} parameters "
             f"(tol {TOL_GRAD_F32:g})")
@@ -840,6 +1134,16 @@ def main() -> int:
     grad_gap = compare_f32("cswin_simam_512 drops 0.3", model32, IMG)
     del model32
     grad_gap448 = compare_f32("cswinunet drops 0.3", model448, IMG448)
+    # 2048^2 at full width, depth (1,1,1,1) so that the kernels-off path's N^2
+    # scores fit; attention dropout 0 there: the flash path's mask (tiles of
+    # 512 in band order, as JAX's flash kernel) is not the plain path's
+    # whole-window mask, so the two would drop different stage-4 scores
+    model2048_d1 = build_model("cswin_simam_2048", device=dev, seed=SEED, dtype="float32",
+                               depth=(1, 1, 1, 1), attn_drop_rate=0.0)
+    grad_gap2048 = compare_f32("cswin_simam_2048 depth (1,1,1,1), drops 0.3 but attention "
+                               "drop 0", model2048_d1, IMG2048, batch=1)
+    del model2048_d1
+    torch.cuda.empty_cache()
     images_d, masks_d = disc_batch(torch, IMG, CHECK_BATCH, dev)
     loss_on, g_on = grads_of(model, True, images_d, masks_d)
     loss_off, g_off = grads_of(model, False, images_d, masks_d)
@@ -878,16 +1182,35 @@ def main() -> int:
         "K4 no gate": ("csu_carafe_head_bwd_nogate",
                        "cswin_simam_unet_tpu_torch/csrc/carafe.cu",
                        "cswin_simam_unet_tpu/ops/pallas_carafe_head.py:163"),
+        "flash fwd": (flash_attention.FWD_KERNEL,
+                      "cswin_simam_unet_tpu_torch/csrc/flash_attention_fwd.cu",
+                      "cswin_simam_unet_tpu/ops/pallas_attention_flash.py:148"),
+        "flash dq": (flash_attention.DQ_KERNEL,
+                     "cswin_simam_unet_tpu_torch/csrc/flash_attention_dq.cu",
+                     "cswin_simam_unet_tpu/ops/pallas_attention_flash.py:186"),
+        "flash dkv": (flash_attention.DKV_KERNEL,
+                      "cswin_simam_unet_tpu_torch/csrc/flash_attention_dkv.cu",
+                      "cswin_simam_unet_tpu/ops/pallas_attention_flash.py:220"),
     }
+    # the window mode of the flash family is the tiled K-A / K-A'
+    window_replaces = {"flash fwd": "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:180",
+                       "flash dq": "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:219",
+                       "flash dkv": "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:219"}
     kernels = []
     for label, (fn, src, replaces) in sources.items():
         row = table[label]
         # launches: one training step of the path that runs the kernel
-        # (cswin_simam_512 at drops 0.3, or cswinunet for the two without gate)
-        path = train_launches if train_launches.get(fn) else train_launches448
+        # (cswin_simam_512 at drops 0.3, cswinunet for the two without gate,
+        # cswin_simam_2048 for the flash family, both modes)
+        if label in window_replaces:
+            modes = {m: train_launches2048.get(f"{fn}:{m}", 0) for m in _build.FLASH_MODES}
+            n_step = sum(modes.values())
+        else:
+            path = train_launches if train_launches.get(fn) else train_launches448
+            n_step = path[fn]
         entry = {
             "name": f"{label} {fn}", "route": "cuda", "source": src, "replaces": replaces,
-            "launches": path[fn], "launches_cswinunet_step": train_launches448.get(fn, 0),
+            "launches": n_step, "launches_cswinunet_step": train_launches448.get(fn, 0),
             "launches_serving": launches.get(fn, 0),
             "launches_per_forward": batch8.get(fn, 0),
             "max_abs_err": row.get("abs32", row["err32"]),
@@ -901,11 +1224,23 @@ def main() -> int:
                          library_ms_dropout=row["library_ms_drop"],
                          max_abs_err_dropout=row.get("abs32_drop", row["err32_drop"]),
                          max_abs_err_bf16_dropout=row["err16_drop"])
+        if label in window_replaces:
+            entry.update(
+                path="cswin_simam_2048 training step, batch 1, bf16",
+                err_scaled_by_max_plain=label != "flash fwd",
+                launches_window=modes["window"], launches_flash=modes["flash"],
+                replaces_window_mode=window_replaces[label],
+                launches_per_forward=per_forward2048.get(f"{fn}:flash", 0) + (
+                    48 if label == "flash fwd" else 0),
+                ms_window=row["ms_window"], ms_flash=row["ms_flash"],
+                bound_ms_window=row["bound_ms_window"], bound_ms_flash=row["bound_ms_flash"])
         kernels.append(entry)
     log("training: " + json.dumps({k: {m: v for m, v in r.items() if m != "launches"}
                                    for k, r in runs.items()}))
+    log("serving 2048^2: " + json.dumps(serve2048))
     log(f"f32 gradient gaps, kernels on vs off at drops 0.3: cswin_simam_512 {grad_gap:.3e}, "
-        f"cswinunet {grad_gap448:.3e}; K-A keep rate {table['K-A']['keep_rate']:.6f}")
+        f"cswinunet {grad_gap448:.3e}; cswin_simam_2048 at depth (1,1,1,1), attention drop "
+        f"0: {grad_gap2048:.3e}; K-A keep rate {table['K-A']['keep_rate']:.6f}")
     log(f"build {build_s:.1f} s, whole run {time.perf_counter() - T_START:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

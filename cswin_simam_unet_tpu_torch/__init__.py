@@ -1,10 +1,15 @@
 """PyTorch/CUDA port of ``cswin_simam_unet_tpu`` for NVIDIA Hopper.
 
-This slice serves CSWin-SimAM-UNet (eval forward, uint8 images in,
-probabilities out) through four hand-written CUDA kernels: K-A stripe
-attention (``ops/stripe_attention.py``), K-C CARAFE
-(``ops/carafe_kernels.py``) and the fused head K-H1 + K-H2
-(``ops/carafe_head.py``).  Kernels are built with nvcc on first use
+CSWin-SimAM-UNet serves (``serving.py``: uint8 images in, probabilities
+out) and trains (``train/engine.py``: BCE, Dice/IoU, AdamW, dropout and
+drop-path at the configs' rates) at 448^2 to 2048^2 (``configs.py``)
+through hand-written CUDA kernels, each an autograd Function whose CPU path
+is its plain PyTorch version: stripe attention K-A / K-A'
+(``ops/stripe_attention.py``, windows that one block holds whole), the
+flash-attention family (``ops/flash_attention.py``: the tiled K-A / K-A' of
+windows of up to 2048 tokens, and the flash path of longer ones), CARAFE
+K-C / K-C' (``ops/carafe_kernels.py``) and the fused head K-H1, K-H2, K3,
+K4 (``ops/carafe_head.py``).  Kernels are built with nvcc on first use
 (``_build.py``).  The package imports torch and numpy, never JAX or the
 JAX package.
 """

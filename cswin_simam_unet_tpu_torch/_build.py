@@ -66,6 +66,19 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # dtype, fb, dy, dw_part, B, H, W, C, G, F, vec, stream
     "csu_head_bwd1_nogate": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, q, k, v, lepe_w, out, lse, ldq, ldk, ldv, B, H, W, hsp, wsp, heads,
+    # head_dim, scale, mask_tile, seed, threshold, inv_keep, stream
+    "csu_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _I, _U, _U, _F, _P],
+    # dtype, q, k, v, dout, lse, delta, delta_given, dq, ldq, ldk, ldv, ldg, B, H,
+    # W, hsp, wsp, heads, head_dim, scale, mask_tile, seed, threshold, inv_keep, stream
+    "csu_flash_attention_dq": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _L, _L, _L, _L, _I, _I,
+                               _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P],
+    # dtype, q, k, v, lepe_w, dout, lse, delta, dk, dv, dw_part, ldq, ldk, ldv, ldg,
+    # B, H, W, hsp, wsp, heads, head_dim, scale, mask_tile, seed, threshold,
+    # inv_keep, stream
+    "csu_flash_attention_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P],
     # dtype, x, enc, dy, w, dx, denc, db_part, B, H, W, C, S, F, vec, px, stream
     "csu_carafe_head_bwd_nogate": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _P],
@@ -73,8 +86,16 @@ _SIGNATURES = {
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of each kernel since the last reset, counted by launch()
-LAUNCHES = {name: 0 for name in _SIGNATURES}
+# The flash-attention family runs in two modes, counted apart as
+# "<entry>:window" (windows of up to 2048 tokens too large for K-A / K-A',
+# LePE fused) and "<entry>:flash" (longer windows, LePE outside).
+FLASH_ENTRIES = ("csu_flash_attention_fwd", "csu_flash_attention_dq",
+                 "csu_flash_attention_dkv")
+FLASH_MODES = ("window", "flash")
+
+# launches of each kernel (and mode) since the last reset, counted by launch()
+LAUNCHES = {key: 0 for name in _SIGNATURES for key in (
+    [f"{name}:{mode}" for mode in FLASH_MODES] if name in FLASH_ENTRIES else [name])}
 
 _lock = threading.Lock()
 _lib = None
@@ -169,9 +190,13 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, mode: str | None = None) -> None:
     """Call kernel entry ``name`` on ``device``'s current stream with
-    ``args`` (the stream is appended); raise if the launch failed."""
+    ``args`` (the stream is appended); raise if the launch failed.  The
+    launch counts under ``name``, or ``name:mode`` for the flash family."""
+    key = name if mode is None else f"{name}:{mode}"
+    if key not in LAUNCHES:
+        raise KeyError(f"no launch counter {key!r}")
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -179,7 +204,7 @@ def launch(name: str, device: torch.device, *args) -> None:
     if code != 0:
         msg = lib.csu_error_string(code).decode()
         raise RuntimeError(f"{name} failed: CUDA error {code} ({msg})")
-    LAUNCHES[name] += 1
+    LAUNCHES[key] += 1
 
 
 def dtype_code(t: torch.Tensor) -> int:
@@ -205,6 +230,18 @@ def token_stride(t: torch.Tensor) -> int | None:
             B > 1 and t.stride(0) != L * t.stride(1)):
         return None
     return t.stride(1)
+
+
+def token_strides(*named: tuple[torch.Tensor, str]) -> list[int]:
+    """:func:`token_stride` of each (tensor, name); raise for one without."""
+    out = []
+    for t, name in named:
+        ld = token_stride(t)
+        if ld is None:
+            raise ValueError(f"{name}: rows must be unit-stride and evenly spaced, "
+                             f"got strides {t.stride()}")
+        out.append(ld)
+    return out
 
 
 def check_cuda(*tensors: torch.Tensor) -> None:

@@ -12,6 +12,16 @@ drop / attention-drop / drop-path 0.3, as every CSWin config of the JAX
 package does (``_cswin_model``); ``build_model(name, **NO_DROPS)`` gives the
 drops-0 variant (``bench.py --no-train-drops``).  The kernels are chosen per
 call (``forward``/``predict``/``make_train_step``, on by default), not here.
+
+``cswin_simam_1024`` and ``cswin_simam_2048`` are the JAX package's long
+configs (``configs.py:154``, ``:171``): the flagship's geometry at 1024^2
+(windows of 512 tokens in stage 3, a 1024-token global window in stage 4)
+and 2048^2 (windows of 512 and 1024 tokens, a 4096-token global window on
+the flash path), AdamW lr 1e-4, weight decay 1e-4, batch 2 and 1.  What
+the JAX entries add is not ported: ``scan_stages`` (an XLA compile-size
+device), ``grad_accum`` (ROADMAP queue A item 4), the segmented step
+(queue A item 10; the port trains 2048^2 in one eager step) and the
+augmentation pipeline (queue A item 5).
 """
 
 from __future__ import annotations
@@ -59,10 +69,14 @@ CONFIGS = {
     "cswin_simam_512": ModelConfig(**DROPS),
     "cswinunet": ModelConfig(img_size=448, split_size=(1, 2, 7, 7), use_simam=False,
                              dtype="float32", **DROPS),
+    "cswin_simam_1024": ModelConfig(img_size=1024, **DROPS),
+    "cswin_simam_2048": ModelConfig(img_size=2048, **DROPS),
 }
 TRAIN_CONFIGS = {
     "cswin_simam_512": TrainConfig(),
     "cswinunet": TrainConfig(batch_size=2),
+    "cswin_simam_1024": TrainConfig(batch_size=2),
+    "cswin_simam_2048": TrainConfig(batch_size=1),
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

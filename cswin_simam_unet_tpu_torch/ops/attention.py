@@ -43,6 +43,22 @@ def lepe_depthwise(v_wins: torch.Tensor, lepe_kernel: torch.Tensor,
     return out.permute(0, 2, 3, 1).reshape(Bw, N, C)
 
 
+def lepe_tokens(v: torch.Tensor, lepe_kernel: torch.Tensor, H: int, W: int, hsp: int,
+                wsp: int) -> torch.Tensor:
+    """The LePE of every window of ``v`` (B, L, C) back in token order:
+    ``pallas_attention_flash._lepe_tokens``, differentiable by autograd."""
+    B, L, C = v.shape
+    lepe = lepe_depthwise(img2windows(tokens_to_nhwc(v, H, W), hsp, wsp), lepe_kernel, hsp, wsp)
+    return windows2img(lepe, hsp, wsp, H, W).reshape(B, L, C)
+
+
+def lepe_taps(lepe_kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The LePE taps as the kernels take them: rounded to the compute dtype,
+    (C, 9) float32, tap (dy+1)*3 + (dx+1)."""
+    C = lepe_kernel.shape[-1]
+    return lepe_kernel.to(dtype).float().reshape(9, C).t().contiguous()
+
+
 def _dropout_mask(attn_drop: float, seed: int | None, keep, n_windows: int, heads: int,
                   n: int, device):
     """(keep (n_windows, heads, n, n) bool, 1 / (1 - rate)), or None when

@@ -13,9 +13,12 @@ Counterpart of ``cswin_simam_unet_tpu/ops/dropout.py::fast_dropout``,
 * :func:`hash_keep_mask`: the attention keep mask as a pure function of
   (seed, window, head, query token, key token): murmur3's fmix32 over a
   counter, compared against the u32 threshold min(round(rate * 2^32),
-  2^32 - 1).  Kernels K-A and K-A' compute the same hash element by element,
-  so the forward, the backward and the plain version drop the same scores
-  without storing a mask.
+  2^32 - 1).  The kernels compute the same hash element by element, so the
+  forward, the backward and the plain version drop the same scores without
+  storing a mask.  The mask is tiled as ``hash_keep_mask`` tiles it: one
+  N x N tile per window for the whole-window attention (K-A, K-A' and the
+  tiled kernels of such windows), tiles of ``_pick_tile(N)`` in band order
+  for the flash path.
 * :class:`DropoutRng`: the randomness of one training forward, made from one
   host seed: the generator for the two above and a fresh 32-bit seed per
   attention call, derived on the host so that no step reads the device.
@@ -68,20 +71,26 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def hash_bits(seed: int, window: torch.Tensor, head: torch.Tensor, row: torch.Tensor,
-              col: torch.Tensor, n: int) -> torch.Tensor:
+              col: torch.Tensor, tile: int) -> torch.Tensor:
     """The 32 hash bits (int64 in [0, 2^32)) of score (row, col) of ``head`` in
-    global window ``window`` (b * windows per image + w) for windows of ``n``
-    tokens: ``pallas_attention_flash.hash_keep_mask`` at tile (0, 0) of a
-    (n, n) tile.  Integer tensors broadcast against each other."""
-    tile = ((window.long() * 1_000_003 + head.long()) & MASK32) * (4099 * 257) & MASK32
-    base = _mul32(torch.full_like(tile, seed & MASK32), _SEED_MUL) ^ _mul32(tile, _TILE_MUL)
-    return _fmix32((row.long() * n + col.long()) ^ base)
+    global window ``window`` (b * windows per image + w) with mask tiles of
+    edge ``tile``: ``pallas_attention_flash.hash_keep_mask`` of tile
+    (row // tile, col // tile) at element (row % tile, col % tile).  With
+    ``tile`` the window's token count this is tile (0, 0) of one (n, n) tile,
+    the whole-window convention.  Integer tensors broadcast against each
+    other."""
+    row, col = row.long(), col.long()
+    t = (window.long() * 1_000_003 + head.long()) & MASK32
+    t = (t * 4099 + row // tile) & MASK32
+    t = (t * 257 + col // tile) & MASK32
+    base = _mul32(torch.full_like(t, seed & MASK32), _SEED_MUL) ^ _mul32(t, _TILE_MUL)
+    return _fmix32(((row % tile) * tile + col % tile) ^ base)
 
 
 def hash_keep_mask(seed: int, window: torch.Tensor, head: torch.Tensor, row: torch.Tensor,
-                   col: torch.Tensor, threshold: int, n: int) -> torch.Tensor:
+                   col: torch.Tensor, threshold: int, tile: int) -> torch.Tensor:
     """Bool keep decisions: :func:`hash_bits` >= ``threshold``."""
-    return hash_bits(seed, window, head, row, col, n) >= threshold
+    return hash_bits(seed, window, head, row, col, tile) >= threshold
 
 
 def window_keep_mask(seed: int, n_windows: int, heads: int, n: int, threshold: int,
@@ -94,6 +103,17 @@ def window_keep_mask(seed: int, n_windows: int, heads: int, n: int, threshold: i
     return hash_keep_mask(seed, ar(n_windows)[:, None, None, None],
                           ar(heads)[None, :, None, None], ar(n)[None, None, :, None],
                           ar(n)[None, None, None, :], threshold, n)
+
+
+def kernel_drop_args(attn_drop: float, seed: int | None) -> tuple[int, int, float]:
+    """(seed, u32 threshold, 1 / (1 - rate)) of an attention call for the
+    kernels; threshold 0 is no dropout."""
+    threshold = u32_threshold(attn_drop)
+    if not threshold:
+        return 0, 0, 1.0
+    if seed is None:
+        raise ValueError("attention dropout needs a seed")
+    return int(seed) & MASK32, threshold, 1.0 / (1.0 - attn_drop)
 
 
 def fast_dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None = None,

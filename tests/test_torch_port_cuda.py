@@ -12,16 +12,21 @@ kernels (K-A', K-C', K3, K4 and the head's two kernels without the gate) are
 held against their plain versions, and the gradients of a tiny model through
 the kernels against the plain path.  Attention dropout is held mask for mask
 against the plain version at every window geometry of ``cswin_simam_512``
-and ``cswinunet``.
+and ``cswinunet``.  The long windows: the flash kernels and the tiled K-A /
+K-A' against their plain versions at 512, 1024, 2048 (vertical) and 4096
+(global) tokens, which kernels each window size launches, and
+CSWin-SimAM-UNet at 2048^2 (a forward, a batch-8 forward whose later images
+must not see 32-bit offsets wrap, and a training step).
 """
 
 import pytest
 import torch
 
 from cswin_simam_unet_tpu_torch import _build
+from cswin_simam_unet_tpu_torch.configs import TRAIN_CONFIGS, build_model
 from cswin_simam_unet_tpu_torch.models import CSWinUNet
 from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head, dropout
-from cswin_simam_unet_tpu_torch.ops import carafe_kernels, stripe_attention
+from cswin_simam_unet_tpu_torch.ops import carafe_kernels, flash_attention, stripe_attention
 from cswin_simam_unet_tpu_torch.ops.simam import pooled_stats
 from cswin_simam_unet_tpu_torch.ops.windows import stripe_geometry
 from cswin_simam_unet_tpu_torch.train import engine
@@ -49,6 +54,14 @@ def _randn(dev, *shape, scale=1.0, seed=0):
 def _check(got, want, dtype):
     err = float((got.float() - want.float()).abs().max())
     tol = TOL_F32 if dtype == torch.float32 else TOL_BF16 * max(1.0, float(want.abs().max()))
+    assert err <= tol, (err, tol)
+
+
+def _check_scaled(got, want, dtype):
+    """A backward output, both tolerances times max(1, max|plain|): the LePE
+    weight gradient sums over every token of the branch and reaches O(100)."""
+    err = float((got.float() - want.float()).abs().max())
+    tol = (TOL_F32 if dtype == torch.float32 else TOL_BF16) * max(1.0, float(want.abs().max()))
     assert err <= tol, (err, tol)
 
 
@@ -440,3 +453,203 @@ def test_train_step_at_drops_kernels_match_plain(dev, use_simam):
     x = images.to(dev).float() / 255
     with torch.inference_mode():
         torch.testing.assert_close(model.predict(x), torch.sigmoid(model(x)), rtol=0, atol=0)
+
+
+# ---- long windows: the flash kernels and the tiled K-A / K-A' ----
+
+# (H, hsp, wsp, C, heads): 512, 1024, 2048 (vertical) and 4096 (global) tokens
+LONG_GEOMS = [(64, 64, 8, 64, 2), (128, 128, 8, 32, 1), (256, 256, 8, 32, 1),
+              (64, 64, 64, 64, 2)]
+
+
+def _long_inputs(dev, dtype, H, C, B=1):
+    qkv = _randn(dev, B, H * H, 3 * C, scale=0.5).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(dtype)
+    g = _randn(dev, B, H * H, C, seed=2).to(dtype)
+    return q, k, v, lk, g
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hsp,wsp,C,heads", LONG_GEOMS)
+def test_tiled_attention_kernels(dev, dtype, rate, H, hsp, wsp, C, heads):
+    """The tiled K-A and K-A' (window mode) against the plain v2 versions,
+    mask for mask, every output."""
+    q, k, v, lk, g = _long_inputs(dev, dtype, H, C)
+    kw = dict(H=H, W=H, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=rate, seed=2 ** 31 + 9)
+    f32 = [t.float() for t in (q, k, v, lk, g)]
+    _build.reset_launches()
+    out, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
+    got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        stripe_attention.TILED_KERNEL: 1, **{n: 1 for n in stripe_attention.TILED_BWD_KERNELS}}
+    _check(out, attention.stripe_attention(*f32[:4], **kw), dtype)
+    want = attention.stripe_attention_bwd_reference(*f32, **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dtype
+        _check_scaled(a, b, dtype)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hsp,wsp,C,heads", LONG_GEOMS)
+def test_flash_kernels(dev, dtype, rate, H, hsp, wsp, C, heads):
+    """The flash fwd, dq and dkv kernels (flash mode, band layout, mask tiles
+    of pick_tile(N)) against the plain flash versions on the same bands; the
+    backward from the plain forward's O and L, so each kernel is held alone."""
+    q, k, v, lk, g = _long_inputs(dev, dtype, H, C, B=2)
+    flip, Ht, Wt, wht = flash_attention.band_geometry(H, H, hsp, wsp)
+    if flip:
+        q, k, v, g = (t.reshape(2, H, H, C).transpose(1, 2).reshape(2, H * H, C).contiguous()
+                      for t in (q, k, v, g))
+    geo = dict(H=Ht, W=Wt, hsp=wht, wsp=Wt, num_heads=heads, attn_drop=rate, seed=77)
+    N = wht * Wt
+    bands = [t.reshape(-1, N, C) for t in (q, k, v, g)]
+    ref_kw = dict(heads=heads, attn_drop=rate, seed=77)
+    out_ref, lse_ref = flash_attention.flash_attention_reference(
+        *[t.float() for t in bands[:3]], **ref_kw)
+    _build.reset_launches()
+    out, lse = flash_attention.kernel_fwd(q, k, v, None, **geo, mode="flash")
+    _check(out.reshape(out_ref.shape), out_ref, dtype)
+    _check(lse, lse_ref, dtype)
+    o = out_ref.to(dtype).reshape(q.shape)
+    delta = flash_attention.flash_delta(o.reshape(-1, N, C), g.reshape(-1, N, C), heads)
+    dq, dk, dv, dw = flash_attention.kernel_bwd(q, k, v, None, lse_ref, g, **geo, delta=delta,
+                                                mode="flash")
+    assert dw is None
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        f"{n}:flash": 1 for n in (flash_attention.FWD_KERNEL, flash_attention.DQ_KERNEL,
+                                  flash_attention.DKV_KERNEL)}
+    want = flash_attention.flash_attention_bwd_reference(
+        *[t.float() for t in bands[:3]], o.reshape(-1, N, C).float(), lse_ref,
+        bands[3].float(), **ref_kw)
+    for a, b in zip((dq, dk, dv), want):
+        _check_scaled(a.reshape(b.shape), b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hsp,wsp,C,heads", [
+    (16, 16, 16, 32, 1), (16, 16, 2, 64, 2), (14, 1, 14, 32, 1),
+    (16, 16, 1, 8, 1),     # head dim 8
+    (16, 2, 16, 32, 2),    # head dim 16
+    (8, 8, 8, 128, 2),     # head dim 64: two lanes share a row
+])
+def test_tiled_matches_whole_window(dev, dtype, H, hsp, wsp, C, heads):
+    """At windows K-A and K-A' hold whole, the tiled entry computes the same
+    function with the same dropout mask."""
+    q, k, v, lk, g = _long_inputs(dev, dtype, H, C, B=2)
+    kw = dict(H=H, W=H, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=0.3, seed=5)
+    out, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
+    _check(out, stripe_attention.attention_fwd(q, k, v, lk, **kw).float(), dtype)
+    got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
+    want = stripe_attention.attention_bwd(q, k, v, lk, g, **kw)
+    for a, b in zip(got, want):
+        _check_scaled(a, b.float(), dtype)
+
+
+# (H, W, hsp, wsp, C, heads): head dims 8, 16 and 64, a ragged 400-token
+# window, and a 20 x 26 global window whose flash mask tiles (104 tokens,
+# pick_tile(520)) are not a multiple of the kernels' 32-row tiles
+ODD_GEOMS = [(32, 32, 16, 32, 16, 2), (64, 64, 8, 64, 32, 2), (32, 32, 16, 32, 128, 2),
+             (20, 20, 20, 20, 32, 1), (20, 26, 20, 26, 32, 1)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,hsp,wsp,C,heads", ODD_GEOMS)
+def test_long_window_kernels_odd_shapes(dev, dtype, rate, H, W, hsp, wsp, C, heads):
+    """Both modes of the family at the head dims and sizes the path does not
+    use, every output against its plain version."""
+    qkv = _randn(dev, 2, H * W, 3 * C, scale=0.5).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(dtype)
+    g = _randn(dev, 2, H * W, C, seed=2).to(dtype)
+    kw = dict(H=H, W=W, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=rate, seed=11)
+    f32 = [t.float() for t in (q, k, v, lk, g)]
+    out, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
+    _check(out, attention.stripe_attention(*f32[:4], **kw), dtype)
+    got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
+    for a, b in zip(got, attention.stripe_attention_bwd_reference(*f32, **kw)):
+        _check_scaled(a, b, dtype)
+    N = hsp * wsp
+    ref_kw = dict(heads=heads, attn_drop=rate, seed=11)
+    bands = [t.reshape(-1, N, C) for t in (f32[0], f32[1], f32[2], f32[4])]  # q, k, v, g
+    out_ref, lse_ref = flash_attention.flash_attention_reference(*bands[:3], **ref_kw)
+    out, lse = flash_attention.kernel_fwd(q, k, v, None, **kw, mode="flash")
+    _check(out.reshape(out_ref.shape), out_ref, dtype)
+    _check(lse, lse_ref, dtype)
+    o = out_ref.to(dtype)
+    delta = flash_attention.flash_delta(o, g.reshape(-1, N, C), heads)
+    got = flash_attention.kernel_bwd(q, k, v, None, lse_ref, g, **kw, delta=delta, mode="flash")
+    want = flash_attention.flash_attention_bwd_reference(*bands[:3], o.float(), lse_ref,
+                                                         bands[3], **ref_kw)
+    for a, b in zip(got[:3], want):
+        _check_scaled(a.reshape(b.shape), b, dtype)
+
+
+def test_dispatch_launches_by_window_size(dev):
+    """Through ``stripe_attention`` with its gradient: the flagship's largest
+    window (256 tokens) launches K-A / K-A', 512 and 2048 tokens the tiled
+    pair, 4096 the flash kernels."""
+    cases = [((16, 16, 16, 64, 2), {stripe_attention.KERNEL: 1, stripe_attention.BWD_KERNEL: 1}),
+             ((64, 64, 8, 32, 1), {stripe_attention.TILED_KERNEL: 1,
+                                   **{n: 1 for n in stripe_attention.TILED_BWD_KERNELS}}),
+             ((256, 256, 8, 32, 1), {stripe_attention.TILED_KERNEL: 1,
+                                     **{n: 1 for n in stripe_attention.TILED_BWD_KERNELS}}),
+             ((64, 64, 64, 64, 2), {f"{n}:flash": 1 for n in (
+                 flash_attention.FWD_KERNEL, flash_attention.DQ_KERNEL,
+                 flash_attention.DKV_KERNEL)})]
+    for (H, hsp, wsp, C, heads), want in cases:
+        q, k, v, lk, g = _long_inputs(dev, torch.bfloat16, H, C)
+        q, k, v, lk = (t.detach().requires_grad_() for t in (q, k, v, lk))
+        _build.reset_launches()
+        out = stripe_attention.stripe_attention(q, k, v, lk, H=H, W=H, hsp=hsp, wsp=wsp,
+                                                num_heads=heads)
+        out.backward(g)
+        assert {n: c for n, c in _build.LAUNCHES.items() if c} == want, (H, hsp, wsp)
+        assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+                   for t in (q, k, v, lk))
+
+
+def test_model_2048_forward_and_training_step(dev):
+    """CSWin-SimAM-UNet at 2048^2, full width, bf16: per forward the tiled
+    K-A runs 48 times and the flash forward twice; per training step the
+    tiled K-A' and the flash backward as often; the step's loss is finite."""
+    model = build_model("cswin_simam_2048", device=dev, seed=0)
+    x = torch.rand(1, 2048, 2048, 3, device=dev)
+    _build.reset_launches()
+    with torch.inference_mode():
+        p = model.predict(x)
+    counts = {n: c for n, c in _build.LAUNCHES.items() if c}
+    assert counts[stripe_attention.TILED_KERNEL] == 48
+    assert counts[f"{flash_attention.FWD_KERNEL}:flash"] == 2
+    assert stripe_attention.KERNEL not in counts
+    assert p.shape == (1, 2048, 2048, 1) and bool(torch.isfinite(p).all())
+    opt = engine.make_optimizer("adamw", 1e-4, 1e-4, model.parameters())
+    step = engine.make_train_step(model, opt, seed=0)
+    images = (x[..., :3] * 255).to(torch.uint8)
+    masks = ((x[..., :1] > 0.5) * 255).to(torch.uint8)
+    _build.reset_launches()
+    out = step(images, masks)
+    counts = {n: c for n, c in _build.LAUNCHES.items() if c}
+    for name in stripe_attention.TILED_BWD_KERNELS:
+        assert counts[name] == 48, counts
+    for name in (flash_attention.DQ_KERNEL, flash_attention.DKV_KERNEL):
+        assert counts[f"{name}:flash"] == 2, counts
+    assert all(bool(torch.isfinite(torch.as_tensor(val))) for val in out.values())
+    assert TRAIN_CONFIGS["cswin_simam_2048"].batch_size == 1
+
+
+def test_model_2048_batch8_offsets(dev):
+    """A batch-8 forward at 2048^2: the head's flat map holds 8 * 512^2 * 1024
+    > 2^31 elements, so a kernel with 32-bit offsets would wrap; the last
+    image must come out as it does alone."""
+    model = build_model("cswin_simam_2048", device=dev, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand(8, 2048, 2048, 3, device=dev, generator=gen)
+    with torch.inference_mode():
+        p8 = model.predict(x)
+        p1 = model.predict(x[7:])
+    assert bool(torch.isfinite(p8).all())
+    assert float((p8[7:].float() - p1.float()).abs().max()) <= 5e-2
