@@ -138,6 +138,26 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 10) -> float:
+    """Mean device time of fn() without the host's dispatch time: the calls
+    are queued behind a spin kernel (``torch.cuda._sleep``, about 25 ms)
+    that holds the stream until the host has issued all of them, so the
+    events time them back to back on the device.  time_ms includes the
+    host's time where a call costs the host more than its kernels cost the
+    device.  fn must not wait for the device."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -481,6 +501,376 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"], "bfloat16")
     torch.cuda.empty_cache()
     return rows
+
+
+def launches_of(torch, _build, fn) -> dict:
+    """Run ``fn()`` with every launch count set to 0 just before; the counts
+    it launched, read just after (a main-path run)."""
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: n for k, n in _build.LAUNCHES.items() if n}
+
+
+def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, model448):
+    """Phase 4c: the last six kernel bodies (K-LN, K-LN', K5 with and
+    without the gate, K-V1, K-V1') against their plain versions at the
+    shapes their entry points take in the flagship (bf16, batch 8) and in
+    ``cswinunet`` (float32, batch 2), and at one odd shape each; their
+    times at the flagship's shapes; then the three entry points driven
+    forward and backward with the launch counts reset before and read after
+    each (FusedLayerNorm(use_kernel=True) at every LayerNorm shape of both
+    configs; CARAFE(flat_output, flat_raw) into FusedSimAMHead at 1 and 4
+    classes with the gate on and off, and at 16 classes through the unfused
+    chain; stripe_attention_v1 at every window geometry of both configs);
+    FusedSimAMHead with kernels on against off; and one batch-8 serving
+    forward of CSWin-SimAM-UNet with 16 classes at 512^2, whose head takes
+    the unfused chain.  Returns the six kernel-table entries and a summary."""
+    from cswin_simam_unet_tpu_torch.models.layers import CARAFE, FusedLayerNorm, FusedSimAMHead
+    from cswin_simam_unet_tpu_torch.ops import attention, carafe_head, carafe_kernels
+    from cswin_simam_unet_tpu_torch.ops import layernorm, simam_head
+    from cswin_simam_unet_tpu_torch.ops import stripe_attention as sa
+    from cswin_simam_unet_tpu_torch.ops import window_attention as wa
+    from cswin_simam_unet_tpu_torch.ops.simam import pooled_stats
+
+    rows = {k: dict(err32=0.0, err16=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
+                    flops=0.0, device_ms=0.0, library_device_ms=0.0, shapes=[])
+            for k in ("K-LN", "K-LN'", "K5", "K5 no gate", "K-V1", "K-V1'")}
+
+    def fold(key, errs):
+        """Keep the largest errors: (f32, bf16) of check_pair, (f32 scaled,
+        bf16 scaled, f32 absolute) of check_outputs."""
+        for name, err in zip(("err32", "err16", "abs32"), errs):
+            rows[key][name] = max(rows[key].get(name, 0.0), err)
+
+    def add_time(key, times, nbytes, flops, shape, count=1):
+        """Fold one shape's times into the row: ``times`` (kernel, plain,
+        library or None) as callables, each timed with CUDA events (time_ms)
+        and the kernel and library also without the host's time (device_ms); all
+        times ``count`` x per call."""
+        kern, plain, lib = times
+        ms, plain_ms = count * time_ms(torch, kern), count * time_ms(torch, plain, iters=3)
+        dev = count * device_ms(torch, kern)
+        lib_ms = lib_dev = None
+        if lib is not None:
+            lib_ms, lib_dev = count * time_ms(torch, lib), count * device_ms(torch, lib)
+        r = rows[key]
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["device_ms"] += dev
+        r["library_ms"] = None if lib is None else r["library_ms"] + lib_ms
+        r["library_device_ms"] = None if lib is None else r["library_device_ms"] + lib_dev
+        r["bytes"] += count * nbytes
+        r["flops"] += count * flops
+        b_ms, _ = bound_ms(count * nbytes, count * flops, "bfloat16")
+        r["shapes"].append(dict(shape=shape, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                                library_ms=lib_ms, library_device_ms=lib_dev, bound_ms=b_ms))
+        log(f"    {key} {shape}: kernel {ms:.4f} ms (device {dev:.4f})  plain {plain_ms:.4f} "
+            f"ms  library {'none' if lib is None else f'{lib_ms:.4f} ms (device {lib_dev:.4f})'}"
+            f"  bound {b_ms:.4f} ms")
+
+    # -- K-LN, K-LN': every LayerNorm shape (rows M = B*L, channels C) --
+    E, r512, r448 = 64, IMG // 4, IMG448 // 4
+    B448 = 2
+    ln_flag = [(TIME_BATCH * (r512 >> s) ** 2, E << s) for s in range(4)]
+    ln_448 = [(B448 * (r448 >> s) ** 2, E << s) for s in range(4)]
+    def ln_inputs(M, C, dtype, grad=False):
+        """(x, scale, bias), or (x, scale, dy) with ``grad``."""
+        x, g = randn(M, C, scale=2.0, dtype=dtype), randn(C, scale=0.3) + 1.0
+        return x, g, randn(M, C, dtype=dtype) if grad else randn(C, scale=0.1)
+
+    for M, C in ln_flag + ln_448 + [(1000, 100)]:
+        fold("K-LN", check_pair(f"K-LN ({M}, {C})", torch, layernorm.kernel_fwd,
+                                layernorm.ln_reference,
+                                lambda _B, dtype, M=M, C=C: ln_inputs(M, C, dtype)))
+        fold("K-LN'", check_outputs(f"K-LN' ({M}, {C})", torch, layernorm.kernel_bwd,
+                                    layernorm.ln_bwd_reference,
+                                    lambda _B, dtype, M=M, C=C: ln_inputs(M, C, dtype, True)))
+    for M, C in ln_flag:  # times at the flagship's shapes, bf16
+        x, g, dy = ln_inputs(M, C, torch.bfloat16, True)
+        b = randn(C, scale=0.1)
+        gb, bb = g.to(x.dtype), b.to(x.dtype)
+        xg, gg, bg = (t.detach().requires_grad_() for t in (x, gb, bb))
+        lib_out = F.layer_norm(xg, (C,), gg, bg, 1e-5)
+        add_time("K-LN", (lambda: layernorm.kernel_fwd(x, g, b),
+                          lambda: layernorm.ln_reference(x, g, b),
+                          lambda: F.layer_norm(x, (C,), gb, bb, 1e-5)),
+                 2 * M * C * 2 + 2 * C * 4, 8 * M * C, (M, C))
+        add_time("K-LN'", (lambda: layernorm.kernel_bwd(x, g, dy),
+                           lambda: layernorm.ln_bwd_reference(x, g, dy),
+                           lambda: torch.autograd.grad(lib_out, (xg, gg, bg), dy,
+                                                       retain_graph=True)),
+                 3 * M * C * 2 + 3 * C * 4, 14 * M * C, (M, C))
+        del x, g, dy, xg, lib_out
+
+    # -- K5 and K5 without the gate: the flagship head's flat map --
+    G = 16
+
+    def make_k5(H, W, C, Fc, gate):
+        def make(B, dtype):
+            fb = randn(B, H, W, G * C, dtype=dtype)
+            dy = randn(B, H, W, G * Fc, dtype=dtype)
+            w = randn(C, Fc, scale=C ** -0.5)
+            f = fb.float()
+            mu, v = pooled_stats(f.sum((1, 2)), (f * f).sum((1, 2)), H * W * G, G)
+            A = Bq = torch.zeros_like(mu)  # unused without the gate
+            if gate:
+                A, Bq, _ = carafe_head.head_bwd1_reference(f, dy.float(), mu, v, w, G)
+            return fb, dy, mu, v, A, Bq, w
+        return make
+
+    for gate in (True, False):
+        key = "K5" if gate else "K5 no gate"
+        for H, W, C, Fc in ((r512, r512, E, 1), (r512, r512, E, 4), (20, 36, 48, 3)):
+            fold(key, check_outputs(
+                f"{key} fb ({H},{W},{G * C}) F {Fc}", torch,
+                lambda *a, gate=gate: simam_head.head_bwd2(*a, G, gate=gate),
+                lambda *a, gate=gate: carafe_head.head_bwd2_reference(*a, G, gate=gate),
+                make_k5(H, W, C, Fc, gate)))
+        args = make_k5(r512, r512, E, 1, gate)(TIME_BATCH, torch.bfloat16)
+        n = args[0].numel()
+        add_time(key, (lambda: simam_head.head_bwd2(*args, G, gate=gate),
+                       lambda: carafe_head.head_bwd2_reference(*args, G, gate=gate), None),
+                 (2 * n if gate else n) * 2 + args[1].numel() * 2 + E * 4
+                 + (4 * TIME_BATCH * E * 4 if gate else 0),
+                 (24 if gate else 3) * n, (TIME_BATCH, r512, r512, G * E))
+        del args
+
+    # -- K-V1, K-V1': every window geometry, as (G, Np, D) groups --
+    def v1_shape(B, reso, Cb, heads, hsp, wsp):
+        N = hsp * wsp
+        return B * (reso // hsp) * (reso // wsp) * heads, -(-N // wa.PAD) * wa.PAD, N, Cb // heads
+
+    geoms512, geoms448 = attention_geometries(model), attention_geometries(model448)
+    v1_cases = sorted({v1_shape(1, *g)[1:] for g in list(geoms512) + list(geoms448)})
+    for Np, nv, D in v1_cases + [(64, 53, 16)]:
+        scale = D ** -0.5
+
+        def make(B, dtype, Np=Np, D=D, grad=False):
+            return [randn(B * 8, Np, D, scale=0.5, dtype=dtype) for _ in range(4 if grad else 3)]
+
+        name = f"(G, {Np}, {D}), n_valid {nv}"
+        fold("K-V1", check_pair(
+            "K-V1 " + name, torch, lambda q, k, v, s=scale, nv=nv: wa.kernel_fwd(q, k, v, s, nv)[0],
+            lambda q, k, v, s=scale, nv=nv: wa.window_attention_reference(q, k, v, s, nv), make))
+        fold("K-V1'", check_outputs(
+            "K-V1' " + name, torch,
+            lambda q, k, v, do, s=scale, nv=nv: wa.kernel_bwd(
+                q, k, v, wa.kernel_fwd(q, k, v, s, nv)[1], do, s, nv),
+            lambda q, k, v, do, s=scale, nv=nv: wa.window_attention_bwd_reference(
+                q, k, v, do, s, nv),
+            lambda B, dtype, make=make: make(B, dtype, grad=True)))
+    for geom, count in sorted(geoms512.items()):  # the flagship's 50 branches, bf16
+        Gn, Np, nv, D = v1_shape(TIME_BATCH, *geom)
+        scale = D ** -0.5
+        q, k, v, do = (randn(Gn, Np, D, scale=0.5, dtype=torch.bfloat16) for _ in range(4))
+        _, lse = wa.kernel_fwd(q, k, v, scale, nv)
+        mask = (torch.arange(Np, device=dev) < nv).view(1, 1, 1, Np)
+        qg, kg, vg = (t[:, None].detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
+        elems = Gn * Np * D
+        add_time("K-V1", (lambda: wa.kernel_fwd(q, k, v, scale, nv),
+                          lambda: wa.window_attention_reference(q, k, v, scale, nv),
+                          lambda: F.scaled_dot_product_attention(
+                              q[:, None], k[:, None], v[:, None], attn_mask=mask, scale=scale)),
+                 4 * elems * 2 + Gn * Np * 4, 4 * Gn * Np * nv * D, (geom, count), count)
+        add_time("K-V1'", (lambda: wa.kernel_bwd(q, k, v, lse, do, scale, nv),
+                           lambda: wa.window_attention_bwd_reference(q, k, v, do, scale, nv),
+                           lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do[:, None],
+                                                       retain_graph=True)),
+                 7 * elems * 2 + Gn * Np * 4, 10 * Gn * Np * nv * D, (geom, count), count)
+        del q, k, v, do, lse, qg, kg, vg, lib_out
+    torch.cuda.empty_cache()
+
+    # -- the three entry points, forward and backward: the main path --
+    main = {}
+
+    def tally(label, got, want):
+        log(f"  {label}: launches {got}")
+        require(got == want, f"{label}: launches {got} != {want}")
+        for k_, n_ in got.items():
+            main[k_] = main.get(k_, 0) + n_
+
+    for (M, C), dtype in [(s, torch.bfloat16) for s in ln_flag] + [(s, torch.float32)
+                                                                   for s in ln_448]:
+        def run_ln(M=M, C=C, dtype=dtype):
+            mod = FusedLayerNorm(C, use_kernel=True).to(dev)
+            with torch.no_grad():
+                mod.weight.copy_(randn(C, scale=0.3) + 1.0)
+                mod.bias.copy_(randn(C, scale=0.1))
+            x = randn(M, C, dtype=dtype).requires_grad_()
+            y = mod(x)
+            y.backward(randn(M, C, dtype=dtype))
+            require(y.dtype == dtype and bool(torch.isfinite(y).all())
+                    and bool(torch.isfinite(x.grad).all())
+                    and bool(torch.isfinite(mod.weight.grad).all()),
+                    f"FusedLayerNorm ({M}, {C}) {dtype}: non-finite output or gradient")
+
+        tally(f"FusedLayerNorm(use_kernel=True) ({M}, {C}) {dtype}",
+              launches_of(torch, _build, run_ln),
+              {layernorm.FWD_KERNEL: 1, layernorm.BWD_KERNEL: 1})
+
+    tokens = randn(TIME_BATCH, r512 * r512, E, dtype=torch.bfloat16)
+    for Fc, gate in ((1, True), (1, False), (4, True), (4, False), (16, True)):
+        def run_head(Fc=Fc, gate=gate):
+            car = CARAFE(E, E, up_factor=4, flat_output=True, flat_raw=True).to(dev)
+            head = FusedSimAMHead(E, Fc, G, use_simam=gate).to(dev)
+            with torch.no_grad():
+                for p_ in list(car.parameters()) + list(head.parameters()):
+                    p_.copy_(randn(*p_.shape, scale=p_[0].numel() ** -0.5 if p_.ndim > 1
+                                   else 0.1))
+            x = tokens.detach().requires_grad_()
+            up, bias = car(x, r512, r512, kernels=True)
+            out = head(up, bias)
+            out.float().square().mean().backward()
+            require(tuple(out.shape) == (TIME_BATCH, r512, r512, G * Fc)
+                    and bool(torch.isfinite(out).all()) and bool(torch.isfinite(x.grad).all())
+                    and bool(torch.isfinite(head.weight.grad).all()),
+                    f"FusedSimAMHead F {Fc} gate {gate}: bad output or gradient")
+
+        want = {carafe_kernels.KERNEL: 1, carafe_kernels.BWD_KERNEL: 1}
+        if Fc <= 8:
+            want.update({carafe_head.HEAD_KERNEL: 1,
+                         carafe_head.BWD1_KERNEL if gate else carafe_head.BWD1_NOGATE_KERNEL: 1,
+                         simam_head.BWD2_KERNEL if gate else simam_head.BWD2_NOGATE_KERNEL: 1})
+        tally(f"CARAFE(flat_raw) -> FusedSimAMHead F {Fc} gate {gate}, batch {TIME_BATCH} bf16",
+              launches_of(torch, _build, run_head), want)
+    del tokens
+
+    def run_v1(geoms, B, dtype):
+        worst = 0.0
+        for (reso, Cb, heads, hsp, wsp) in sorted(geoms):
+            kw = dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=heads)
+            q, k, v = (randn(B, reso * reso, Cb, scale=0.5, dtype=dtype).requires_grad_()
+                       for _ in range(3))
+            lepe = randn(3, 3, 1, Cb, scale=1 / 3, dtype=dtype)
+            out = wa.stripe_attention_v1(q, k, v, lepe, **kw)
+            out.backward(randn(B, reso * reso, Cb, dtype=dtype))
+            require(bool(torch.isfinite(out).all()) and bool(torch.isfinite(q.grad).all()),
+                    f"stripe_attention_v1 {kw}: non-finite")
+            if dtype == torch.float32:  # v1 and K-A's plain version: one function
+                with torch.no_grad():
+                    ref = attention.stripe_attention(q, k, v, lepe, **kw)
+                worst = max(worst, max_err(out.detach(), ref))
+        return worst
+
+    for label, geoms, B, dtype in (("cswin_simam_512", geoms512, TIME_BATCH, torch.bfloat16),
+                                   ("cswinunet", geoms448, B448, torch.float32)):
+        res = {}
+        tally(f"stripe_attention_v1 at the {len(geoms)} window geometries of {label}, batch "
+              f"{B}, {dtype}", launches_of(torch, _build, lambda: res.setdefault(
+                  "err", run_v1(geoms, B, dtype))),
+              {wa.FWD_KERNEL: len(geoms), wa.BWD_KERNEL: len(geoms)})
+        if dtype == torch.float32:
+            log(f"  stripe_attention_v1 vs the plain stripe attention, float32: max abs err "
+                f"{res['err']:.3e} (tol {TOL_F32:g})")
+            require(res["err"] <= TOL_F32, f"v1 vs plain stripe attention {res['err']}")
+    # attention dropout in training: the documented fallback, no v1 launch
+    geom = sorted(geoms512)[0]
+    kw = dict(H=geom[0], W=geom[0], hsp=geom[3], wsp=geom[4], num_heads=geom[2],
+              attn_drop=DROP, deterministic=False, seed=DROP_SEED)
+    q = randn(2, geom[0] ** 2, geom[1], scale=0.5, dtype=torch.bfloat16)
+    fallback = launches_of(torch, _build, lambda: wa.stripe_attention_v1(
+        q, q, q, randn(3, 3, 1, geom[1], dtype=torch.bfloat16), **kw))
+    log(f"  stripe_attention_v1 with attention dropout 0.3 in training: launches {fallback}")
+    require(not any(k_.startswith("csu_window_attention") for k_ in fallback),
+            "the v1 dropout fallback launched a v1 kernel")
+    for key, fn in (("K-LN", layernorm.FWD_KERNEL), ("K-LN'", layernorm.BWD_KERNEL),
+                    ("K5", simam_head.BWD2_KERNEL), ("K5 no gate", simam_head.BWD2_NOGATE_KERNEL),
+                    ("K-V1", wa.FWD_KERNEL), ("K-V1'", wa.BWD_KERNEL)):
+        rows[key]["launches"] = main.get(fn, 0)
+        require(rows[key]["launches"] > 0, f"{key} was not launched on its main path")
+    log(f"  main-path launches of the three entry points: {main}")
+
+    # -- FusedSimAMHead, kernels on against off --
+    head_gaps = {}
+    for Fc, gate in ((1, True), (4, True), (4, False)):
+        head = FusedSimAMHead(E, Fc, G, use_simam=gate).to(dev)
+        with torch.no_grad():
+            head.weight.copy_(randn(Fc, E, 1, 1, scale=E ** -0.5))
+        x0, b0 = randn(2, r512, r512, G * E), randn(E, scale=0.1)
+        res = []
+        for on in (True, False):
+            x, b = x0.clone().requires_grad_(), b0.clone().requires_grad_()
+            head.weight.grad = None
+            out = head(x, b, use_kernels=on)
+            out.backward(torch.cos(out.detach()))
+            res.append((out.detach(), x.grad, b.grad, head.weight.grad.clone()))
+        gap = max(max_err(a, r) / max(float(r.abs().max()), 1e-30)
+                  for a, r in zip(res[0], res[1]))
+        with torch.no_grad():
+            xb, bb = x0[:1].to(torch.bfloat16), b0.to(torch.bfloat16)
+            dp = max_err(torch.sigmoid(head(xb, bb, use_kernels=True).float()),
+                         torch.sigmoid(head(xb, bb, use_kernels=False).float()))
+        log(f"  FusedSimAMHead F {Fc} gate {gate}, kernels on vs off: float32 output and "
+            f"gradients within {gap:.3e} x max|.| (tol {TOL_GRAD_F32:g}); bf16 sigmoid "
+            f"max |dp| {dp:.3e} (tol {TOL_MODEL_BF16:g})")
+        require(gap <= TOL_GRAD_F32, f"FusedSimAMHead F {Fc} gate {gate}: f32 gap {gap}")
+        require(dp <= TOL_MODEL_BF16, f"FusedSimAMHead F {Fc} gate {gate}: bf16 gap {dp}")
+        head_gaps[f"F{Fc}_gate{int(gate)}"] = dict(f32_rel=gap, bf16_dp=dp)
+        del x0, res
+    torch.cuda.empty_cache()
+
+    # -- serving forward of CSWin-SimAM-UNet with 16 classes, 512^2, bf16 --
+    model16 = build_model("cswin_simam_512", device=dev, seed=SEED, num_classes=16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x16 = torch.rand(TIME_BATCH, IMG, IMG, 3, device=dev, generator=gen)
+    n_attn = sum(geoms512.values())
+    res = {}
+
+    def serve16():
+        with torch.inference_mode():
+            res["p"] = model16.predict(x16)
+
+    got = launches_of(torch, _build, serve16)
+    log(f"  CSWin-SimAM-UNet, 16 classes, batch {TIME_BATCH}: launches {got}")
+    require(got == {sa.KERNEL: n_attn, carafe_kernels.KERNEL: 4},
+            f"16-class forward launches {got}")
+    p = res.pop("p")
+    sums = p.float().sum(-1)
+    require(tuple(p.shape) == (TIME_BATCH, IMG, IMG, 16) and bool(torch.isfinite(p).all())
+            and float((sums - 1).abs().max()) <= 5e-2, "16-class probabilities")
+    with torch.inference_mode():
+        on = model16.predict(x16[:2], use_kernels=True).float()
+        off = model16.predict(x16[:2], use_kernels=False).float()
+    dp16 = max_err(on, off)
+    log(f"  16 classes, kernels on vs off, bf16, batch 2: max |dp| {dp16:.3e} "
+        f"(tol {TOL_MODEL_BF16:g})")
+    require(dp16 <= TOL_MODEL_BF16, f"16-class model diff {dp16}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        serve16()
+    torch.cuda.synchronize()
+    ms16 = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"  16-class batch-{TIME_BATCH} forward: {ms16:.2f} ms, "
+        f"{TIME_BATCH * 1e3 / ms16:.1f} images/s (mean of 3, host clock)")
+    del model16, x16, p, on, off
+    torch.cuda.empty_cache()
+    for r in rows.values():
+        r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["flops"], "bfloat16")
+    # what K-LN and K-LN' would cost per flagship training step if its 58
+    # LayerNorms took them (the model leaves them off, as the JAX model does)
+    ln_count: dict = {}
+    for mod in model.modules():
+        if isinstance(mod, FusedLayerNorm):
+            ln_count[mod.weight.shape[0]] = ln_count.get(mod.weight.shape[0], 0) + 1
+    for key in ("K-LN", "K-LN'"):
+        r = rows[key]
+        for field in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                      "bound_ms"):
+            r[f"{field}_flagship_step"] = sum(ln_count.get(sh["shape"][1], 0) * sh[field]
+                                              for sh in r["shapes"])
+        r["layernorms_per_flagship_step"] = ln_count
+        log(f"  {key} per flagship step if its {sum(ln_count.values())} LayerNorms took it: "
+            f"kernel {r['ms_flagship_step']:.4f} ms (device "
+            f"{r['device_ms_flagship_step']:.4f})  plain {r['plain_ms_flagship_step']:.4f} ms  "
+            f"F.layer_norm {r['library_ms_flagship_step']:.4f} ms (device "
+            f"{r['library_device_ms_flagship_step']:.4f})  bound "
+            f"{r['bound_ms_flagship_step']:.4f} ms")
+    return rows, dict(head_on_off=head_gaps, classes16_max_abs_dp=dp16,
+                      classes16_forward_ms=ms16, main_path_launches=main)
 
 
 def main() -> int:
@@ -960,6 +1350,11 @@ def main() -> int:
     long_rows = long_window_phase(torch, F, dev, randn, geoms_long, geoms2048)
     table.update({f"flash {k}": row for k, row in long_rows.items()})
 
+    # ---- 4c. the last six kernel bodies and their three entry points ----
+    phase("remaining kernels vs plain versions (K-LN, K-LN', K5, K-V1) and their entry points")
+    rest_rows, rest_summary = remaining_kernels_phase(torch, F, dev, randn, _build, build_model,
+                                                      model, model448)
+
     # ---- 5. serving ----
     phase("serving CSWin-SimAM-UNet 512^2 bf16, kernels on")
     server = Server(model)
@@ -1235,6 +1630,45 @@ def main() -> int:
                 ms_window=row["ms_window"], ms_flash=row["ms_flash"],
                 bound_ms_window=row["bound_ms_window"], bound_ms_flash=row["bound_ms_flash"])
         kernels.append(entry)
+    rest_sources = {
+        "K-LN": ("csu_layernorm_fwd", "cswin_simam_unet_tpu_torch/csrc/layernorm.cu",
+                 "cswin_simam_unet_tpu/ops/pallas_layernorm.py:51"),
+        "K-LN'": ("csu_layernorm_bwd", "cswin_simam_unet_tpu_torch/csrc/layernorm.cu",
+                  "cswin_simam_unet_tpu/ops/pallas_layernorm.py:60"),
+        "K5": ("csu_head_bwd2", "cswin_simam_unet_tpu_torch/csrc/simam_head.cu",
+               "cswin_simam_unet_tpu/ops/pallas_simam_head.py:145"),
+        "K5 no gate": ("csu_head_bwd2_nogate", "cswin_simam_unet_tpu_torch/csrc/simam_head.cu",
+                       "cswin_simam_unet_tpu/ops/pallas_simam_head.py:169"),
+        "K-V1": ("csu_window_attention_fwd",
+                 "cswin_simam_unet_tpu_torch/csrc/window_attention.cu",
+                 "cswin_simam_unet_tpu/ops/pallas_attention.py:52"),
+        "K-V1'": ("csu_window_attention_bwd",
+                  "cswin_simam_unet_tpu_torch/csrc/window_attention.cu",
+                  "cswin_simam_unet_tpu/ops/pallas_attention.py:74"),
+    }
+    rest_paths = {
+        "K-LN": "FusedLayerNorm(use_kernel=True) forward at the 4 LayerNorm shapes of "
+                "cswin_simam_512 (batch 8, bf16; ms summed over the 4) and of cswinunet",
+        "K5": "CARAFE(flat_raw) -> FusedSimAMHead backward, flat map (8, 128, 128, 1024) bf16",
+        "K-V1": "stripe_attention_v1 at the window geometries of cswin_simam_512 (batch 8, "
+                "bf16; ms summed over its 50 attention branches) and of cswinunet",
+    }
+    for label, (fn, src, replaces) in rest_sources.items():
+        row = rest_rows[label]
+        entry = {
+            "name": f"{label} {fn}", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": row["launches"], "max_abs_err": row.get("abs32", row["err32"]),
+            "max_abs_err_bf16": row["err16"], "err_scaled_by_max_plain": "abs32" in row,
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_ms": row["device_ms"], "library_device_ms": row["library_device_ms"],
+            "path": rest_paths[label.split("'")[0].replace(" no gate", "")],
+            "per_shape": row["shapes"], "pass": True,
+        }
+        entry.update({k: v for k, v in row.items() if k.endswith("_flagship_step")
+                      or k == "layernorms_per_flagship_step"})
+        kernels.append(entry)
+    log("remaining kernels: " + json.dumps(rest_summary))
     log("training: " + json.dumps({k: {m: v for m, v in r.items() if m != "launches"}
                                    for k, r in runs.items()}))
     log("serving 2048^2: " + json.dumps(serve2048))

@@ -8,8 +8,12 @@ is its plain PyTorch version: stripe attention K-A / K-A'
 (``ops/stripe_attention.py``, windows that one block holds whole), the
 flash-attention family (``ops/flash_attention.py``: the tiled K-A / K-A' of
 windows of up to 2048 tokens, and the flash path of longer ones), CARAFE
-K-C / K-C' (``ops/carafe_kernels.py``) and the fused head K-H1, K-H2, K3,
-K4 (``ops/carafe_head.py``).  Kernels are built with nvcc on first use
+K-C / K-C' (``ops/carafe_kernels.py``), the fused head K-H1, K-H2, K3,
+K4 (``ops/carafe_head.py``), and the kernels no configuration runs, behind
+the JAX package's own entry points: LayerNorm K-LN / K-LN'
+(``ops/layernorm.py``), the standalone flat head's backward K5
+(``ops/simam_head.py``) and v1 window attention K-V1 / K-V1'
+(``ops/window_attention.py``).  Kernels are built with nvcc on first use
 (``_build.py``).  The package imports torch and numpy, never JAX or the
 JAX package.
 """

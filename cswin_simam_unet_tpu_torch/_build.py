@@ -82,6 +82,20 @@ _SIGNATURES = {
     # dtype, x, enc, dy, w, dx, denc, db_part, B, H, W, C, S, F, vec, px, stream
     "csu_carafe_head_bwd_nogate": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _P],
+    # dtype, fb, dy, mu, var, A, Bq, w, dx, db_part, B, H, W, C, G, F, vec, lam, stream
+    "csu_head_bwd2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _F, _P],
+    # dtype, dy, w, dx, db_part, B, H, W, C, G, F, vec, stream
+    "csu_head_bwd2_nogate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, g, b, y, M, C, eps, stream
+    "csu_layernorm_fwd": [_I, _P, _P, _P, _P, _L, _I, _F, _P],
+    # dtype, x, g, dy, dx, dg_part, db_part, M, C, eps, stream
+    "csu_layernorm_bwd": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _F, _P],
+    # dtype, q, k, v, out, lse, G, Np, head_dim, n_valid, scale, stream
+    "csu_window_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # dtype, q, k, v, dout, lse, delta, dq, dk, dv, G, Np, head_dim, n_valid, scale, stream
+    "csu_window_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                 _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

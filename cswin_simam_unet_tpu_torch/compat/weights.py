@@ -10,6 +10,9 @@ dict with the reference scripts' names and layouts, which the port's
 * depthwise kernel (kh, kw, 1, C) -> (C, 1, kh, kw)
 * Dense kernel (I, O)             -> (O, I)
 * LayerNorm scale / bias          -> weight / bias
+
+:func:`layer_state_dict` converts one standalone layer (a LayerNorm, a conv
+or head kernel, a CARAFE) the same way.
 """
 
 from __future__ import annotations
@@ -58,6 +61,22 @@ def _cswin_block(out, p: dict, prefix: str) -> None:
 def _carafe(out, p: dict, prefix: str) -> None:
     for name in ("down", "encoder", "out"):
         _conv(out, p[name], f"{prefix}.{name}")
+
+
+_LAYERS = {"norm": _norm, "conv": _conv, "carafe": _carafe}
+
+
+def layer_state_dict(kind: str, params: dict) -> Dict[str, np.ndarray]:
+    """One standalone flax layer's params -> the port module's state_dict:
+    ``"norm"`` (``FusedLayerNorm``: scale, bias -> weight, bias), ``"conv"``
+    (a conv, or a head kernel (1, 1, C, F) -> weight (F, C, 1, 1):
+    ``FusedSimAMHead``, ``CARAFEHead``) or ``"carafe"`` (``CARAFE``: its
+    down, encoder and out convs)."""
+    if kind not in _LAYERS:
+        raise KeyError(f"unknown layer kind {kind!r}; available: {sorted(_LAYERS)}")
+    out: Dict[str, np.ndarray] = {}
+    _LAYERS[kind](out, params, "")
+    return {k.lstrip("."): v for k, v in out.items()}
 
 
 def cswin_state_dict(variables: dict,

@@ -277,13 +277,8 @@ __global__ void carafe_bwd_kernel(const T* __restrict__ x, const T* __restrict__
             if (local) db[i] += dg;
             continue;
           }
-          const float xf = xv[i];
-          const float xc = xf - mu_c[i];
-          const float e = xc * xc * w4[i] + 0.5f;
-          const float g = 1.f / (1.f + expf(-e));
-          const float t = dg * xf * (g * (1.f - g));
-          val[i] = dg * g + 2.f * w4[i] * t * xc - (2.f * w4[i] * hg.inv_count) * a_c[i] -
-                   (8.f * w4[i] * w4[i] * hg.inv_count_m1) * b_c[i] * xc;
+          val[i] = simam_vjp(dg, xv[i], mu_c[i], w4[i], a_c[i], b_c[i], hg.inv_count,
+                             hg.inv_count_m1);
           if (local) db[i] += val[i];
         }
       } else {

@@ -214,6 +214,114 @@ static cudaError_t dispatch_head_bwd1(int dtype, int vec, const void* fb, const 
 }
 
 
+// ---------------------------------------------------------------------------
+// K5: the standalone head backward's elementwise pass, dx and db.
+//
+// Replaces ops/pallas_simam_head.py::_bwd2_kernel (pallas_call at :334) and,
+// with GATE false, _bwd2_nogate_kernel (:364): the second pass of
+// simam_head's backward, after K3 has given the pooled A, B (and dW).  For
+// each lane l = g*C + c of the biased flat map fb (B, H, W, G*C), with
+// dg = sum_f dy[g*F + f] * W[c, f] recomputed per pixel (F <= 8 terms):
+//     dx[l] = simam_vjp(dg, x, mu_c, ...)   (common.cuh; GATE false: dx = dg)
+//     db[l] += dx[l]  in float32, before dx is rounded to the compute dtype
+// summed over the pixels of one image row per block; the caller sums the rows
+// and the G slots of each channel into db (C,) (pallas_simam_head.py:376-377).
+//
+// What bounds it on the H100: device memory, a read of the 268 MB flat map
+// and a write of dx at the 512^2 head (about 160 us at 3.35 TB/s; without
+// the gate only dx is written).  Design: K3's, one block per image row and
+// one thread per (g, 16-byte channel vector) slot of a pixel, so each
+// pixel's G*C values are one coalesced block-wide load and store; the
+// channel's constants and its W row sit in registers, db in a register sum
+// that is written once: no atomics and a fixed summation order.
+template <typename T, int VEC, bool GATE>
+__global__ void head_bwd2_kernel(const T* __restrict__ fb, const T* __restrict__ dy,
+                                 const float* __restrict__ mu, const float* __restrict__ var,
+                                 const float* __restrict__ A, const float* __restrict__ Bq,
+                                 const T* __restrict__ w, T* __restrict__ dx,
+                                 float* __restrict__ db_part, int H, int W, int C, int G,
+                                 int F, float lam, float inv_count, float inv_count_m1) {
+  const int CV = C / VEC, GC = G * C;
+  const int g = threadIdx.x / CV, cv = threadIdx.x - g * CV, c = cv * VEC;
+  const int row = blockIdx.x, b = row / H;  // row = b*H + y
+  float mu_c[VEC], w4[VEC], a_c[VEC], b_c[VEC], wv[VEC][kMaxClasses], db[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int64_t bc = (int64_t)b * C + c + i;
+    mu_c[i] = GATE ? mu[bc] : 0.f;
+    w4[i] = GATE ? 1.f / (4.f * (var[bc] + lam)) : 0.f;
+    a_c[i] = GATE ? A[bc] : 0.f;
+    b_c[i] = GATE ? Bq[bc] : 0.f;
+    db[i] = 0.f;
+#pragma unroll
+    for (int f = 0; f < kMaxClasses; ++f)
+      wv[i][f] = f < F ? to_f(w[(int64_t)(c + i) * F + f]) : 0.f;
+  }
+  for (int xx = 0; xx < W; ++xx) {
+    const int64_t pix = (int64_t)row * W + xx;
+    float dyv[kMaxClasses], xv[VEC], out[VEC];
+#pragma unroll
+    for (int f = 0; f < kMaxClasses; ++f)
+      dyv[f] = f < F ? to_f(dy[pix * G * F + g * F + f]) : 0.f;
+    if constexpr (GATE) load_vec<T, VEC>(fb + pix * GC + g * C + c, xv);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      float dg = 0.f;
+#pragma unroll
+      for (int f = 0; f < kMaxClasses; ++f) dg = fmaf(dyv[f], wv[i][f], dg);
+      if constexpr (GATE)
+        dg = simam_vjp(dg, xv[i], mu_c[i], w4[i], a_c[i], b_c[i], inv_count, inv_count_m1);
+      out[i] = dg;
+      db[i] += dg;
+    }
+    store_vec<T, VEC>(dx + pix * GC + g * C + c, out);
+  }
+  float* dbp = db_part + (int64_t)row * GC + g * C + c;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) dbp[i] = db[i];
+}
+
+template <typename T, int VEC, bool GATE>
+static cudaError_t launch_head_bwd2(const void* fb, const void* dy, const void* mu,
+                                    const void* var, const void* A, const void* Bq,
+                                    const void* w, void* dx, void* db_part, int B, int H,
+                                    int W, int C, int G, int F, float lam,
+                                    cudaStream_t stream) {
+  if (C % VEC || F < 1 || F > kMaxClasses) return cudaErrorInvalidValue;
+  const int threads = G * (C / VEC);
+  if (threads > 1024) return cudaErrorInvalidValue;
+  const double count = (double)H * W * G;
+  head_bwd2_kernel<T, VEC, GATE><<<(unsigned)(B * H), threads, 0, stream>>>(
+      static_cast<const T*>(fb), static_cast<const T*>(dy), static_cast<const float*>(mu),
+      static_cast<const float*>(var), static_cast<const float*>(A),
+      static_cast<const float*>(Bq), static_cast<const T*>(w), static_cast<T*>(dx),
+      static_cast<float*>(db_part), H, W, C, G, F, lam, (float)(1.0 / count),
+      (float)(1.0 / (count > 1.0 ? count - 1.0 : 1.0)));
+  return cudaGetLastError();
+}
+
+template <bool GATE>
+static cudaError_t dispatch_head_bwd2(int dtype, int vec, const void* fb, const void* dy,
+                                      const void* mu, const void* var, const void* A,
+                                      const void* Bq, const void* w, void* dx, void* db_part,
+                                      int B, int H, int W, int C, int G, int F, float lam,
+                                      cudaStream_t s) {
+  if (dtype == kFloat32 && vec == 4)
+    return launch_head_bwd2<float, 4, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part, B, H, W,
+                                            C, G, F, lam, s);
+  if (dtype == kFloat32 && vec == 1)
+    return launch_head_bwd2<float, 1, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part, B, H, W,
+                                            C, G, F, lam, s);
+  if (dtype == kBFloat16 && vec == 8)
+    return launch_head_bwd2<__nv_bfloat16, 8, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part,
+                                                    B, H, W, C, G, F, lam, s);
+  if (dtype == kBFloat16 && vec == 1)
+    return launch_head_bwd2<__nv_bfloat16, 1, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part,
+                                                    B, H, W, C, G, F, lam, s);
+  return cudaErrorInvalidValue;
+}
+
+
 }  // namespace csu
 
 // fb (B, H, W, G*C) as items = B*H*W*G rows of C; mu, var (B, C) float32;
@@ -263,6 +371,29 @@ CSU_EXPORT int csu_head_bwd1_nogate(int dtype, const void* fb, const void* dy,
   return (int)csu::dispatch_head_bwd1<false>(dtype, vec, fb, dy, nullptr, nullptr, nullptr,
                                              nullptr, nullptr, dw_part, B, H, W, C, G, F,
                                              0.f, static_cast<cudaStream_t>(stream));
+}
+
+// K5: fb (B, H, W, G*C) and dy (B, H, W, G*F) in the compute dtype, mu,
+// var, A and Bq (B, C) float32 (A and Bq pooled per real channel, as K3's
+// caller gives them), w (C, F) in the compute dtype; dx like fb, db_part
+// (B*H, G*C) float32 receives each image row's sums of the unrounded dx.
+CSU_EXPORT int csu_head_bwd2(int dtype, const void* fb, const void* dy, const void* mu,
+                             const void* var, const void* A, const void* Bq, const void* w,
+                             void* dx, void* db_part, int B, int H, int W, int C, int G,
+                             int F, int vec, float lam, void* stream) {
+  return (int)csu::dispatch_head_bwd2<true>(dtype, vec, fb, dy, mu, var, A, Bq, w, dx,
+                                            db_part, B, H, W, C, G, F, lam,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+// K5 without the gate: dx = dy kron(I_G, W^T) like a (B, H, W, G*C) map, from
+// dy (B, H, W, G*F) and w (C, F); db_part as for csu_head_bwd2.
+CSU_EXPORT int csu_head_bwd2_nogate(int dtype, const void* dy, const void* w, void* dx,
+                                    void* db_part, int B, int H, int W, int C, int G, int F,
+                                    int vec, void* stream) {
+  return (int)csu::dispatch_head_bwd2<false>(dtype, vec, nullptr, dy, nullptr, nullptr,
+                                             nullptr, nullptr, w, dx, db_part, B, H, W, C, G,
+                                             F, 0.f, static_cast<cudaStream_t>(stream));
 }
 
 // The message of a CUDA error code returned by the functions above.

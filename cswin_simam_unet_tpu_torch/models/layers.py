@@ -7,6 +7,8 @@ of its input, which is the compute dtype, so gradients reach the float32
 parameters.  ``kernels=True`` routes attention and CARAFE through the
 autograd Functions whose forward and backward are CUDA kernels for CUDA
 tensors (CPU tensors take the plain versions inside them).
+``FusedLayerNorm(use_kernel=True)`` and :class:`FusedSimAMHead`, which
+``CSWinUNet`` does not use, reach K-LN and K5 the same way.
 
 Dropout, attention dropout and drop-path act only where a forward is given
 an ``rng`` (:class:`..ops.dropout.DropoutRng`, which the model makes for a
@@ -20,9 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import attention, carafe, carafe_head, carafe_kernels, stripe_attention
+from ..ops import attention, carafe, carafe_head, carafe_kernels, layernorm, stripe_attention
 from ..ops.dropout import DropoutRng, drop_path, fast_dropout
-from ..ops.simam import LAMBDA, simam
+from ..ops.simam import LAMBDA, simam, simam_flat
+from ..ops.simam_head import flat_head_chain, simam_head
 from ..ops.windows import nhwc_to_tokens, stripe_geometry, tokens_to_nhwc
 
 
@@ -80,21 +83,20 @@ class PointwiseConv(nn.Module):
 
 class FusedLayerNorm(nn.Module):
     """LayerNorm with ``_ln_reference``'s math: float32 fast-variance
-    statistics clamped at 0, eps 1e-5, output in x's dtype."""
+    statistics clamped at 0, eps 1e-5, output in x's dtype.  ``use_kernel``
+    (the JAX module's ``use_pallas``, off by default; ``CSWinUNet`` never
+    sets it) runs :func:`..ops.layernorm.layer_norm`, K-LN and K-LN' on CUDA
+    tensors; otherwise the plain version, differentiated by autograd."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, use_kernel: bool = False):
         super().__init__()
         self.weight = _param(dim)
         self.bias = _param(dim)
-        self.eps = eps
+        self.eps, self.use_kernel = eps, use_kernel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = torch.clamp(torch.square(xf).mean(dim=-1, keepdim=True)
-                          - torch.square(mu), min=0.0)
-        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        return y.to(x.dtype)
+        norm = layernorm.layer_norm if self.use_kernel else layernorm.ln_reference
+        return norm(x, self.weight, self.bias, self.eps)
 
 
 def _dropout(x: torch.Tensor, rate: float, rng: DropoutRng | None) -> torch.Tensor:
@@ -202,12 +204,20 @@ class MergeBlock(nn.Module):
 class CARAFE(nn.Module):
     """Content-aware reassembly upsampler (3x3 reassembly kernels): 1x1
     compress, 3x3 encoder, and the out 1x1 conv whose linear part runs at low
-    resolution and whose bias is added after reassembly."""
+    resolution and whose bias is added after reassembly.
+
+    ``flat_output`` keeps the pre-pixel-shuffle map (B, H, W, S^2*dim_out),
+    lane ``s*dim_out + c``, with SimAM pooled per real channel
+    (:func:`..ops.simam.simam_flat`); ``flat_raw`` then returns (map, bias)
+    before the bias and SimAM, for :class:`FusedSimAMHead`
+    (``models/layers.py:528-545``).  The JAX module takes that layout only
+    with ``use_pallas``; here ``kernels`` picks K-C or the plain version."""
 
     def __init__(self, dim: int, dim_out: int, up_factor: int = 2,
-                 use_simam: bool = False):
+                 use_simam: bool = False, flat_output: bool = False, flat_raw: bool = False):
         super().__init__()
         self.up_factor, self.use_simam = up_factor, use_simam
+        self.flat_output, self.flat_raw = flat_output, flat_raw
         self.down = PointwiseConv(dim, dim // 4)
         self.encoder = Conv2d(dim // 4, up_factor ** 2 * 9, 3, padding=1)
         self.out = PointwiseConv(dim, dim_out)
@@ -218,10 +228,18 @@ class CARAFE(nn.Module):
         enc = self.encoder(self.down(img))
         return self.out.linear(img), enc, self.out.bias.to(x.dtype)
 
-    def forward(self, x: torch.Tensor, H: int, W: int, kernels: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, H: int, W: int, kernels: bool):
         y, enc, b = self.head_precursor(x, H, W)
+        S = self.up_factor
+        if self.flat_output:
+            flat = carafe_kernels.carafe_flat if kernels else carafe.carafe_flat
+            up = flat(y, enc, S)
+            if self.flat_raw:
+                return up, b
+            up = up + b.repeat(S * S)
+            return simam_flat(up, S * S) if self.use_simam else up
         reassemble = carafe_kernels.carafe_reassemble if kernels else carafe.carafe_reassemble
-        out = reassemble(y, enc, self.up_factor) + b
+        out = reassemble(y, enc, S) + b
         if self.use_simam:
             out = simam(out)
         return nhwc_to_tokens(out)
@@ -244,6 +262,39 @@ class CARAFEHead(nn.Module):
         return F.linear(img, self.weight[:, :, 0, 0].to(img.dtype))
 
     def flat(self, y: torch.Tensor, enc: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        """At most 8 classes (``carafe_simam_head`` raises beyond)."""
-        return carafe_head.carafe_simam_head(y, enc, bias, self.weight[:, :, 0, 0].t(),
-                                             self.up_factor, 3, LAMBDA, self.use_simam)
+        """Up to 8 classes the fused head (``carafe_simam_head``: K-H1, K-H2,
+        K3, K4); more take the unfused chain (``models/layers.py:451-461``):
+        K-C's flat reassembly, then :func:`..ops.simam_head.flat_head_chain`."""
+        w = self.weight[:, :, 0, 0].t()
+        S = self.up_factor
+        if w.shape[1] > carafe_head.MAX_CLASSES:
+            return flat_head_chain(carafe_kernels.carafe_flat(y, enc, S), bias, w, S * S,
+                                   LAMBDA, self.use_simam)
+        return carafe_head.carafe_simam_head(y, enc, bias, w, S, 3, LAMBDA, self.use_simam)
+
+
+class FusedSimAMHead(nn.Module):
+    """The flat head that follows ``CARAFE(flat_output=True, flat_raw=True)``
+    (``models/layers.py:395-424``): out-conv bias + optional SimAM + grouped
+    1x1 head conv over the pre-pixel-shuffle map.  Its weight is (F, C, 1, 1),
+    as the torch export names ``output.kernel``.  Up to 8 classes it runs
+    :func:`..ops.simam_head.simam_head` with the float32 weight (K-H2, K3, K5
+    on CUDA tensors); more take the unfused chain with the weight cast to
+    the compute dtype before the dot.  ``use_kernels=False`` runs the plain
+    version (:func:`..ops.carafe_head.head_reference`) by autograd."""
+
+    def __init__(self, dim: int, num_classes: int, groups: int, use_simam: bool = True,
+                 lam: float = LAMBDA):
+        super().__init__()
+        self.weight = _param(num_classes, dim, 1, 1)
+        self.groups, self.use_simam, self.lam = groups, use_simam, lam
+
+    def forward(self, x_flat: torch.Tensor, bias: torch.Tensor,
+                use_kernels: bool = True) -> torch.Tensor:
+        """x_flat (B, H, W, G*C) in the compute dtype, bias (C,) -> flat
+        logits (B, H, W, G*F), lane ``g*F + f``."""
+        w = self.weight[:, :, 0, 0].t()
+        args = (x_flat, bias, w, self.groups, self.lam, self.use_simam)
+        if w.shape[1] > carafe_head.MAX_CLASSES:
+            return flat_head_chain(*args)
+        return simam_head(*args) if use_kernels else carafe_head.head_reference(*args)

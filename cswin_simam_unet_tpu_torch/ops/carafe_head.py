@@ -30,7 +30,9 @@ Backward without SimAM (``gate=False``):
 
 :func:`carafe_simam_head` is a ``torch.autograd.Function``; CUDA tensors go
 to the kernels, CPU tensors to the plain versions (:func:`reference`,
-:func:`head_bwd1_reference`, :func:`fused_head_bwd_reference`).
+:func:`head_bwd1_reference`, :func:`fused_head_bwd_reference`, which
+takes its dacc from :func:`head_bwd2_reference`, the plain version of the
+standalone head's K5).
 """
 
 from __future__ import annotations
@@ -104,25 +106,34 @@ def head_bwd1_reference(fb, dy, mu, v, w, G: int, lam: float = LAMBDA,
             torch.einsum("bhwgc,bhwgf->cf", gated, dyf))
 
 
-def fused_head_bwd_reference(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int,
-                             lam: float = LAMBDA, gate: bool = True):
-    """Plain K4 (``pallas_carafe_head._fused_bwd_kernel``): the head's
-    elementwise VJP dacc, rounded to the compute dtype, through the CARAFE
-    backward -> (dx, denc, db), db (C,) float32 summed before the rounding.
-    Without the gate dacc is the head dot's cotangent alone."""
+def head_bwd2_reference(fb, dy, mu, v, A, Bq, w, G: int, lam: float = LAMBDA,
+                        gate: bool = True):
+    """Plain K5 (``pallas_simam_head._bwd2_kernel``): the head's elementwise
+    VJP dacc = d(biased flat map) from the closed-form SimAM VJP, for fb, dy,
+    mu, v and w as :func:`head_bwd1_reference` takes them and K3's pooled A,
+    B (B, C) -> (dacc like fb, db (C,) float32 summed before the rounding).
+    Without the gate (``_bwd2_nogate_kernel``) dacc = dy kron(I_G, W^T) and
+    mu, v, A, B are unused."""
     B, H, W, GC = fb.shape
-    G = up_factor * up_factor
     if gate:
         xf, _, xc, g, dg, t = _head_terms(fb, dy, mu, v, w, G, lam)
         w4 = 1.0 / (4.0 * (v[:, None, None, None, :] + lam))
         N = H * W * G
         dacc = (dg * g + 2.0 * w4 * t * xc - (2.0 * w4 / N) * A[:, None, None, None, :]
-                - (8.0 * w4 * w4 / (N - 1)) * Bq[:, None, None, None, :] * xc)
+                - (8.0 * w4 * w4 / max(N - 1, 1)) * Bq[:, None, None, None, :] * xc)
     else:
         dacc = dy.float().reshape(B, H, W, G, -1) @ w.to(fb.dtype).float().t()
-    db = dacc.sum(dim=(0, 1, 2, 3))
-    dx, denc = carafe.carafe_bwd_reference(x, enc, dacc.reshape(B, H, W, GC).to(x.dtype),
-                                           up_factor)
+    return dacc.reshape(B, H, W, GC).to(fb.dtype), dacc.sum(dim=(0, 1, 2, 3))
+
+
+def fused_head_bwd_reference(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int,
+                             lam: float = LAMBDA, gate: bool = True):
+    """Plain K4 (``pallas_carafe_head._fused_bwd_kernel``): the head's
+    elementwise VJP dacc (:func:`head_bwd2_reference`), rounded to the
+    compute dtype, through the CARAFE backward -> (dx, denc, db), db (C,)
+    float32 summed before the rounding."""
+    dacc, db = head_bwd2_reference(fb, dy, mu, v, A, Bq, w, up_factor * up_factor, lam, gate)
+    dx, denc = carafe.carafe_bwd_reference(x, enc, dacc.to(x.dtype), up_factor)
     return dx, denc, db
 
 

@@ -16,7 +16,12 @@ and ``cswinunet``.  The long windows: the flash kernels and the tiled K-A /
 K-A' against their plain versions at 512, 1024, 2048 (vertical) and 4096
 (global) tokens, which kernels each window size launches, and
 CSWin-SimAM-UNet at 2048^2 (a forward, a batch-8 forward whose later images
-must not see 32-bit offsets wrap, and a training step).
+must not see 32-bit offsets wrap, and a training step).  The last six
+kernel bodies: K-LN and K-LN' (odd channel counts among them), K5 with and
+without the gate (alone and inside the standalone head's autograd
+Function), K-V1 and K-V1' (a key mask at n_valid not a multiple of 16, up
+to 2048 tokens), the launches of their three entry points, and a
+16-class model, whose head takes the unfused chain.
 """
 
 import pytest
@@ -25,8 +30,10 @@ import torch
 from cswin_simam_unet_tpu_torch import _build
 from cswin_simam_unet_tpu_torch.configs import TRAIN_CONFIGS, build_model
 from cswin_simam_unet_tpu_torch.models import CSWinUNet
-from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head, dropout
-from cswin_simam_unet_tpu_torch.ops import carafe_kernels, flash_attention, stripe_attention
+from cswin_simam_unet_tpu_torch.models.layers import FusedLayerNorm, FusedSimAMHead
+from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head, dropout, layernorm
+from cswin_simam_unet_tpu_torch.ops import carafe_kernels, flash_attention, simam_head
+from cswin_simam_unet_tpu_torch.ops import stripe_attention, window_attention
 from cswin_simam_unet_tpu_torch.ops.simam import pooled_stats
 from cswin_simam_unet_tpu_torch.ops.windows import stripe_geometry
 from cswin_simam_unet_tpu_torch.train import engine
@@ -653,3 +660,161 @@ def test_model_2048_batch8_offsets(dev):
         p1 = model.predict(x[7:])
     assert bool(torch.isfinite(p8).all())
     assert float((p8[7:].float() - p1.float()).abs().max()) <= 5e-2
+
+
+# ---- the last six kernel bodies: K-LN, K-LN', K5 (with and without the
+# gate), K-V1, K-V1' ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C", [(200, 64), (131, 96), (64, 512), (37, 33), (70, 8)])
+def test_layernorm_kernels(dev, dtype, M, C):
+    x = (_randn(dev, M, C, scale=2.0) + 0.5).to(dtype)
+    dy = _randn(dev, M, C, seed=1).to(dtype)
+    g = _randn(dev, C, scale=0.3, seed=2) + 1.0
+    b = _randn(dev, C, scale=0.1, seed=3)
+    _build.reset_launches()
+    y = layernorm.kernel_fwd(x, g, b)
+    got = layernorm.kernel_bwd(x, g, dy)
+    assert _build.LAUNCHES[layernorm.FWD_KERNEL] == _build.LAUNCHES[layernorm.BWD_KERNEL] == 1
+    assert y.dtype == got[0].dtype == dtype and got[1].dtype == torch.float32
+    _check(y, layernorm.ln_reference(x.float(), g, b), dtype)
+    for a, r in zip(got, layernorm.ln_bwd_reference(x.float(), g, dy.float())):
+        _check_scaled(a, r, dtype)
+
+
+def test_layernorm_kernel_rejects(dev):
+    with pytest.raises(ValueError, match="channels"):
+        layernorm.kernel_fwd(torch.zeros(4, 520, device=dev), torch.ones(520, device=dev),
+                             torch.zeros(520, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("H,W,C,G,F", [(8, 8, 16, 16, 1), (4, 6, 8, 4, 3), (4, 4, 6, 4, 8),
+                                       (6, 20, 64, 16, 4)])
+def test_head_bwd2_kernels(dev, dtype, gate, H, W, C, G, F):
+    fb = _randn(dev, 2, H, W, G * C, seed=2).to(dtype)
+    dy = _randn(dev, 2, H, W, G * F, seed=3).to(dtype)
+    w = _randn(dev, C, F, scale=C ** -0.5, seed=4)
+    f = fb.float()
+    mu, v = pooled_stats(f.sum((1, 2)), (f * f).sum((1, 2)), H * W * G, G)
+    A, Bq, _ = carafe_head.head_bwd1_reference(f, dy.float(), mu, v, w, G, gate=gate)
+    _build.reset_launches()
+    got = simam_head.head_bwd2(fb, dy, mu, v, A, Bq, w, G, gate=gate)
+    name = simam_head.BWD2_KERNEL if gate else simam_head.BWD2_NOGATE_KERNEL
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {name: 1}
+    want = carafe_head.head_bwd2_reference(f, dy.float(), mu, v, A, Bq, w, G, gate=gate)
+    assert got[0].dtype == dtype and got[1].shape == (C,)
+    for a, r in zip(got, want):
+        _check_scaled(a, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("F", [1, 3])
+def test_simam_head_function(dev, dtype, gate, F):
+    """The standalone head through autograd: K-H2 forward, K3 and K5 backward
+    (each once), against the plain head differentiated by autograd."""
+    G, C = 16, 16
+    x = _randn(dev, 2, 8, 8, G * C).to(dtype).requires_grad_()
+    b = _randn(dev, C, scale=0.1, seed=1).to(dtype).requires_grad_()
+    w = _randn(dev, C, F, scale=C ** -0.5, seed=2).requires_grad_()
+    dy = _randn(dev, 2, 8, 8, G * F, seed=3).to(dtype)
+    _build.reset_launches()
+    out = simam_head.simam_head(x, b, w, G, 1e-4, gate)
+    out.backward(dy)
+    want_launches = {carafe_head.HEAD_KERNEL: 1,
+                     carafe_head.BWD1_KERNEL if gate else carafe_head.BWD1_NOGATE_KERNEL: 1,
+                     simam_head.BWD2_KERNEL if gate else simam_head.BWD2_NOGATE_KERNEL: 1}
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == want_launches
+    leaves = [t.detach().float().requires_grad_() for t in (x, b, w)]
+    ref = carafe_head.head_reference(*leaves, G, 1e-4, gate)
+    ref.backward(dy.float())
+    _check(out.detach(), ref.detach(), dtype)
+    for t, r in zip((x, b, w), leaves):
+        _check_scaled(t.grad, r.grad, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Np,n_valid,D", [(6, 16, 16, 8), (4, 112, 98, 16),
+                                            (3, 208, 196, 32), (2, 256, 256, 64),
+                                            (1, 2048, 2041, 32)])
+def test_window_attention_kernels(dev, dtype, G, Np, n_valid, D):
+    q, k, v, do = (_randn(dev, G, Np, D, scale=0.5, seed=s).to(dtype) for s in range(4))
+    scale = D ** -0.5
+    _build.reset_launches()
+    out, lse = window_attention.kernel_fwd(q, k, v, scale, n_valid)
+    got = window_attention.kernel_bwd(q, k, v, lse, do, scale, n_valid)
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        window_attention.FWD_KERNEL: 1, window_attention.BWD_KERNEL: 1}
+    qf, kf, vf = q.float(), k.float(), v.float()
+    _check(out, window_attention.window_attention_reference(qf, kf, vf, scale, n_valid), dtype)
+    want = window_attention.window_attention_bwd_reference(qf, kf, vf, do.float(), scale,
+                                                           n_valid)
+    for a, r in zip(got, want):
+        _check_scaled(a, r, dtype)
+    assert float(got[1][:, n_valid:].abs().sum()) == 0.0  # masked keys: dk = dv = 0
+    assert float(got[2][:, n_valid:].abs().sum()) == 0.0
+
+
+def test_window_attention_kernel_rejects(dev):
+    x = torch.zeros(1, 2064, 32, device=dev)
+    with pytest.raises(ValueError, match="at most 2048 tokens"):
+        window_attention.window_attention(x, x, x, 1.0, 2064)
+    x = torch.zeros(1, 16, 24, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        window_attention.kernel_fwd(x, x, x, 1.0, 16)
+
+
+def test_entry_points_launch_their_kernels(dev):
+    """The three entry points of the last six kernels, forward and backward:
+    FusedLayerNorm(use_kernel=True), FusedSimAMHead (F <= 8) and
+    stripe_attention_v1; and the v1 entry's dropout fallback, which
+    launches nothing."""
+    ln = FusedLayerNorm(64, use_kernel=True).to(dev)
+    with torch.no_grad():
+        ln.weight.fill_(1.0)
+        ln.bias.zero_()
+    x = _randn(dev, 2, 100, 64).to(torch.bfloat16).requires_grad_()
+    _build.reset_launches()
+    ln(x).float().sum().backward()
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        layernorm.FWD_KERNEL: 1, layernorm.BWD_KERNEL: 1}
+    head = FusedSimAMHead(16, 4, 16).to(dev)
+    with torch.no_grad():
+        head.weight.copy_(_randn(dev, 4, 16, 1, 1, scale=0.25))
+    fb = _randn(dev, 2, 8, 8, 256, seed=1).to(torch.bfloat16).requires_grad_()
+    _build.reset_launches()
+    head(fb, torch.zeros(16, device=dev, dtype=torch.bfloat16)).float().sum().backward()
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        carafe_head.HEAD_KERNEL: 1, carafe_head.BWD1_KERNEL: 1, simam_head.BWD2_KERNEL: 1}
+    q, k, v = (_randn(dev, 2, 14 * 14, 32, scale=0.5, seed=s).requires_grad_()
+               for s in range(3))
+    lk = _randn(dev, 3, 3, 1, 32, scale=0.2, seed=4)
+    kw = dict(H=14, W=14, hsp=14, wsp=7, num_heads=2)
+    _build.reset_launches()
+    window_attention.stripe_attention_v1(q, k, v, lk, **kw).sum().backward()
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        window_attention.FWD_KERNEL: 1, window_attention.BWD_KERNEL: 1}
+    _build.reset_launches()
+    window_attention.stripe_attention_v1(q, k, v, lk, **kw, attn_drop=0.3,
+                                         deterministic=False, seed=7).sum().backward()
+    assert not any(_build.LAUNCHES.values())
+
+
+def test_tiny_model_sixteen_classes(dev):
+    """Above 8 classes the head takes the unfused chain (K-C, then simam_flat
+    and flat_grouped_dot): kernels on against off, and no K-H1/K-H2, K-LN or
+    K-V1 launch."""
+    model = CSWinUNet(img_size=64, embed_dim=16, depth=(1, 1, 1, 1),
+                      split_size=(1, 2, 2, 2), num_heads=(2, 2, 4, 8), num_classes=16,
+                      use_simam=True, device=dev, seed=3)
+    x = torch.rand(2, 64, 64, 3, device=dev)
+    _build.reset_launches()
+    with torch.inference_mode():
+        on = model.predict(x, use_kernels=True)
+        counts = {k: n for k, n in _build.LAUNCHES.items() if n}
+        off = model.predict(x, use_kernels=False)
+    assert counts == {stripe_attention.KERNEL: 14, carafe_kernels.KERNEL: 4}
+    assert on.shape == (2, 64, 64, 16)
+    torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
