@@ -28,9 +28,15 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    them; the whole-window K-A / K-A' where they still hold the window), at
    rates 0 and 0.3, mask for mask, batch 1, float32 within 1e-4 (scaled by
    max(1, max|plain|) for backward outputs) and bf16 within 2e-2 x max(1,
-   max|plain|) per output; the tiled entry against K-A / K-A' at 256
-   tokens; each kernel's time, its plain version's and SDPA's at the 2048^2
-   path's shapes (batch 1, bf16, rates 0 and 0.3);
+   max|plain|) per output, and each output also within 1e-4 (float32) and
+   2e-2 (bf16) times its own max|plain|; the tiled entry against K-A / K-A' at 256
+   tokens; after each backward check, that the float32 call launched the
+   CUDA-core dq and dk/dv bodies and the bf16 call the tensor-core ones;
+   each kernel's time, its plain version's and SDPA's at the 2048^2
+   path's shapes (batch 1, bf16, rates 0 and 0.3), for dq and dk/dv also
+   their device time, the CUDA-core body's time on the same inputs in
+   float32 and the SFU/ALU floor of the tensor-core bodies (their exps
+   and dropout hashes at the card's SM count and maximum clock);
 5. serving: CSWin-SimAM-UNet at 512^2, full width, bf16, kernels on, random
    weights from a seed, served through ``Server`` for requests of batch 1,
    3, 8 and 11 (launch counts reset before and read after); output checks;
@@ -49,7 +55,8 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    configs' headline; the same at drops 0; ``cswinunet`` (448^2, no SimAM,
    float32, batch 2) at drops 0.3; ``cswin_simam_2048`` (bf16, batch 1) at
    drops 0.3, the long-window path (48 launches each of the tiled K-A, dq
-   and dk/dv, 2 each of the flash kernels per step).  Then one batch-2
+   and dk/dv, 2 each of the flash kernels per step; dq and dk/dv by their
+   tensor-core bodies, counted apart in ``_build.BODY_LAUNCHES``).  Then one batch-2
    step's gradients with kernels on against kernels off from the same
    weights and the same dropout seed, every parameter, in float32 for both
    512^2 and 448^2 configs (the masks are the same, so the gradients must
@@ -92,6 +99,9 @@ PEAK_FLOPS = {"bfloat16": 989e12,   # dense bf16 tensor cores
               "float32": 67e12}     # float32 outside the tensor cores
 TOL_F32 = 1e-4                      # max |kernel - plain|, float32 inputs
 TOL_BF16 = 2e-2                     # x max(1, max|plain|), bf16 inputs
+# the flash family, every output also against its own scale: error / max|plain|
+# within TOL_F32 (float32) and TOL_BF16 (bf16), with no floor at 1, since
+# dq, dk and dv stay far below 1 at the path's input scales
 # backward kernels, float32: x max(1, max|plain|) of each output, since their
 # reductions over the batch (dw, A, B, dW, db) reach O(100)
 TOL_BWD_F32 = 1e-4
@@ -100,6 +110,9 @@ TOL_MODEL_BF16 = 5e-2               # probabilities, kernels on vs off, bf16
 TOL_MODEL_F32 = 1e-3                # probabilities, kernels on vs off, f32
 TOL_GRAD_F32 = 1e-3                 # x max|g| per parameter, kernels on vs off, f32
 TOL_LOSS_BF16 = 1e-2                # training loss, kernels on vs off, bf16
+SFU_PER_CLOCK = 16                  # exp2 per SM and clock (sm_90)
+INT_PER_CLOCK = 64                  # 32-bit integer operations per SM and clock (sm_90)
+HASH_OPS = 10                       # integer operations of one keep bit (fmix32 and its counter)
 TRAIN_WARMUP, TRAIN_STEPS, CHECK_BATCH = 3, 10, 2
 DEADLINE_S = 1100                   # the whole run takes about 200 s on the H100
 LOSS_TAIL = 3                       # the mean of the last 3 losses is below the first
@@ -238,11 +251,14 @@ def disc_batch(torch, img: int, batch: int, dev):
     return torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev)
 
 
-def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev) -> dict:
+def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev,
+                want_bodies=None) -> dict:
     """Train a copy of ``model`` with ``make_train_step`` on one fixed batch:
     the launch counts of one step (reset before, read after) must be
-    ``want_step``; then 3 warm-up and 10 timed steps.  Returns the step's ms,
-    images/s, peak memory, launches and the losses."""
+    ``want_step``, and the flash backward's body launches ``want_bodies``
+    (none by default); then 3 warm-up and 10 timed steps.  Returns the
+    step's ms, images/s, peak memory, launches and the losses."""
+    want_bodies = want_bodies or {}
     img = model.img_size
     phase(f"training {label}, {img}^2, {model.dtype}, kernels on: {tcfg}")
     images_d, masks_d = disc_batch(torch, img, tcfg.batch_size, dev)
@@ -255,8 +271,10 @@ def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev) -> di
     history = [step(images_d, masks_d)]
     torch.cuda.synchronize()
     one_step = {k: n for k, n in _build.LAUNCHES.items() if n}
-    log(f"launches of one training step: {one_step}")
+    bodies = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
+    log(f"launches of one training step: {one_step}; flash backward bodies: {bodies}")
     require(one_step == want_step, f"{label}: step launches {one_step} != {want_step}")
+    require(bodies == want_bodies, f"{label}: step body launches {bodies} != {want_bodies}")
     for _ in range(TRAIN_WARMUP - 1):
         history.append(step(images_d, masks_d))
     torch.cuda.synchronize()
@@ -268,9 +286,12 @@ def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev) -> di
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
     timed = {k: n for k, n in _build.LAUNCHES.items() if n}
+    timed_bodies = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     require(timed == {k: TRAIN_STEPS * n for k, n in want_step.items()},
             f"{label}: timed-loop launches {timed}")
+    require(timed_bodies == {k: TRAIN_STEPS * n for k, n in want_bodies.items()},
+            f"{label}: timed-loop body launches {timed_bodies}")
     hist = [{k: float(v) for k, v in h.items()} for h in history]
     for i, h in enumerate(hist):
         log(f"  step {i}: loss {h['loss']:.6f} dice {h['dice']:.4f} iou {h['iou']:.4f}")
@@ -287,7 +308,7 @@ def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev) -> di
     del trained, opt, step
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, images_per_s=ips, peak_gib=peak_gib, launches=one_step,
-                first_loss=hist[0]["loss"], last3_mean_loss=tail,
+                bodies=bodies, first_loss=hist[0]["loss"], last3_mean_loss=tail,
                 batch=tcfg.batch_size, img=img)
 
 
@@ -297,8 +318,10 @@ def check_outputs_by_kernel(name, torch, kernel_fn, plain_fn, make, groups, scal
     credited to the kernel (``groups``: kernel -> output indices) that
     writes it.  bf16 errors are scaled by max(1, max|plain|) of the output;
     float32 ones too where ``scaled32`` (backward outputs: dw sums over a
-    branch), else absolute.  Returns {kernel: (f32 err, bf16 err)}."""
-    res = {g: [0.0, 0.0] for g in groups}
+    branch), else absolute.  Every output is also held to the same
+    tolerance times its own max|plain|, with no floor at 1.  Returns
+    {kernel: [f32 err, bf16 err, f32 err / max|plain|, bf16 err / max|plain|]}."""
+    res = {g: [0.0, 0.0, 0.0, 0.0] for g in groups}
     for col, (dtype, tol) in enumerate(((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16))):
         args = make(batch, dtype)
         got = kernel_fn(*args)
@@ -308,15 +331,21 @@ def check_outputs_by_kernel(name, torch, kernel_fn, plain_fn, make, groups, scal
                 require(got[i].numel() == want[i].numel(),
                         f"{name}: output {i} has {got[i].numel()} elements, plain "
                         f"{want[i].numel()}")
-                err = max_err(got[i].reshape(want[i].shape), want[i])
-                if col == 1 or scaled32:
-                    err /= max(1.0, float(want[i].abs().max()))
+                raw = max_err(got[i].reshape(want[i].shape), want[i])
+                top = float(want[i].abs().max())
+                require(top > 0.0, f"{name}: {g} output {i}: the plain version is all zero")
+                err = raw / max(1.0, top) if col == 1 or scaled32 else raw
+                rel = raw / top
                 require(err <= tol, f"{name}: {g} output {i} {dtype} error {err} > {tol}")
+                require(rel <= tol, f"{name}: {g} output {i} {dtype} error {raw} > {tol} x "
+                                    f"max|plain| {top}")
                 res[g][col] = max(res[g][col], err)
+                res[g][2 + col] = max(res[g][2 + col], rel)
         torch.cuda.synchronize()
-    log(f"  {name}: " + "  ".join(f"{g} f32 {e[0]:.3e} bf16 {e[1]:.3e}"
-                                   for g, e in res.items())
-        + f" (tol f32 {TOL_F32:g}{' scaled' if scaled32 else ''}, bf16 {TOL_BF16:g} scaled)")
+    log(f"  {name}: " + "  ".join(f"{g} f32 {e[0]:.3e} bf16 {e[1]:.3e} (own scale f32 "
+                                   f"{e[2]:.3e} bf16 {e[3]:.3e})" for g, e in res.items())
+        + f" (tol f32 {TOL_F32:g}{' scaled' if scaled32 else ''}, bf16 {TOL_BF16:g} scaled;"
+        f" own scale {TOL_F32:g}, {TOL_BF16:g})")
     return res
 
 
@@ -329,19 +358,35 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
     2048^2 path's shapes (batch 1, bf16; ``path_geoms``: launches per
     forward), its plain version's, SDPA's on the same windows and the
     bound.  Returns the three kernel-table rows."""
+    from cswin_simam_unet_tpu_torch import _build
     from cswin_simam_unet_tpu_torch.ops import attention, flash_attention as fa
     from cswin_simam_unet_tpu_torch.ops import stripe_attention as sa
     rows = {k: dict(ms=0.0, ms_drop=0.0, plain_ms=0.0, plain_ms_drop=0.0, library_ms=0.0,
                     library_ms_drop=0.0, bytes=0.0, flops=0.0, err32=0.0, err16=0.0,
-                    err32_drop=0.0, err16_drop=0.0, ms_window=0.0, ms_flash=0.0,
+                    err32_drop=0.0, err16_drop=0.0, rel32=0.0, rel16=0.0, rel32_drop=0.0,
+                    rel16_drop=0.0, ms_window=0.0, ms_flash=0.0,
                     bound_ms_window=0.0, bound_ms_flash=0.0)
             for k in ("fwd", "dq", "dkv")}
+    for k in ("dq", "dkv"):  # the tensor-core bodies: device time, the CUDA-core body, floors
+        rows[k].update(device_ms=0.0, device_ms_drop=0.0, ms_fma_f32=0.0, ms_fma_f32_drop=0.0,
+                       exps=0.0, hashes=0.0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"]).splitlines()[0])
+
+    def require_bodies(name, mode):
+        """One float32 and one bf16 backward ran since the counts were reset:
+        the CUDA-core body took the float32 call, the tensor-core body the
+        bf16 one."""
+        got = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
+        want = {f"{e}:{mode}:{b}": 1 for e in _build.FLASH_BODY_ENTRIES for b in ("mma", "fma")}
+        require(got == want, f"{name}: flash backward body launches {got} != {want}")
 
     def fold(res, rate):
         sfx = "_drop" if rate else ""
-        for g, (e32, e16) in res.items():
-            rows[g]["err32" + sfx] = max(rows[g]["err32" + sfx], e32)
-            rows[g]["err16" + sfx] = max(rows[g]["err16" + sfx], e16)
+        for g, errs in res.items():
+            for key, e in zip(("err32", "err16", "rel32", "rel16"), errs):
+                rows[g][key + sfx] = max(rows[g][key + sfx], e)
 
     def make_tokens(L, Cb, grad):
         def make(B, dtype):
@@ -375,6 +420,7 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                     lambda q, k, v, w, kw=kwr: sa.tiled_fwd(q, k, v, w, **kw)[:1],
                     lambda q, k, v, w, kw=kwr: (attention.stripe_attention(q, k, v, w, **kw),),
                     make_tokens(L, Cb, False), {"fwd": [0]}, scaled32=False), rate)
+                _build.reset_launches()
                 fold(check_outputs_by_kernel(
                     "tiled K-A' " + name, torch,
                     lambda q, k, v, w, g, kw=kwr: sa.tiled_bwd(
@@ -383,6 +429,7 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                         q, k, v, w, g, **kw),
                     make_tokens(L, Cb, True), {"dq": [0], "dkv": [1, 2, 3]}, scaled32=True),
                     rate)
+                require_bodies("tiled K-A' " + name, "window")
             else:
                 flip, Ht, Wt, wht = fa.band_geometry(reso, reso, hsp, wsp)
                 require(not flip, "the flash geometries of the configs are global windows")
@@ -408,6 +455,7 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                     lambda q, k, v, ref_kw=ref_kw, bands=bands: fa.flash_attention_reference(
                         bands(q), bands(k), bands(v), **ref_kw),
                     make_fwd, {"fwd": [0, 1]}, scaled32=False), rate)
+                _build.reset_launches()
                 fold(check_outputs_by_kernel(
                     "flash dq, dkv " + name, torch,
                     lambda q, k, v, g, o, lse, geo=geo, bands=bands: fa.kernel_bwd(
@@ -417,6 +465,7 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                     fa.flash_attention_bwd_reference(*(bands(t) for t in (q, k, v, o)), lse,
                                                      bands(g), **ref_kw),
                     make_bwd, {"dq": [0], "dkv": [1, 2]}, scaled32=True), rate)
+                require_bodies("flash dq, dkv " + name, "flash")
 
     # the tiled entry against the whole-window kernels where both run: the
     # flagship's stage-4 global window (256 tokens), dropout 0.3
@@ -426,6 +475,7 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
         lambda q, k, v, w: sa.tiled_fwd(q, k, v, w, **kwc)[:1],
         lambda q, k, v, w: (sa.attention_fwd(q, k, v, w, **kwc),),
         make_tokens(256, 512, False), {"fwd": [0]}, scaled32=False, batch=2), DROP)
+    _build.reset_launches()
     fold(check_outputs_by_kernel(
         "tiled vs whole-window K-A', 16x16 window, Cb 512", torch,
         lambda q, k, v, w, g: sa.tiled_bwd(q, k, v, w, sa.tiled_fwd(q, k, v, w, **kwc)[1], g,
@@ -433,6 +483,7 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
         lambda q, k, v, w, g: sa.attention_bwd(q, k, v, w, g, **kwc),
         make_tokens(256, 512, True), {"dq": [0], "dkv": [1, 2, 3]}, scaled32=True, batch=2),
         DROP)
+    require_bodies("tiled vs whole-window K-A'", "window")
 
     # times at the 2048^2 path's shapes: batch 1, bf16; per forward or step
     for (reso, Cb, heads, hsp, wsp), count in sorted(path_geoms.items()):
@@ -444,6 +495,8 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                       for t in (q, k, v))
         gh = attention.window_heads(g, hsp, wsp, reso, reso, heads).contiguous()
         tiled = mode == "window"
+        # the CUDA-core body at the same shapes: it serves float32
+        q32, k32, v32, w32, g32 = (t.float() for t in (q, k, v, w, g))
         for rate in (0.0, DROP):
             kwr = dict(kw, attn_drop=rate, seed=DROP_SEED)
             sfx = "_drop" if rate else ""
@@ -456,6 +509,20 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                       q, k, v, lse, g, **kwr, delta=None if tiled else delta, mode=mode)),
                   "dkv": time_ms(torch, lambda: fa.kernel_dkv(q, k, v, lepe, lse, delta, g,
                                                               **kwr, mode=mode))}
+            dev_ms = {"dq": device_ms(torch, lambda: fa.kernel_dq(
+                          q, k, v, lse, g, **kwr, delta=None if tiled else delta, mode=mode)),
+                      "dkv": device_ms(torch, lambda: fa.kernel_dkv(q, k, v, lepe, lse, delta,
+                                                                    g, **kwr, mode=mode))}
+            lepe32 = w32 if tiled else None
+            out32, lse32 = fa.kernel_fwd(q32, k32, v32, lepe32, **kwr, mode=mode)
+            delta32 = None if tiled else fa.flash_delta(out32, g32, heads).reshape(lse32.shape)
+            _, delta32 = fa.kernel_dq(q32, k32, v32, lse32, g32, **kwr, delta=delta32, mode=mode)
+            fma = {"dq": time_ms(torch, lambda: fa.kernel_dq(
+                       q32, k32, v32, lse32, g32, **kwr, delta=None if tiled else delta32,
+                       mode=mode), iters=3),
+                   "dkv": time_ms(torch, lambda: fa.kernel_dkv(
+                       q32, k32, v32, lepe32, lse32, delta32, g32, **kwr, mode=mode), iters=3)}
+            del out32, lse32, delta32
             if tiled:
                 plain_f = time_ms(torch, lambda: attention.stripe_attention(q, k, v, w, **kwr),
                                   iters=3)
@@ -483,9 +550,14 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                 rows[key]["library_ms" + sfx] += count * lib
                 if not rate:
                     rows[key]["ms_" + mode] += count * ms[key]
+            for key in ("dq", "dkv"):
+                rows[key]["device_ms" + sfx] += count * dev_ms[key]
+                rows[key]["ms_fma_f32" + sfx] += count * fma[key]
             log(f"    {mode} reso {reso} window {hsp}x{wsp} Cb {Cb} rate {rate} x{count}/step: "
-                f"fwd {ms['fwd']:.4f} dq {ms['dq']:.4f} dkv {ms['dkv']:.4f} ms  plain fwd "
-                f"{plain_f:.4f} bwd {plain_b:.4f} ms  sdpa fwd {lib_f:.4f} bwd {lib_b:.4f} ms")
+                f"fwd {ms['fwd']:.4f} dq {ms['dq']:.4f} (device {dev_ms['dq']:.4f}) dkv "
+                f"{ms['dkv']:.4f} (device {dev_ms['dkv']:.4f}) ms  CUDA-core body, f32: dq "
+                f"{fma['dq']:.4f} dkv {fma['dkv']:.4f} ms  plain fwd {plain_f:.4f} bwd "
+                f"{plain_b:.4f} ms  sdpa fwd {lib_f:.4f} bwd {lib_b:.4f} ms")
         stat = L * heads * 4
         taps = Cb * 9 * 4 if tiled else 0
         work = {"fwd": (4 * L * Cb * 2 + stat + taps, (4 * N + (18 if tiled else 0)) * L * Cb),
@@ -496,9 +568,34 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
             rows[key]["bytes"] += count * nbytes
             rows[key]["flops"] += count * flops
             rows[key]["bound_ms_" + mode] += count * bound_ms(nbytes, flops, "bfloat16")[0]
-        del q, k, v, w, g, qh, kh, vh, gh, out, lse, delta, dq
+        # exps and dropout hashes of the tensor-core bodies: one of each per
+        # score, and a second exp in window-mode dq (its delta sweep, whose keep
+        # bits the ds sweep reads back)
+        scores = (reso // hsp) * (reso // wsp) * heads * N * N
+        for key, exps in (("dq", 2 if tiled else 1), ("dkv", 1)):
+            rows[key]["exps"] += count * exps * scores
+            rows[key]["hashes"] += count * scores
+        del q, k, v, w, g, qh, kh, vh, gh, out, lse, delta, dq, q32, k32, v32, w32, g32
     for row in rows.values():
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"], "bfloat16")
+    # the SFU/ALU floor of the tensor-core bodies: exp2 on the SFU (16 a clock
+    # per SM), the hash's fmix32 at about HASH_OPS integer operations (64 a
+    # clock per SM), at the card's maximum SM clock
+    hz = sm_mhz * 1e6
+    for key in ("dq", "dkv"):
+        row = rows[key]
+        row["sfu_ms"] = row["exps"] / (sms * SFU_PER_CLOCK * hz) * 1e3
+        row["alu_ms"] = row["hashes"] * HASH_OPS / (sms * INT_PER_CLOCK * hz) * 1e3
+        row["floor_ms"] = max(row["sfu_ms"], row["bound_ms"])
+        row["floor_ms_drop"] = max(row["sfu_ms"], row["alu_ms"], row["bound_ms"])
+        log(f"  flash {key}, tensor-core body, per 2048^2 step: {row['ms']:.3f} / "
+            f"{row['ms_drop']:.3f} ms at rate 0 / {DROP} (device {row['device_ms']:.3f} / "
+            f"{row['device_ms_drop']:.3f}); CUDA-core body in float32 {row['ms_fma_f32']:.3f} / "
+            f"{row['ms_fma_f32_drop']:.3f}; bound {row['bound_ms']:.4f} ({row['bound_by']}); "
+            f"SFU/ALU floor (computed from assumed rates, not measured) "
+            f"{row['floor_ms']:.3f} / {row['floor_ms_drop']:.3f} ms "
+            f"({row['exps'] / 1e9:.3f} G exps: {row['sfu_ms']:.3f} ms on {sms} SMs at "
+            f"{sm_mhz:.0f} MHz; {row['hashes'] / 1e9:.3f} G hashes: {row['alu_ms']:.3f} ms)")
     torch.cuda.empty_cache()
     return rows
 
@@ -1483,19 +1580,24 @@ def main() -> int:
                     **{n: 48 for n in stripe_attention.TILED_BWD_KERNELS},
                     flash_attention.DQ_KERNEL + ":flash": 2,
                     flash_attention.DKV_KERNEL + ":flash": 2}
+    # the 2048^2 step's dq and dk/dv run the bf16 tensor-core bodies
+    bodies2048 = {f"{e}:{m}:mma": n for e in _build.FLASH_BODY_ENTRIES
+                  for m, n in (("window", 48), ("flash", 2))}
     model0 = build_model("cswin_simam_512", device=dev, seed=SEED, **NO_DROPS)
     runs = {}
-    for label, net, cfg_name, want_step in (
-            ("cswin_simam_512 drops 0.3", model, "cswin_simam_512", per_step),
-            ("cswin_simam_512 drops 0", model0, "cswin_simam_512", per_step),
-            ("cswinunet drops 0.3", model448, "cswinunet", per_step448),
-            ("cswin_simam_2048 drops 0.3", model2048, "cswin_simam_2048", per_step2048)):
+    for label, net, cfg_name, want_step, want_bodies in (
+            ("cswin_simam_512 drops 0.3", model, "cswin_simam_512", per_step, None),
+            ("cswin_simam_512 drops 0", model0, "cswin_simam_512", per_step, None),
+            ("cswinunet drops 0.3", model448, "cswinunet", per_step448, None),
+            ("cswin_simam_2048 drops 0.3", model2048, "cswin_simam_2048", per_step2048,
+             bodies2048)):
         runs[label] = train_phase(torch, engine, _build, label, net, TRAIN_CONFIGS[cfg_name],
-                                  want_step, dev)
+                                  want_step, dev, want_bodies)
     del model0
     train_launches = runs["cswin_simam_512 drops 0.3"]["launches"]
     train_launches448 = runs["cswinunet drops 0.3"]["launches"]
     train_launches2048 = runs["cswin_simam_2048 drops 0.3"]["launches"]
+    bodies2048_run = runs["cswin_simam_2048 drops 0.3"]["bodies"]
     del model2048, server2048
     torch.cuda.empty_cache()
 
@@ -1619,6 +1721,10 @@ def main() -> int:
                          library_ms_dropout=row["library_ms_drop"],
                          max_abs_err_dropout=row.get("abs32_drop", row["err32_drop"]),
                          max_abs_err_bf16_dropout=row["err16_drop"])
+        if "rel16" in row:
+            entry.update(err_over_max_plain=row["rel32"], err_over_max_plain_bf16=row["rel16"],
+                         err_over_max_plain_dropout=row["rel32_drop"],
+                         err_over_max_plain_bf16_dropout=row["rel16_drop"])
         if label in window_replaces:
             entry.update(
                 path="cswin_simam_2048 training step, batch 1, bf16",
@@ -1629,6 +1735,13 @@ def main() -> int:
                     48 if label == "flash fwd" else 0),
                 ms_window=row["ms_window"], ms_flash=row["ms_flash"],
                 bound_ms_window=row["bound_ms_window"], bound_ms_flash=row["bound_ms_flash"])
+        if label in ("flash dq", "flash dkv"):  # the bf16 tensor-core body
+            entry.update(
+                body="mma.sync m16n8k16 bf16 (csrc/flash_attention_mma.cuh)",
+                launches_mma={m: bodies2048_run.get(f"{fn}:{m}:mma", 0)
+                              for m in _build.FLASH_MODES},
+                **{k: row[k] for k in ("device_ms", "device_ms_drop", "ms_fma_f32",
+                                       "ms_fma_f32_drop")})
         kernels.append(entry)
     rest_sources = {
         "K-LN": ("csu_layernorm_fwd", "cswin_simam_unet_tpu_torch/csrc/layernorm.cu",
@@ -1669,7 +1782,8 @@ def main() -> int:
                       or k == "layernorms_per_flagship_step"})
         kernels.append(entry)
     log("remaining kernels: " + json.dumps(rest_summary))
-    log("training: " + json.dumps({k: {m: v for m, v in r.items() if m != "launches"}
+    log("training: " + json.dumps({k: {m: v for m, v in r.items()
+                                       if m not in ("launches", "bodies")}
                                    for k, r in runs.items()}))
     log("serving 2048^2: " + json.dumps(serve2048))
     log(f"f32 gradient gaps, kernels on vs off at drops 0.3: cswin_simam_512 {grad_gap:.3e}, "

@@ -111,14 +111,25 @@ FLASH_MODES = ("window", "flash")
 LAUNCHES = {key: 0 for name in _SIGNATURES for key in (
     [f"{name}:{mode}" for mode in FLASH_MODES] if name in FLASH_ENTRIES else [name])}
 
+# The flash family's dq and dk/dv entries launch one of two bodies, which the
+# C entry picks by dtype and head dim (csu_flash_bwd_body): "mma", the bf16
+# tensor-core body, or "fma", the CUDA-core body.  Each launch also counts
+# under "<entry>:<mode>:<body>" here, apart from LAUNCHES, whose keys stay
+# one per entry and mode.
+FLASH_BODY_ENTRIES = ("csu_flash_attention_dq", "csu_flash_attention_dkv")
+FLASH_BODIES = ("mma", "fma")
+BODY_LAUNCHES = {f"{name}:{mode}:{body}": 0 for name in FLASH_BODY_ENTRIES
+                 for mode in FLASH_MODES for body in FLASH_BODIES}
+
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BODY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -200,17 +211,24 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.csu_error_string.argtypes = [ctypes.c_int]
             lib.csu_error_string.restype = ctypes.c_char_p
+            lib.csu_flash_bwd_body.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.csu_flash_bwd_body.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def launch(name: str, device: torch.device, *args, mode: str | None = None) -> None:
+def launch(name: str, device: torch.device, *args, mode: str | None = None,
+           body: str | None = None) -> None:
     """Call kernel entry ``name`` on ``device``'s current stream with
     ``args`` (the stream is appended); raise if the launch failed.  The
-    launch counts under ``name``, or ``name:mode`` for the flash family."""
+    launch counts under ``name``, or ``name:mode`` for the flash family, and
+    under ``name:mode:body`` in BODY_LAUNCHES where the entry picks a body."""
     key = name if mode is None else f"{name}:{mode}"
     if key not in LAUNCHES:
         raise KeyError(f"no launch counter {key!r}")
+    body_key = None if body is None else f"{key}:{body}"
+    if body_key is not None and body_key not in BODY_LAUNCHES:
+        raise KeyError(f"no body counter {body_key!r}")
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -219,6 +237,8 @@ def launch(name: str, device: torch.device, *args, mode: str | None = None) -> N
         msg = lib.csu_error_string(code).decode()
         raise RuntimeError(f"{name} failed: CUDA error {code} ({msg})")
     LAUNCHES[key] += 1
+    if body_key is not None:
+        BODY_LAUNCHES[body_key] += 1
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -27,16 +27,18 @@
 //
 // What bounds it on the H100: 4 N flops per q/k/v/out element against 8
 // bytes of them (bf16), so at N >= 512 the tensor cores' 295 flop/byte
-// ridge is crossed and the operations are the bound.  These kernels do
-// their products on the CUDA cores in float32.  Design: each thread owns
-// one row (a query row in the forward and dq kernels, a key row in dkv; at
-// head dim 64 two neighbouring lanes share a row, 32 columns each) and keeps
-// that row's operands and accumulators in registers; the other side streams
-// through shared memory in tiles of 32 rows that every lane reads at the
-// same address (a broadcast, 16 bytes a load), so one shared-memory load
-// feeds the warp's 32 rows and FMA issue, not shared memory, is the limit.
-// Nothing of size N x N is stored; blocks need no dynamic shared memory.
-// mma / wgmma tiles are later work.
+// ridge is crossed and the operations are the bound.  The helpers below
+// serve the CUDA-core bodies, which do their products in float32: the
+// forward, and dq and dk/dv in float32 and at head dim 8 (bf16 dq and dk/dv
+// at head dims 16-64 run on the tensor cores, flash_attention_mma.cuh).
+// Design: each thread owns one row (a query row in the forward and dq
+// kernels, a key row in dkv; at head dim 64 two neighbouring lanes share a
+// row, 32 columns each) and keeps that row's operands and accumulators in
+// registers; the other side streams through shared memory in tiles of 32
+// rows that every lane reads at the same address (a broadcast, 16 bytes a
+// load), so one shared-memory load feeds the warp's 32 rows and FMA issue,
+// not shared memory, is the limit.  Nothing of size N x N is stored; blocks
+// need no dynamic shared memory.
 #pragma once
 
 #include "common.cuh"

@@ -19,6 +19,15 @@ modes, counted apart in ``_build.LAUNCHES`` (``<entry>:window`` and
   the whole-window mask convention (one N x N tile per window and head)
   and delta computed by the dq kernel.
 
+The dq and dk/dv entries each hold two bodies, which the C entry picks by
+dtype and head dim (:func:`bwd_body`): bf16 at head dims 16, 32 and 64 runs
+the tensor-core body ("mma", ``csrc/flash_attention_mma.cuh``), float32
+and head dim 8 the CUDA-core body ("fma").  A launch counts under
+``_build.BODY_LAUNCHES["<entry>:<mode>:<body>"]`` beside its
+``LAUNCHES["<entry>:<mode>"]``.  The tensor-core body copies rows 16
+bytes at a time, so its wrapper hands it q, k, v and dO whose base and row
+stride are 16-byte aligned, copying a tensor that is not.
+
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
 are the plain versions of the flash path, with its rounding points: q *
 scale rounded to the compute dtype before the product, the unnormalised
@@ -27,6 +36,8 @@ added.  The CPU path uses them; nothing on the card's main path does.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -53,10 +64,35 @@ def pick_tile(N: int, target: int = TILE) -> int:
     return max(t for t in range(1, cap + 1) if N % t == 0)
 
 
-def rows_per_block(head_dim: int) -> int:
-    """Rows (query rows, or key rows in dk/dv) of one block of the family:
-    a thread per row, two at head dim 64 (csrc/flash_attention.cuh)."""
+def rows_per_block(head_dim: int, body: str) -> int:
+    """Key rows of one dk/dv block: 64 in the tensor-core body ("mma", 16
+    per warp); in the CUDA-core body ("fma") a thread per row, two at head
+    dim 64 (csrc/flash_attention.cuh)."""
+    if body == "mma":
+        return 64
     return 128 if head_dim <= 32 else 64
+
+
+@functools.lru_cache(maxsize=None)
+def _body_code(dtype_code: int, head_dim: int) -> int:
+    return _build.library().csu_flash_bwd_body(dtype_code, head_dim)
+
+
+def bwd_body(q: torch.Tensor, head_dim: int) -> str:
+    """The body the dq and dk/dv entries launch for q's dtype and
+    ``head_dim``, as the C entries pick it: "mma" (bf16 tensor cores) or
+    "fma" (CUDA cores)."""
+    return "mma" if _body_code(_build.dtype_code(q), head_dim) else "fma"
+
+
+def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or an explicit contiguous copy of it where its base or row
+    stride is not 16-byte aligned: the tensor-core body copies rows 16 bytes
+    at a time (cp.async).  Rows without a usable stride stay, to be refused."""
+    ld = _build.token_stride(t)
+    if ld is None or (t.data_ptr() % 16 == 0 and ld * t.element_size() % 16 == 0):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def check_args(q, k, v, lepe_kernel, H, W, hsp, wsp, num_heads) -> int:
@@ -122,9 +158,11 @@ def kernel_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None,
 
 def _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp, num_heads, scale,
               attn_drop, seed, mode):
-    """Validated arguments shared by the dq and dk/dv kernels: (dout with
-    usable strides, the shape arguments, the row strides)."""
+    """Validated arguments shared by the dq and dk/dv kernels: (q, k, v and
+    dout with strides the body takes, the shape arguments, the row strides,
+    the body)."""
     head_dim = check_args(q, k, v, lepe_kernel, H, W, hsp, wsp, num_heads)
+    body = bwd_body(q, head_dim)
     N, n_win = hsp * wsp, q.shape[0] * (H // hsp) * (W // wsp)
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(f"dout must be like q {tuple(q.shape)} {q.dtype}, got "
@@ -141,8 +179,10 @@ def _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp, num_heads,
         scale = head_dim ** -0.5
     shape = (q.shape[0], H, W, hsp, wsp, num_heads, head_dim, float(scale),
              _mask_tile(mode, N), *kernel_drop_args(attn_drop, seed))
+    if body == "mma":
+        q, k, v, dout = (_rows_aligned(t) for t in (q, k, v, dout))
     strides = _build.token_strides((q, "q"), (k, "k"), (v, "v"), (dout, "dout"))
-    return dout, shape, strides
+    return q, k, v, dout, shape, strides, body
 
 
 def kernel_dq(q, k, v, lse, dout, *, H, W, hsp, wsp, num_heads, scale=None, attn_drop=0.0,
@@ -153,15 +193,16 @@ def kernel_dq(q, k, v, lse, dout, *, H, W, hsp, wsp, num_heads, scale=None, attn
     :func:`kernel_dkv`."""
     if (delta is not None) != (mode == "flash"):
         raise ValueError("flash mode takes delta; window mode computes it")
-    dout, shape, strides = _bwd_args(q, k, v, None, lse, dout, delta, H, W, hsp, wsp,
-                                     num_heads, scale, attn_drop, seed, mode)
+    q, k, v, dout, shape, strides, body = _bwd_args(q, k, v, None, lse, dout, delta, H, W,
+                                                    hsp, wsp, num_heads, scale, attn_drop,
+                                                    seed, mode)
     delta_given = delta is not None
     if delta is None:
         delta = torch.empty_like(lse)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _build.launch(DQ_KERNEL, q.device, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  int(delta_given), dq.data_ptr(), *strides, *shape, mode=mode)
+                  int(delta_given), dq.data_ptr(), *strides, *shape, mode=mode, body=body)
     return dq, delta
 
 
@@ -170,19 +211,21 @@ def kernel_dkv(q, k, v, lepe_kernel, lse, delta, dout, *, H, W, hsp, wsp, num_he
     """The dk/dv kernel on CUDA tensors: (dk, dv) contiguous in q's dtype
     and, in window mode, dw (3, 3, 1, C) in lepe_kernel's dtype (None in
     flash mode)."""
-    dout, shape, strides = _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp,
-                                     num_heads, scale, attn_drop, seed, mode)
+    q, k, v, dout, shape, strides, body = _bwd_args(q, k, v, lepe_kernel, lse, dout, delta,
+                                                    H, W, hsp, wsp, num_heads, scale,
+                                                    attn_drop, seed, mode)
     taps = _taps(mode, lepe_kernel, q.dtype)
     B, L, C = q.shape
     dk, dv = (torch.empty(B, L, C, dtype=q.dtype, device=q.device) for _ in range(2))
     dw_part = None
     if taps is not None:
-        n_blocks = lse.shape[0] * -(-lse.shape[1] // rows_per_block(C // num_heads))
+        n_blocks = lse.shape[0] * -(-lse.shape[1] // rows_per_block(C // num_heads, body))
         dw_part = torch.empty(n_blocks, 9, C, dtype=torch.float32, device=q.device)
     _build.launch(DKV_KERNEL, q.device, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), None if taps is None else taps.data_ptr(), dout.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  None if dw_part is None else dw_part.data_ptr(), *strides, *shape, mode=mode)
+                  None if dw_part is None else dw_part.data_ptr(), *strides, *shape, mode=mode,
+                  body=body)
     if dw_part is None:
         return dk, dv, None
     return dk, dv, dw_part.sum(dim=0).reshape(3, 3, 1, C).to(lepe_kernel.dtype)

@@ -21,7 +21,11 @@ kernel bodies: K-LN and K-LN' (odd channel counts among them), K5 with and
 without the gate (alone and inside the standalone head's autograd
 Function), K-V1 and K-V1' (a key mask at n_valid not a multiple of 16, up
 to 2048 tokens), the launches of their three entry points, and a
-16-class model, whose head takes the unfused chain.
+16-class model, whose head takes the unfused chain.  The flash family's
+bf16 tensor-core dq and dk/dv: both modes at windows that are not
+multiples of their 64-row tiles, mask tiles that do not divide them, head
+dims 16, 32 and 64, batch 2; which body each dtype and head dim launches;
+unaligned rows; and the bodies a 2048^2 training step launches.
 """
 
 import pytest
@@ -69,6 +73,17 @@ def _check_scaled(got, want, dtype):
     weight gradient sums over every token of the branch and reaches O(100)."""
     err = float((got.float() - want.float()).abs().max())
     tol = (TOL_F32 if dtype == torch.float32 else TOL_BF16) * max(1.0, float(want.abs().max()))
+    assert err <= tol, (err, tol)
+
+
+def _check_own(got, want, dtype):
+    """An output against its own scale: the tolerance times max|plain|, with
+    no floor at 1, for outputs (dq, dk, dv) that stay far below 1, where
+    the floor would pass a gradient off by half."""
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.abs().max())
+    assert top > 0.0
+    tol = (TOL_F32 if dtype == torch.float32 else TOL_BF16) * top
     assert err <= tol, (err, tol)
 
 
@@ -660,6 +675,154 @@ def test_model_2048_batch8_offsets(dev):
         p1 = model.predict(x[7:])
     assert bool(torch.isfinite(p8).all())
     assert float((p8[7:].float() - p1.float()).abs().max()) <= 5e-2
+
+
+# ---- the flash family's bf16 tensor-core backward bodies (dq, dk/dv) ----
+
+# (H, W, hsp, wsp, C, heads): windows of 400 and 520 tokens (not multiples of
+# the 64-row tiles; the 520-token flash mask tiles of pick_tile(520) = 104
+# do not divide them), a 7 x 64 window, vertical stripes, head dims 16, 32
+# and 64, and a window of fewer tokens than one tile
+MMA_GEOMS = [(20, 20, 20, 20, 32, 1), (20, 26, 20, 26, 32, 1), (14, 64, 7, 64, 32, 2),
+             (64, 64, 64, 8, 32, 1), (32, 32, 16, 32, 128, 2), (16, 16, 16, 16, 64, 4),
+             (8, 8, 8, 4, 16, 1)]
+
+
+def _flash_mode_bwd(q, k, v, g, kw, f32):
+    """Flash mode's dq, dk, dv from the plain forward's O and L, and the
+    plain version's, on the bands of full-width windows."""
+    N, C, heads = kw["hsp"] * kw["wsp"], q.shape[-1], kw["num_heads"]
+    ref_kw = dict(heads=heads, attn_drop=kw["attn_drop"], seed=kw["seed"])
+    bands = [t.reshape(-1, N, C) for t in (f32[0], f32[1], f32[2], f32[4])]
+    out_ref, lse_ref = flash_attention.flash_attention_reference(*bands[:3], **ref_kw)
+    o = out_ref.to(q.dtype)
+    delta = flash_attention.flash_delta(o, g.reshape(-1, N, C), heads)
+    got = flash_attention.kernel_bwd(q, k, v, None, lse_ref, g, **kw, delta=delta,
+                                     mode="flash")
+    want = flash_attention.flash_attention_bwd_reference(*bands[:3], o.float(), lse_ref,
+                                                         bands[3], **ref_kw)
+    return [a.reshape(b.shape) for a, b in zip(got[:3], want)], want
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("H,W,hsp,wsp,C,heads", MMA_GEOMS)
+def test_flash_bwd_tensor_core_bodies(dev, rate, H, W, hsp, wsp, C, heads):
+    """The bf16 tensor-core dq and dk/dv against their plain versions, mask
+    for mask, batch 2: window mode (the tiled K-A', delta computed by dq)
+    and, where the windows span the width, flash mode (delta given); every
+    launch takes the tensor-core body."""
+    dtype = torch.bfloat16
+    qkv = _randn(dev, 2, H * W, 3 * C, scale=0.5).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(dtype)
+    g = _randn(dev, 2, H * W, C, seed=2).to(dtype)
+    kw = dict(H=H, W=W, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=rate, seed=13)
+    f32 = [t.float() for t in (q, k, v, lk, g)]
+    _, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
+    _build.reset_launches()
+    got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
+    for a, b in zip(got, attention.stripe_attention_bwd_reference(*f32, **kw)):
+        assert a.shape == b.shape and a.dtype == dtype
+        _check_scaled(a, b, dtype)
+        _check_own(a, b, dtype)
+    modes = ["window"]
+    if wsp == W:
+        modes.append("flash")
+        for a, b in zip(*_flash_mode_bwd(q, k, v, g, kw, f32)):
+            _check_scaled(a, b, dtype)
+            _check_own(a, b, dtype)
+    assert {n: c for n, c in _build.BODY_LAUNCHES.items() if c} == {
+        f"{e}:{m}:mma": 1 for e in _build.FLASH_BODY_ENTRIES for m in modes}
+
+
+@pytest.mark.parametrize("dtype,C,heads,body", [
+    (torch.bfloat16, 32, 1, "mma"), (torch.bfloat16, 32, 2, "mma"),
+    (torch.bfloat16, 128, 2, "mma"), (torch.bfloat16, 16, 2, "fma"),
+    (torch.float32, 32, 1, "fma"), (torch.float32, 128, 2, "fma")])
+def test_flash_bwd_body_by_dtype_and_head_dim(dev, dtype, C, heads, body):
+    """bf16 at head dims 16, 32 and 64 takes the tensor-core body; float32
+    and head dim 8 the CUDA-core body, in both modes, each right."""
+    H = 20
+    qkv = _randn(dev, 2, H * H, 3 * C, scale=0.5).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(dtype)
+    g = _randn(dev, 2, H * H, C, seed=2).to(dtype)
+    kw = dict(H=H, W=H, hsp=H, wsp=H, num_heads=heads, attn_drop=0.3, seed=21)
+    f32 = [t.float() for t in (q, k, v, lk, g)]
+    assert flash_attention.bwd_body(q, C // heads) == body
+    _, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
+    _build.reset_launches()
+    got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
+    for a, b in zip(got, attention.stripe_attention_bwd_reference(*f32, **kw)):
+        _check_scaled(a, b, dtype)
+        _check_own(a, b, dtype)
+    for a, b in zip(*_flash_mode_bwd(q, k, v, g, kw, f32)):
+        _check_scaled(a, b, dtype)
+        _check_own(a, b, dtype)
+    assert {n: c for n, c in _build.BODY_LAUNCHES.items() if c} == {
+        f"{e}:{m}:{body}": 1 for e in _build.FLASH_BODY_ENTRIES for m in ("window", "flash")}
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        f"{e}:{m}": 1 for e in _build.FLASH_BODY_ENTRIES for m in ("window", "flash")}
+
+
+def test_flash_bwd_tensor_core_copies_unaligned_rows(dev):
+    """q, k, v and dO whose base or row stride is not 16-byte aligned (column
+    slices of a 3C + 1 wide tensor) reach the tensor-core body as explicit
+    aligned copies: dq, dk, dv and dw equal those of contiguous inputs."""
+    C, H = 32, 20
+    wide = _randn(dev, 2, H * H, 3 * C + 1, scale=0.5).to(torch.bfloat16)
+    q, k, v = wide[..., 1:C + 1], wide[..., C + 1:2 * C + 1], wide[..., 2 * C + 1:]
+    g = _randn(dev, 2, H * H, C + 1, seed=2).to(torch.bfloat16)[..., 1:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(torch.bfloat16)
+    kw = dict(H=H, W=H, hsp=H, wsp=H, num_heads=1, attn_drop=0.3, seed=5)
+    _, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
+    got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
+    want = stripe_attention.tiled_bwd(*(t.contiguous() for t in (q, k, v)), lk, lse,
+                                      g.contiguous(), **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_flash_bwd_tensor_core_tail_with_very_negative_lse(dev):
+    """A 420-token window (not a multiple of the 16-key chunks) whose scores
+    are all about -100, so L < -88: the zero-filled keys past N must give
+    p = 0, not exp(-L) = inf (inf x 0 made NaN in delta and dq).  Held at
+    the max(1, .) scale only: q and k share a large component, along which
+    the bf16 rounding of ds (which the float32 plain version skips) sums
+    without cancelling."""
+    C, H, W = 32, 20, 21
+    q = (4.2 + 0.1 * _randn(dev, 1, H * W, C)).to(torch.bfloat16)
+    k = (-4.2 + 0.1 * _randn(dev, 1, H * W, C, seed=1)).to(torch.bfloat16)
+    v = _randn(dev, 1, H * W, C, scale=0.5, seed=2).to(torch.bfloat16)
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=3).to(torch.bfloat16)
+    g = _randn(dev, 1, H * W, C, seed=4).to(torch.bfloat16)
+    kw = dict(H=H, W=W, hsp=H, wsp=W, num_heads=1, attn_drop=0.0, seed=0)
+    _, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
+    assert float(lse.max()) < -88.0
+    got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
+    want = attention.stripe_attention_bwd_reference(
+        *(t.float() for t in (q, k, v, lk, g)), **kw)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        _check_scaled(a, b, torch.bfloat16)
+
+
+def test_model_2048_training_step_runs_tensor_core_bodies(dev):
+    """A bf16 training step of CSWin-SimAM-UNet at 2048^2 launches the
+    tensor-core dq and dk/dv 48 times each as the tiled K-A' and twice each
+    on the flash path, and the CUDA-core bodies never."""
+    model = build_model("cswin_simam_2048", device=dev, seed=0)
+    x = torch.rand(1, 2048, 2048, 3, device=dev)
+    opt = engine.make_optimizer("adamw", 1e-4, 1e-4, model.parameters())
+    step = engine.make_train_step(model, opt, seed=0)
+    images = (x * 255).to(torch.uint8)
+    masks = ((x[..., :1] > 0.5) * 255).to(torch.uint8)
+    _build.reset_launches()
+    out = step(images, masks)
+    assert {n: c for n, c in _build.BODY_LAUNCHES.items() if c} == {
+        f"{e}:{m}:mma": n for e in _build.FLASH_BODY_ENTRIES
+        for m, n in (("window", 48), ("flash", 2))}
+    assert all(bool(torch.isfinite(torch.as_tensor(val))) for val in out.values())
 
 
 # ---- the last six kernel bodies: K-LN, K-LN', K5 (with and without the
