@@ -15,8 +15,12 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    plain version's time, the library call's time where one exists and the
    bound, all in bf16 at batch 8.  K-A also with attention dropout at rate
    0.3, mask for mask against the plain version with the same seed, at every
-   window geometry of ``cswin_simam_512`` and of ``cswinunet``, and timed at
-   rate 0.3 beside rate 0 (library: SDPA with ``dropout_p``);
+   window geometry of ``cswin_simam_512`` and of ``cswinunet``, each output
+   also against its own max|plain|, the float32 call on the CUDA-core body
+   and the bf16 one on the tensor-core body (``_build.BODY_LAUNCHES``), and
+   timed at rate 0.3 beside rate 0 (library: SDPA with ``dropout_p``), with
+   its device time, the CUDA-core body's time in float32 on the same inputs
+   and the SFU/ALU floor of its exps and hashes;
 4. each backward kernel (K-A', K-C', K3, K4, and K3 and K4 without the gate)
    the same way, at the training step's shapes, every output of the kernel
    checked; K-A' with dropout as K-A; the two kernels without the gate at
@@ -30,22 +34,25 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    max(1, max|plain|) for backward outputs) and bf16 within 2e-2 x max(1,
    max|plain|) per output, and each output also within 1e-4 (float32) and
    2e-2 (bf16) times its own max|plain|; the tiled entry against K-A / K-A' at 256
-   tokens; after each backward check, that the float32 call launched the
-   CUDA-core dq and dk/dv bodies and the bf16 call the tensor-core ones;
-   each kernel's time, its plain version's and SDPA's at the 2048^2
-   path's shapes (batch 1, bf16, rates 0 and 0.3), for dq and dk/dv also
-   their device time, the CUDA-core body's time on the same inputs in
-   float32 and the SFU/ALU floor of the tensor-core bodies (their exps
-   and dropout hashes at the card's SM count and maximum clock);
+   tokens; the tiled K-A's L against the windows' log-sum-exp; after each
+   check, that the float32 call launched the CUDA-core bodies and the bf16
+   call the tensor-core ones; each kernel's time, its plain version's and
+   SDPA's at the 2048^2 path's shapes (batch 1, bf16, rates 0 and 0.3,
+   the forward's window and flash modes apart), also its device time, the
+   CUDA-core body's time on the same inputs in float32 and the SFU/ALU
+   floor of the tensor-core body (its exps and dropout hashes at the card's
+   SM count and maximum clock);
 5. serving: CSWin-SimAM-UNet at 512^2, full width, bf16, kernels on, random
    weights from a seed, served through ``Server`` for requests of batch 1,
-   3, 8 and 11 (launch counts reset before and read after); output checks;
+   3, 8 and 11 (launch counts reset before and read after; K-A's
+   tensor-core body every launch); output checks;
    kernels-on against kernels-off in bf16 (batch 2) and float32 (batch 1);
    the launch counts of one batch-8 request; ms per batch-8 request and
    images/s.  Then ``cswin_simam_2048`` (full width and depth) for requests
    of batch 1 and 2: the launches of each (48 tiled K-A, 2 flash forwards,
    K-C, K-H1, K-H2), output checks, kernels on against off in bf16 (batch
-   2, max |dp| <= 5e-2), ms per request and images/s;
+   2, max |dp| <= 5e-2; the forwards on the tensor-core body), ms per
+   request and images/s;
 6. training, each path driven by ``make_train_step`` (AdamW, lr 1e-4, weight
    decay 1e-4) on one fixed uint8 batch of bright discs: the launch counts
    of one step (counts reset before and read after), 3 warm-up and 10 timed
@@ -55,8 +62,10 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    configs' headline; the same at drops 0; ``cswinunet`` (448^2, no SimAM,
    float32, batch 2) at drops 0.3; ``cswin_simam_2048`` (bf16, batch 1) at
    drops 0.3, the long-window path (48 launches each of the tiled K-A, dq
-   and dk/dv, 2 each of the flash kernels per step; dq and dk/dv by their
-   tensor-core bodies, counted apart in ``_build.BODY_LAUNCHES``).  Then one batch-2
+   and dk/dv, 2 each of the flash kernels per step); each step's attention
+   kernels by their tensor-core bodies on the bf16 paths and by K-A's
+   CUDA-core body on ``cswinunet``, counted apart in
+   ``_build.BODY_LAUNCHES``.  Then one batch-2
    step's gradients with kernels on against kernels off from the same
    weights and the same dropout seed, every parameter, in float32 for both
    512^2 and 448^2 configs (the masks are the same, so the gradients must
@@ -177,24 +186,63 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def add_floor(torch, row) -> None:
+    """The SFU/ALU floor of a tensor-core body from its ``exps`` and
+    ``hashes`` (computed from assumed rates, not measured): exp2 on the SFU
+    (SFU_PER_CLOCK a clock per SM), the hash's fmix32 at about HASH_OPS
+    integer operations (INT_PER_CLOCK a clock per SM), at the card's maximum
+    SM clock; at rate 0 no hash runs."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                     "--format=csv,noheader,nounits"]).splitlines()[0])
+    hz = mhz * 1e6
+    row["sfu_ms"] = row["exps"] / (sms * SFU_PER_CLOCK * hz) * 1e3
+    row["alu_ms"] = row["hashes"] * HASH_OPS / (sms * INT_PER_CLOCK * hz) * 1e3
+    row["floor_ms"] = max(row["sfu_ms"], row["bound_ms"])
+    row["floor_ms_drop"] = max(row["sfu_ms"], row["alu_ms"], row["bound_ms"])
+    row["floor_clock"] = f"{sms} SMs at {mhz:.0f} MHz"
+
+
+def floor_text(row) -> str:
+    return (f"SFU/ALU floor (computed from assumed rates, not measured) "
+            f"{row['floor_ms']:.3f} / {row['floor_ms_drop']:.3f} ms "
+            f"({row['exps'] / 1e9:.3f} G exps: {row['sfu_ms']:.3f} ms on {row['floor_clock']}; "
+            f"{row['hashes'] / 1e9:.3f} G hashes: {row['alu_ms']:.3f} ms)")
+
+
+def no_lepe(fn):
+    """fn(q, k, v, lepe_kernel, *rest) with the LePE taps set to zero."""
+    return lambda q, k, v, w, *rest: fn(q, k, v, w.new_zeros(w.shape), *rest)
+
+
 def max_err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max())
 
 
-def check_pair(name, torch, kernel_fn, plain_fn, make, batch=2):
-    """Kernel vs plain at float32 and at bf16; returns the float32 error."""
+def check_pair(name, torch, kernel_fn, plain_fn, make, batch=2, own=False):
+    """Kernel vs plain at float32 and at bf16; returns the float32 and bf16
+    errors.  With ``own``, each is also held to its tolerance times the
+    output's own max|plain| (no floor at 1), and those two ratios follow."""
     x32 = make(batch, torch.float32)
-    err32 = max_err(kernel_fn(*x32), plain_fn(*x32))
+    ref32 = plain_fn(*x32)
+    err32 = max_err(kernel_fn(*x32), ref32)
     x16 = make(batch, torch.bfloat16)
     ref16 = plain_fn(*[t.float() if t.is_floating_point() else t for t in x16])
     err16 = max_err(kernel_fn(*x16), ref16)
     tol16 = TOL_BF16 * max(1.0, float(ref16.abs().max()))
     torch.cuda.synchronize()
+    rel = (err32 / float(ref32.abs().max()), err16 / float(ref16.abs().max()))
     log(f"  {name}: f32 max_abs_err {err32:.3e} (tol {TOL_F32:g})  "
-        f"bf16 max_abs_err {err16:.3e} (tol {tol16:.3e})")
+        f"bf16 max_abs_err {err16:.3e} (tol {tol16:.3e})"
+        + (f"  own scale f32 {rel[0]:.3e} bf16 {rel[1]:.3e} (tol {TOL_F32:g}, {TOL_BF16:g})"
+           if own else ""))
     require(err32 <= TOL_F32, f"{name}: float32 error {err32} > {TOL_F32}")
     require(err16 <= tol16, f"{name}: bf16 error {err16} > {tol16}")
-    return err32, err16
+    if not own:
+        return err32, err16
+    require(rel[0] <= TOL_F32 and rel[1] <= TOL_BF16,
+            f"{name}: error over the output's own max|plain| {rel}")
+    return err32, err16, *rel
 
 
 def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2):
@@ -252,13 +300,12 @@ def disc_batch(torch, img: int, batch: int, dev):
 
 
 def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev,
-                want_bodies=None) -> dict:
+                want_bodies) -> dict:
     """Train a copy of ``model`` with ``make_train_step`` on one fixed batch:
     the launch counts of one step (reset before, read after) must be
-    ``want_step``, and the flash backward's body launches ``want_bodies``
-    (none by default); then 3 warm-up and 10 timed steps.  Returns the
-    step's ms, images/s, peak memory, launches and the losses."""
-    want_bodies = want_bodies or {}
+    ``want_step``, and the attention kernels' body launches ``want_bodies``;
+    then 3 warm-up and 10 timed steps.  Returns the step's ms, images/s,
+    peak memory, launches and the losses."""
     img = model.img_size
     phase(f"training {label}, {img}^2, {model.dtype}, kernels on: {tcfg}")
     images_d, masks_d = disc_batch(torch, img, tcfg.batch_size, dev)
@@ -272,7 +319,7 @@ def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev,
     torch.cuda.synchronize()
     one_step = {k: n for k, n in _build.LAUNCHES.items() if n}
     bodies = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
-    log(f"launches of one training step: {one_step}; flash backward bodies: {bodies}")
+    log(f"launches of one training step: {one_step}; attention bodies: {bodies}")
     require(one_step == want_step, f"{label}: step launches {one_step} != {want_step}")
     require(bodies == want_bodies, f"{label}: step body launches {bodies} != {want_bodies}")
     for _ in range(TRAIN_WARMUP - 1):
@@ -367,20 +414,21 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                     rel16_drop=0.0, ms_window=0.0, ms_flash=0.0,
                     bound_ms_window=0.0, bound_ms_flash=0.0)
             for k in ("fwd", "dq", "dkv")}
-    for k in ("dq", "dkv"):  # the tensor-core bodies: device time, the CUDA-core body, floors
+    for k in rows:  # the tensor-core bodies: device time, the CUDA-core body, floors
         rows[k].update(device_ms=0.0, device_ms_drop=0.0, ms_fma_f32=0.0, ms_fma_f32_drop=0.0,
                        exps=0.0, hashes=0.0)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    sm_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                        "--format=csv,noheader,nounits"]).splitlines()[0])
+    rows["fwd"].update(device_ms_window=0.0, device_ms_flash=0.0, bands_window_ms=0.0,
+                       bands_flash_ms=0.0)
 
-    def require_bodies(name, mode):
-        """One float32 and one bf16 backward ran since the counts were reset:
-        the CUDA-core body took the float32 call, the tensor-core body the
-        bf16 one."""
+    def require_bodies(name, mode, entries):
+        """One float32 and one bf16 call of each entry ran since the counts
+        were reset: the CUDA-core body took the float32 call, the
+        tensor-core body the bf16 one."""
         got = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
-        want = {f"{e}:{mode}:{b}": 1 for e in _build.FLASH_BODY_ENTRIES for b in ("mma", "fma")}
-        require(got == want, f"{name}: flash backward body launches {got} != {want}")
+        want = {f"{e}:{mode}:{b}": 1 for e in entries for b in ("mma", "fma")}
+        require(got == want, f"{name}: flash body launches {got} != {want}")
+
+    bwd_entries = (fa.DQ_KERNEL, fa.DKV_KERNEL)
 
     def fold(res, rate):
         sfx = "_drop" if rate else ""
@@ -415,10 +463,20 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                               attention.stripe_attention_bwd_reference(q, k, v, w, g, **kw),
                               make_tokens(L, Cb, True), batch=1)
             elif N <= fa.FLASH_MIN_TOKENS:
-                fold(check_outputs_by_kernel(
+                _build.reset_launches()
+                fold(check_outputs_by_kernel(  # out, and L against the windows' log-sum-exp
                     "tiled K-A " + name, torch,
-                    lambda q, k, v, w, kw=kwr: sa.tiled_fwd(q, k, v, w, **kw)[:1],
-                    lambda q, k, v, w, kw=kwr: (attention.stripe_attention(q, k, v, w, **kw),),
+                    lambda q, k, v, w, kw=kwr: sa.tiled_fwd(q, k, v, w, **kw),
+                    lambda q, k, v, w, kw=kwr, geo=kw: (
+                        attention.stripe_attention(q, k, v, w, **kw),
+                        attention.stripe_attention_lse(q, k, **geo)),
+                    make_tokens(L, Cb, False), {"fwd": [0, 1]}, scaled32=False), rate)
+                require_bodies("tiled K-A " + name, "window", (fa.FWD_KERNEL,))
+                fold(check_outputs_by_kernel(  # the attention alone (zero LePE taps)
+                    "tiled K-A without LePE " + name, torch,
+                    no_lepe(lambda q, k, v, w, kw=kwr: sa.tiled_fwd(q, k, v, w, **kw)[:1]),
+                    no_lepe(lambda q, k, v, w, kw=kwr: (
+                        attention.stripe_attention(q, k, v, w, **kw),)),
                     make_tokens(L, Cb, False), {"fwd": [0]}, scaled32=False), rate)
                 _build.reset_launches()
                 fold(check_outputs_by_kernel(
@@ -429,7 +487,7 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                         q, k, v, w, g, **kw),
                     make_tokens(L, Cb, True), {"dq": [0], "dkv": [1, 2, 3]}, scaled32=True),
                     rate)
-                require_bodies("tiled K-A' " + name, "window")
+                require_bodies("tiled K-A' " + name, "window", _build.FLASH_ENTRIES)
             else:
                 flip, Ht, Wt, wht = fa.band_geometry(reso, reso, hsp, wsp)
                 require(not flip, "the flash geometries of the configs are global windows")
@@ -449,12 +507,14 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                         *(bands(t.float()) for t in (q, k, v)), **ref_kw)
                     return q, k, v, g, o.to(dtype).reshape(q.shape), lse
 
+                _build.reset_launches()
                 fold(check_outputs_by_kernel(
                     "flash fwd " + name, torch,
                     lambda q, k, v, geo=geo: fa.kernel_fwd(q, k, v, None, **geo, mode="flash"),
                     lambda q, k, v, ref_kw=ref_kw, bands=bands: fa.flash_attention_reference(
                         bands(q), bands(k), bands(v), **ref_kw),
                     make_fwd, {"fwd": [0, 1]}, scaled32=False), rate)
+                require_bodies("flash fwd " + name, "flash", (fa.FWD_KERNEL,))
                 _build.reset_launches()
                 fold(check_outputs_by_kernel(
                     "flash dq, dkv " + name, torch,
@@ -465,7 +525,7 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                     fa.flash_attention_bwd_reference(*(bands(t) for t in (q, k, v, o)), lse,
                                                      bands(g), **ref_kw),
                     make_bwd, {"dq": [0], "dkv": [1, 2]}, scaled32=True), rate)
-                require_bodies("flash dq, dkv " + name, "flash")
+                require_bodies("flash dq, dkv " + name, "flash", bwd_entries)
 
     # the tiled entry against the whole-window kernels where both run: the
     # flagship's stage-4 global window (256 tokens), dropout 0.3
@@ -483,7 +543,7 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
         lambda q, k, v, w, g: sa.attention_bwd(q, k, v, w, g, **kwc),
         make_tokens(256, 512, True), {"dq": [0], "dkv": [1, 2, 3]}, scaled32=True, batch=2),
         DROP)
-    require_bodies("tiled vs whole-window K-A'", "window")
+    require_bodies("tiled vs whole-window K-A'", "window", _build.FLASH_ENTRIES)
 
     # times at the 2048^2 path's shapes: batch 1, bf16; per forward or step
     for (reso, Cb, heads, hsp, wsp), count in sorted(path_geoms.items()):
@@ -509,7 +569,9 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                       q, k, v, lse, g, **kwr, delta=None if tiled else delta, mode=mode)),
                   "dkv": time_ms(torch, lambda: fa.kernel_dkv(q, k, v, lepe, lse, delta, g,
                                                               **kwr, mode=mode))}
-            dev_ms = {"dq": device_ms(torch, lambda: fa.kernel_dq(
+            dev_ms = {"fwd": device_ms(torch, lambda: fa.kernel_fwd(q, k, v, lepe, **kwr,
+                                                                   mode=mode)),
+                      "dq": device_ms(torch, lambda: fa.kernel_dq(
                           q, k, v, lse, g, **kwr, delta=None if tiled else delta, mode=mode)),
                       "dkv": device_ms(torch, lambda: fa.kernel_dkv(q, k, v, lepe, lse, delta,
                                                                     g, **kwr, mode=mode))}
@@ -517,7 +579,9 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
             out32, lse32 = fa.kernel_fwd(q32, k32, v32, lepe32, **kwr, mode=mode)
             delta32 = None if tiled else fa.flash_delta(out32, g32, heads).reshape(lse32.shape)
             _, delta32 = fa.kernel_dq(q32, k32, v32, lse32, g32, **kwr, delta=delta32, mode=mode)
-            fma = {"dq": time_ms(torch, lambda: fa.kernel_dq(
+            fma = {"fwd": time_ms(torch, lambda: fa.kernel_fwd(q32, k32, v32, lepe32, **kwr,
+                                                              mode=mode), iters=3),
+                   "dq": time_ms(torch, lambda: fa.kernel_dq(
                        q32, k32, v32, lse32, g32, **kwr, delta=None if tiled else delta32,
                        mode=mode), iters=3),
                    "dkv": time_ms(torch, lambda: fa.kernel_dkv(
@@ -550,14 +614,25 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                 rows[key]["library_ms" + sfx] += count * lib
                 if not rate:
                     rows[key]["ms_" + mode] += count * ms[key]
-            for key in ("dq", "dkv"):
                 rows[key]["device_ms" + sfx] += count * dev_ms[key]
                 rows[key]["ms_fma_f32" + sfx] += count * fma[key]
+            if not rate:
+                rows["fwd"]["device_ms_" + mode] += count * dev_ms["fwd"]
+            if tiled and wsp == reso and not rate:
+                # the same full-width bands in flash mode (no LePE, the same
+                # mask tile N): the window mode's LePE epilogue is the difference
+                band_ms = device_ms(torch, lambda: fa.kernel_fwd(q, k, v, None, **kwr,
+                                                                 mode="flash"))
+                rows["fwd"]["bands_window_ms"] += count * dev_ms["fwd"]
+                rows["fwd"]["bands_flash_ms"] += count * band_ms
+                log(f"    the same bands in flash mode, without the LePE: fwd device "
+                    f"{band_ms:.4f} ms (window mode {dev_ms['fwd']:.4f})")
             log(f"    {mode} reso {reso} window {hsp}x{wsp} Cb {Cb} rate {rate} x{count}/step: "
-                f"fwd {ms['fwd']:.4f} dq {ms['dq']:.4f} (device {dev_ms['dq']:.4f}) dkv "
-                f"{ms['dkv']:.4f} (device {dev_ms['dkv']:.4f}) ms  CUDA-core body, f32: dq "
-                f"{fma['dq']:.4f} dkv {fma['dkv']:.4f} ms  plain fwd {plain_f:.4f} bwd "
-                f"{plain_b:.4f} ms  sdpa fwd {lib_f:.4f} bwd {lib_b:.4f} ms")
+                f"fwd {ms['fwd']:.4f} (device {dev_ms['fwd']:.4f}) dq {ms['dq']:.4f} (device "
+                f"{dev_ms['dq']:.4f}) dkv {ms['dkv']:.4f} (device {dev_ms['dkv']:.4f}) ms  "
+                f"CUDA-core body, f32: fwd {fma['fwd']:.4f} dq {fma['dq']:.4f} dkv "
+                f"{fma['dkv']:.4f} ms  plain fwd {plain_f:.4f} bwd {plain_b:.4f} ms  sdpa fwd "
+                f"{lib_f:.4f} bwd {lib_b:.4f} ms")
         stat = L * heads * 4
         taps = Cb * 9 * 4 if tiled else 0
         work = {"fwd": (4 * L * Cb * 2 + stat + taps, (4 * N + (18 if tiled else 0)) * L * Cb),
@@ -572,30 +647,25 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
         # score, and a second exp in window-mode dq (its delta sweep, whose keep
         # bits the ds sweep reads back)
         scores = (reso // hsp) * (reso // wsp) * heads * N * N
-        for key, exps in (("dq", 2 if tiled else 1), ("dkv", 1)):
+        for key, exps in (("fwd", 1), ("dq", 2 if tiled else 1), ("dkv", 1)):
             rows[key]["exps"] += count * exps * scores
             rows[key]["hashes"] += count * scores
         del q, k, v, w, g, qh, kh, vh, gh, out, lse, delta, dq, q32, k32, v32, w32, g32
     for row in rows.values():
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"], "bfloat16")
-    # the SFU/ALU floor of the tensor-core bodies: exp2 on the SFU (16 a clock
-    # per SM), the hash's fmix32 at about HASH_OPS integer operations (64 a
-    # clock per SM), at the card's maximum SM clock
-    hz = sm_mhz * 1e6
-    for key in ("dq", "dkv"):
-        row = rows[key]
-        row["sfu_ms"] = row["exps"] / (sms * SFU_PER_CLOCK * hz) * 1e3
-        row["alu_ms"] = row["hashes"] * HASH_OPS / (sms * INT_PER_CLOCK * hz) * 1e3
-        row["floor_ms"] = max(row["sfu_ms"], row["bound_ms"])
-        row["floor_ms_drop"] = max(row["sfu_ms"], row["alu_ms"], row["bound_ms"])
+    for key, row in rows.items():
+        add_floor(torch, row)
         log(f"  flash {key}, tensor-core body, per 2048^2 step: {row['ms']:.3f} / "
             f"{row['ms_drop']:.3f} ms at rate 0 / {DROP} (device {row['device_ms']:.3f} / "
             f"{row['device_ms_drop']:.3f}); CUDA-core body in float32 {row['ms_fma_f32']:.3f} / "
             f"{row['ms_fma_f32_drop']:.3f}; bound {row['bound_ms']:.4f} ({row['bound_by']}); "
-            f"SFU/ALU floor (computed from assumed rates, not measured) "
-            f"{row['floor_ms']:.3f} / {row['floor_ms_drop']:.3f} ms "
-            f"({row['exps'] / 1e9:.3f} G exps: {row['sfu_ms']:.3f} ms on {sms} SMs at "
-            f"{sm_mhz:.0f} MHz; {row['hashes'] / 1e9:.3f} G hashes: {row['alu_ms']:.3f} ms)")
+            + floor_text(row))
+    log(f"  flash fwd by mode, rate 0: window {rows['fwd']['ms_window']:.3f} ms (device "
+        f"{rows['fwd']['device_ms_window']:.3f}, bound {rows['fwd']['bound_ms_window']:.4f}), "
+        f"flash {rows['fwd']['ms_flash']:.3f} ms (device {rows['fwd']['device_ms_flash']:.3f}, "
+        f"bound {rows['fwd']['bound_ms_flash']:.4f}); the step's full-width bands, device: "
+        f"window mode {rows['fwd']['bands_window_ms']:.3f} ms, flash mode on the same bands "
+        f"{rows['fwd']['bands_flash_ms']:.3f} ms")
     torch.cuda.empty_cache()
     return rows
 
@@ -1038,7 +1108,9 @@ def main() -> int:
     geoms = attention_geometries(model)
     ka = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err32=0.0,
               err16=0.0, bytes=0.0, flops=0.0, ms_drop=0.0, plain_ms_drop=0.0,
-              library_ms_drop=0.0, err32_drop=0.0, err16_drop=0.0)
+              library_ms_drop=0.0, err32_drop=0.0, err16_drop=0.0, rel32=0.0, rel16=0.0,
+              rel32_drop=0.0, rel16_drop=0.0, device_ms=0.0, device_ms_drop=0.0,
+              ms_fma_f32=0.0, ms_fma_f32_drop=0.0, exps=0.0, hashes=0.0)
     for (reso, Cb, heads, hsp, wsp), count in sorted(geoms.items()):
         L = reso * reso
         kw = dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=heads)
@@ -1050,19 +1122,46 @@ def main() -> int:
                     randn(3, 3, 1, Cb, scale=1 / 3, dtype=dtype))
 
         name = f"K-A reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads}"
-        e32, e16 = check_pair(name, torch,
-                              lambda q, k, v, w, kw=kw: stripe_attention.stripe_attention(
-                                  q, k, v, w, **kw),
-                              lambda q, k, v, w, kw=kw: attention.stripe_attention(
-                                  q, k, v, w, **kw), make)
-        d32, d16 = check_pair(name + " dropout 0.3", torch,
-                              lambda q, k, v, w, kw=kwd: stripe_attention.stripe_attention(
-                                  q, k, v, w, **kw),
-                              lambda q, k, v, w, kw=kwd: attention.stripe_attention(
-                                  q, k, v, w, **kw), make)
+        _build.reset_launches()
+        e32, e16, r32, r16 = check_pair(
+            name, torch,
+            lambda q, k, v, w, kw=kw: stripe_attention.stripe_attention(q, k, v, w, **kw),
+            lambda q, k, v, w, kw=kw: attention.stripe_attention(q, k, v, w, **kw), make,
+            own=True)
+        d32, d16, s32, s16 = check_pair(
+            name + " dropout 0.3", torch,
+            lambda q, k, v, w, kw=kwd: stripe_attention.stripe_attention(q, k, v, w, **kw),
+            lambda q, k, v, w, kw=kwd: attention.stripe_attention(q, k, v, w, **kw), make,
+            own=True)
+        # the attention alone (zero LePE taps): the LePE's larger values would
+        # hide an error in p from the own-scale check
+        for label, kwa in (("", kw), (" dropout 0.3", kwd)):
+            errs = check_pair(
+                name + " without LePE" + label, torch,
+                no_lepe(lambda q, k, v, w, kw=kwa: stripe_attention.stripe_attention(
+                    q, k, v, w, **kw)),
+                no_lepe(lambda q, k, v, w, kw=kwa: attention.stripe_attention(q, k, v, w, **kw)),
+                make, own=True)
+            for key, val in zip(("err32", "err16", "rel32", "rel16"), errs):
+                key += "_drop" if label else ""
+                ka[key] = max(ka[key], val)
+        bodies = {n: c for n, c in _build.BODY_LAUNCHES.items() if c}
+        require(bodies == {f"{stripe_attention.KERNEL}:{b}": 4 for b in ("mma", "fma")},
+                f"{name}: K-A body launches {bodies}: float32 takes the CUDA-core body, bf16 "
+                "the tensor-core body")
         q, k, v, w = make(TIME_BATCH, torch.bfloat16)
         ms = time_ms(torch, lambda: stripe_attention.stripe_attention(q, k, v, w, **kw))
         ms_drop = time_ms(torch, lambda: stripe_attention.stripe_attention(q, k, v, w, **kwd))
+        ka_dev = device_ms(torch, lambda: stripe_attention.stripe_attention(q, k, v, w, **kw))
+        ka_dev_drop = device_ms(torch, lambda: stripe_attention.stripe_attention(q, k, v, w,
+                                                                                 **kwd))
+        # the CUDA-core body on the same inputs in float32
+        q32, k32, v32, w32 = (t.float() for t in (q, k, v, w))
+        fma = time_ms(torch, lambda: stripe_attention.stripe_attention(q32, k32, v32, w32, **kw),
+                      iters=3)
+        fma_drop = time_ms(torch, lambda: stripe_attention.stripe_attention(
+            q32, k32, v32, w32, **kwd), iters=3)
+        del q32, k32, v32, w32
         plain = time_ms(torch, lambda: attention.stripe_attention(q, k, v, w, **kw), iters=3)
         plain_drop = time_ms(torch, lambda: attention.stripe_attention(q, k, v, w, **kwd),
                              iters=3)
@@ -1079,17 +1178,31 @@ def main() -> int:
         nbytes = 4 * TIME_BATCH * L * Cb * 2 + Cb * 9 * 4
         flops = (4 * N + 18) * TIME_BATCH * L * Cb
         b_ms, _ = bound_ms(nbytes, flops, "bfloat16")
-        log(f"    x{count}/forward: kernel {ms:.4f} ms (dropout 0.3: {ms_drop:.4f})  plain "
-            f"{plain:.4f} ms ({plain_drop:.4f})  sdpa {lib:.4f} ms ({lib_drop:.4f})  "
+        log(f"    x{count}/forward: kernel {ms:.4f} ms (dropout 0.3: {ms_drop:.4f}; device "
+            f"{ka_dev:.4f}, {ka_dev_drop:.4f})  CUDA-core body, f32: {fma:.4f} ({fma_drop:.4f})  "
+            f"plain {plain:.4f} ms ({plain_drop:.4f})  sdpa {lib:.4f} ms ({lib_drop:.4f})  "
             f"bound {b_ms:.4f} ms")
+        # two exps per score (the max-and-sum sweep, then p), one hash at rate 0.3
+        scores = TIME_BATCH * (reso // hsp) * (reso // wsp) * heads * N * N
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bytes", nbytes), ("flops", flops), ("ms_drop", ms_drop),
-                         ("plain_ms_drop", plain_drop), ("library_ms_drop", lib_drop)):
+                         ("plain_ms_drop", plain_drop), ("library_ms_drop", lib_drop),
+                         ("device_ms", ka_dev), ("device_ms_drop", ka_dev_drop),
+                         ("ms_fma_f32", fma),
+                         ("ms_fma_f32_drop", fma_drop), ("exps", 2 * scores),
+                         ("hashes", scores)):
             ka[key] += count * val
         for key, val in (("err32", e32), ("err16", e16), ("err32_drop", d32),
-                         ("err16_drop", d16)):
+                         ("err16_drop", d16), ("rel32", r32), ("rel16", r16),
+                         ("rel32_drop", s32), ("rel16_drop", s16)):
             ka[key] = max(ka[key], val)
     ka["bound_ms"], ka["bound_by"] = bound_ms(ka["bytes"], ka["flops"], "bfloat16")
+    add_floor(torch, ka)
+    log(f"  K-A per flagship forward (batch {TIME_BATCH}, bf16): {ka['ms']:.3f} / "
+        f"{ka['ms_drop']:.3f} ms at rate 0 / {DROP} (device {ka['device_ms']:.3f} / "
+        f"{ka['device_ms_drop']:.3f}); CUDA-core body in float32 {ka['ms_fma_f32']:.3f} / "
+        f"{ka['ms_fma_f32_drop']:.3f}; bound {ka['bound_ms']:.4f} ({ka['bound_by']}); "
+        + floor_text(ka))
     table["K-A"] = ka
     # the geometries of cswinunet (448^2, stripes 1, 2, 7, 7): with dropout
     geoms448 = attention_geometries(model448)
@@ -1102,12 +1215,13 @@ def main() -> int:
             return (qkv[..., :Cb], qkv[..., 2 * Cb:3 * Cb], qkv[..., 4 * Cb:5 * Cb],
                     randn(3, 3, 1, Cb, scale=1 / 3, dtype=dtype))
 
-        d32, d16 = check_pair(
+        errs = check_pair(
             f"K-A 448^2 reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads} dropout 0.3",
             torch, lambda q, k, v, w, kw=kwd: stripe_attention.stripe_attention(q, k, v, w, **kw),
-            lambda q, k, v, w, kw=kwd: attention.stripe_attention(q, k, v, w, **kw), make)
-        ka["err32_drop"] = max(ka["err32_drop"], d32)
-        ka["err16_drop"] = max(ka["err16_drop"], d16)
+            lambda q, k, v, w, kw=kwd: attention.stripe_attention(q, k, v, w, **kw), make,
+            own=True)
+        for key, val in zip(("err32_drop", "err16_drop", "rel32_drop", "rel16_drop"), errs):
+            ka[key] = max(ka[key], val)
     # the keep rate read back from K-A: q = k = 0, v = 1, no LePE
     zeros = torch.zeros(TIME_BATCH, 128 * 128, 32, device=dev)
     out = stripe_attention.stripe_attention(
@@ -1462,7 +1576,8 @@ def main() -> int:
     outs = [server(r) for r in requests]
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    log(f"launches over requests of batch 1, 3, 8, 11: {launches}")
+    serve_bodies = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
+    log(f"launches over requests of batch 1, 3, 8, 11: {launches}; bodies: {serve_bodies}")
     for req, out in zip(requests, outs):
         b = req.shape[0]
         require(tuple(out.shape) == (b, IMG, IMG, 1), f"output shape {tuple(out.shape)}")
@@ -1480,13 +1595,20 @@ def main() -> int:
     for name, n in per_forward.items():
         require(launches[name] == 5 * n,
                 f"{name}: {launches[name]} launches, expected {5 * n}")
+    # bf16 at head dim 32: K-A's tensor-core body, every launch
+    ka_mma = f"{stripe_attention.KERNEL}:mma"
+    require(serve_bodies == {ka_mma: 5 * per_forward[stripe_attention.KERNEL]},
+            f"serving body launches {serve_bodies}")
 
     _build.reset_launches()
     server(requests[2])
     torch.cuda.synchronize()
     batch8 = {k: n for k, n in _build.LAUNCHES.items() if n}
-    log(f"launches of one batch-8 request: {batch8}")
+    bodies8 = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
+    log(f"launches of one batch-8 request: {batch8}; bodies: {bodies8}")
     require(batch8 == per_forward, f"batch-8 launches {batch8} != {per_forward}")
+    require(bodies8 == {ka_mma: per_forward[stripe_attention.KERNEL]},
+            f"batch-8 body launches {bodies8}")
 
     x2 = torch.from_numpy(requests[1][:2]).to(dev).float() / 255.0
     with torch.inference_mode():
@@ -1527,16 +1649,22 @@ def main() -> int:
                        carafe_kernels.KERNEL: len(ups), carafe_head.MOMENTS_KERNEL: 1,
                        carafe_head.HEAD_KERNEL: 1}
     require(sum(geoms2048.values()) == 50, f"2048^2 attention branches {geoms2048}")
+    # the tiled K-A and the flash path's forward: the tensor-core body, every launch
+    bodies_fwd2048 = {f"{flash_attention.FWD_KERNEL}:{m}:mma": n
+                      for m, n in (("window", 48), ("flash", 2))}
     for req in requests2048:
         torch.cuda.synchronize()
         _build.reset_launches()
         out = server2048(req)
         torch.cuda.synchronize()
         got = {k: n for k, n in _build.LAUNCHES.items() if n}
+        got_bodies = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
         b = req.shape[0]
-        log(f"  batch {b}: launches {got}; shape {tuple(out.shape)} range "
+        log(f"  batch {b}: launches {got}; bodies {got_bodies}; shape {tuple(out.shape)} range "
             f"[{float(out.min()):.4f}, {float(out.max()):.4f}]")
         require(got == per_forward2048, f"2048^2 batch-{b} launches {got} != {per_forward2048}")
+        require(got_bodies == bodies_fwd2048,
+                f"2048^2 batch-{b} body launches {got_bodies} != {bodies_fwd2048}")
         require(tuple(out.shape) == (b, IMG2048, IMG2048, 1), f"output shape {tuple(out.shape)}")
         require(bool(torch.isfinite(out).all()), "non-finite probabilities at 2048^2")
         require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
@@ -1580,15 +1708,18 @@ def main() -> int:
                     **{n: 48 for n in stripe_attention.TILED_BWD_KERNELS},
                     flash_attention.DQ_KERNEL + ":flash": 2,
                     flash_attention.DKV_KERNEL + ":flash": 2}
-    # the 2048^2 step's dq and dk/dv run the bf16 tensor-core bodies
-    bodies2048 = {f"{e}:{m}:mma": n for e in _build.FLASH_BODY_ENTRIES
+    # every bf16 path runs the tensor-core bodies (K-A; the 2048^2 step's
+    # forward, dq and dk/dv), cswinunet (float32) the CUDA-core K-A only
+    bodies2048 = {f"{e}:{m}:mma": n for e in _build.FLASH_ENTRIES
                   for m, n in (("window", 48), ("flash", 2))}
+    bodies512 = {ka_mma: per_step[stripe_attention.KERNEL]}
+    bodies448 = {f"{stripe_attention.KERNEL}:fma": n_attn448}
     model0 = build_model("cswin_simam_512", device=dev, seed=SEED, **NO_DROPS)
     runs = {}
     for label, net, cfg_name, want_step, want_bodies in (
-            ("cswin_simam_512 drops 0.3", model, "cswin_simam_512", per_step, None),
-            ("cswin_simam_512 drops 0", model0, "cswin_simam_512", per_step, None),
-            ("cswinunet drops 0.3", model448, "cswinunet", per_step448, None),
+            ("cswin_simam_512 drops 0.3", model, "cswin_simam_512", per_step, bodies512),
+            ("cswin_simam_512 drops 0", model0, "cswin_simam_512", per_step, bodies512),
+            ("cswinunet drops 0.3", model448, "cswinunet", per_step448, bodies448),
             ("cswin_simam_2048 drops 0.3", model2048, "cswin_simam_2048", per_step2048,
              bodies2048)):
         runs[label] = train_phase(torch, engine, _build, label, net, TRAIN_CONFIGS[cfg_name],
@@ -1598,6 +1729,7 @@ def main() -> int:
     train_launches448 = runs["cswinunet drops 0.3"]["launches"]
     train_launches2048 = runs["cswin_simam_2048 drops 0.3"]["launches"]
     bodies2048_run = runs["cswin_simam_2048 drops 0.3"]["bodies"]
+    bodies512_run = runs["cswin_simam_512 drops 0.3"]["bodies"]
     del model2048, server2048
     torch.cuda.empty_cache()
 
@@ -1735,13 +1867,22 @@ def main() -> int:
                     48 if label == "flash fwd" else 0),
                 ms_window=row["ms_window"], ms_flash=row["ms_flash"],
                 bound_ms_window=row["bound_ms_window"], bound_ms_flash=row["bound_ms_flash"])
-        if label in ("flash dq", "flash dkv"):  # the bf16 tensor-core body
+        if label in ("K-A", "flash fwd", "flash dq", "flash dkv"):  # the bf16 tensor-core body
+            if label == "K-A":
+                launches_mma = bodies512_run.get(f"{fn}:mma", 0)
+            else:
+                launches_mma = {m: bodies2048_run.get(f"{fn}:{m}:mma", 0)
+                                for m in _build.FLASH_MODES}
             entry.update(
-                body="mma.sync m16n8k16 bf16 (csrc/flash_attention_mma.cuh)",
-                launches_mma={m: bodies2048_run.get(f"{fn}:{m}:mma", 0)
-                              for m in _build.FLASH_MODES},
+                body="mma.sync m16n8k16 bf16 (csrc/" + (
+                    "attention_fwd_mma.cuh)" if label in ("K-A", "flash fwd")
+                    else "flash_attention_mma.cuh)"),
+                launches_mma=launches_mma,
                 **{k: row[k] for k in ("device_ms", "device_ms_drop", "ms_fma_f32",
                                        "ms_fma_f32_drop")})
+        if label == "flash fwd":
+            entry.update({k: row[k] for k in ("device_ms_window", "device_ms_flash",
+                                              "bands_window_ms", "bands_flash_ms")})
         kernels.append(entry)
     rest_sources = {
         "K-LN": ("csu_layernorm_fwd", "cswin_simam_unet_tpu_torch/csrc/layernorm.cu",

@@ -111,15 +111,16 @@ FLASH_MODES = ("window", "flash")
 LAUNCHES = {key: 0 for name in _SIGNATURES for key in (
     [f"{name}:{mode}" for mode in FLASH_MODES] if name in FLASH_ENTRIES else [name])}
 
-# The flash family's dq and dk/dv entries launch one of two bodies, which the
-# C entry picks by dtype and head dim (csu_flash_bwd_body): "mma", the bf16
-# tensor-core body, or "fma", the CUDA-core body.  Each launch also counts
-# under "<entry>:<mode>:<body>" here, apart from LAUNCHES, whose keys stay
-# one per entry and mode.
-FLASH_BODY_ENTRIES = ("csu_flash_attention_dq", "csu_flash_attention_dkv")
-FLASH_BODIES = ("mma", "fma")
-BODY_LAUNCHES = {f"{name}:{mode}:{body}": 0 for name in FLASH_BODY_ENTRIES
-                 for mode in FLASH_MODES for body in FLASH_BODIES}
+# The attention entries (K-A and the flash family's three) launch one of two
+# bodies, which the C entry picks by dtype and head dim (csu_attention_body):
+# "mma", the bf16 tensor-core body, or "fma", the CUDA-core body.  Each
+# launch also counts under "<entry>:<body>" (K-A) or "<entry>:<mode>:<body>"
+# (the flash family) here, apart from LAUNCHES, whose keys stay one per entry
+# and mode.
+BODY_ENTRIES = ("csu_stripe_attention_fwd", *FLASH_ENTRIES)
+BODIES = ("mma", "fma")
+BODY_LAUNCHES = {f"{key}:{body}": 0 for key in LAUNCHES
+                 if key.split(":")[0] in BODY_ENTRIES for body in BODIES}
 
 _lock = threading.Lock()
 _lib = None
@@ -211,8 +212,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.csu_error_string.argtypes = [ctypes.c_int]
             lib.csu_error_string.restype = ctypes.c_char_p
-            lib.csu_flash_bwd_body.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.csu_flash_bwd_body.restype = ctypes.c_int
+            lib.csu_attention_body.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.csu_attention_body.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -222,7 +223,8 @@ def launch(name: str, device: torch.device, *args, mode: str | None = None,
     """Call kernel entry ``name`` on ``device``'s current stream with
     ``args`` (the stream is appended); raise if the launch failed.  The
     launch counts under ``name``, or ``name:mode`` for the flash family, and
-    under ``name:mode:body`` in BODY_LAUNCHES where the entry picks a body."""
+    under that key and ``:body`` in BODY_LAUNCHES where the entry picks a
+    body."""
     key = name if mode is None else f"{name}:{mode}"
     if key not in LAUNCHES:
         raise KeyError(f"no launch counter {key!r}")

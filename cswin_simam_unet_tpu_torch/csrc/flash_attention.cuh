@@ -29,8 +29,9 @@
 // bytes of them (bf16), so at N >= 512 the tensor cores' 295 flop/byte
 // ridge is crossed and the operations are the bound.  The helpers below
 // serve the CUDA-core bodies, which do their products in float32: the
-// forward, and dq and dk/dv in float32 and at head dim 8 (bf16 dq and dk/dv
-// at head dims 16-64 run on the tensor cores, flash_attention_mma.cuh).
+// forward, dq and dk/dv in float32 and at head dim 8 (bf16 at head dims
+// 16-64 runs on the tensor cores: flash_attention_mma.cuh and, for the
+// forward, attention_fwd_mma.cuh).
 // Design: each thread owns one row (a query row in the forward and dq
 // kernels, a key row in dkv; at head dim 64 two neighbouring lanes share a
 // row, 32 columns each) and keeps that row's operands and accumulators in

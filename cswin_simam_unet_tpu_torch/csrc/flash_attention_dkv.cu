@@ -15,7 +15,7 @@
 // which the caller sums over blocks in a fixed order.
 //
 // Two bodies, picked by dtype and head dim as dq picks
-// (csu_flash_bwd_body):
+// (csu_attention_body):
 // * bf16 at head dims 16, 32 and 64, the tensor-core body
 //   (flash_attention_mma.cuh): a block takes 64 key rows, 16 per warp, whose
 //   k and v stay in registers as mma A fragments; tiles of 64 query rows

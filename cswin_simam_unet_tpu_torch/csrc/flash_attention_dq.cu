@@ -12,7 +12,7 @@
 // delta_i = sum_j p_j dp_j, as K-A' does, and writes it for the dk/dv
 // kernel.
 //
-// Two bodies, picked by dtype and head dim (csu_flash_bwd_body):
+// Two bodies, picked by dtype and head dim (csu_attention_body):
 // * bf16 at head dims 16, 32 and 64, the tensor-core body
 //   (flash_attention_mma.cuh): a block takes 64 query rows, 16 per warp,
 //   whose round(q * scale) and dO stay in registers as mma A fragments; key
@@ -367,12 +367,6 @@ static cudaError_t dispatch_flash_dq_mma(int head_dim, const void* q, const void
 }
 
 }  // namespace csu
-
-// Which body csu_flash_attention_dq and csu_flash_attention_dkv launch for
-// (dtype, head_dim): 1 the tensor-core body, 0 the CUDA-core body.
-CSU_EXPORT int csu_flash_bwd_body(int dtype, int head_dim) {
-  return csu::mma::serves(dtype, head_dim) ? 1 : 0;
-}
 
 // dq of csu_flash_attention_fwd.  q, k, v, geometry, scale, mask_tile and
 // the dropout as there; dout the output cotangent, rows ldg apart; lse the

@@ -1,5 +1,6 @@
-// Tensor-core building blocks of the flash family's bf16 backward bodies
-// (flash_attention_dq.cu, flash_attention_dkv.cu): mma.sync m16n8k16 bf16
+// Tensor-core building blocks of the attention kernels' bf16 bodies (dq and
+// dk/dv in flash_attention_dq.cu and flash_attention_dkv.cu, the forwards of
+// K-A and of the flash family in attention_fwd_mma.cuh): mma.sync m16n8k16 bf16
 // products with float32 accumulation, operands read from shared memory with
 // ldmatrix, tiles streamed in with cp.async, and the dropout keep bits of a
 // fragment computed from its (row, column) directly.
@@ -14,7 +15,7 @@
 // tiles feed the next product from registers, with no shared-memory round
 // trip (FlashAttention-2's reuse).
 //
-// Both bodies keep one side of the window (64 rows a block, 16 a warp) in
+// Every body keeps one side of the window (64 rows a block, 16 a warp) in
 // registers and stream the other through shared memory in tiles of 64 rows,
 // double-buffered: rows of D bf16 padded to D + 8, so that each row is 16
 // bytes aligned for cp.async and the eight rows an ldmatrix reads fall in
@@ -43,7 +44,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Where the tensor-core bodies serve: bf16 at head dims 16, 32 and 64.
 // float32 (the exact-f32 route) and head dim 8 take the CUDA-core bodies,
-// whose dispatch leaves these cases out.
+// whose dispatch leaves these cases out (csu_attention_body tells the
+// wrappers).
 __host__ __device__ constexpr bool serves(int dtype, int head_dim) {
   return dtype == kBFloat16 && (head_dim == 16 || head_dim == 32 || head_dim == 64);
 }
@@ -184,11 +186,12 @@ __device__ __forceinline__ void scale_round8(bf16* dst, const bf16* src, float s
 }
 
 // The dropout keep bits of flash_keep for one fixed index f of the fragment
-// (its row: the query in dq, the key in dk/dv) against a streamed tile of
-// kTile indices starting at s0: hash_keep_mask's tile ((wh * 4099 + i / T)
-// * 257 + j / T), counter (i % T) * T + j % T, for query i and key j.
-// Where the tile's valid indices lie in one mask tile (always in window
-// mode, where T = N, and in flash mode when T is a multiple of kTile) the
+// (its row: the query in dq and the forwards, the key in dk/dv) against a
+// streamed tile of kTile indices starting at s0: hash_keep_mask's tile ((wh
+// * 4099 + i / T) * 257 + j / T), counter (i % T) * T + j % T, for query i
+// and key j.  Where the tile's valid indices lie in one mask tile (always in
+// window mode and in K-A, where T = N, and in flash mode when T is a
+// multiple of kTile) the
 // tile id and counter base are hoisted out of the elements ("fast"), else
 // each element divides.
 struct KeepFixed {

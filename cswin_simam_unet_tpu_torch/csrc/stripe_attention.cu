@@ -17,18 +17,25 @@
 // 32) every window is small, so the work is 4*B*L*N*Cb flops over only
 // 8*B*L*Cb bytes of q, k, v and out: about 128 flops a byte in stage 3,
 // which is below the 295 flop/byte ridge of the bf16 tensor cores, and
-// device memory is the bound.  This version does the products on the CUDA
-// cores in float32, so in practice it is bound by shared-memory reads and
-// FMA issue, not by memory.  Design: one block per (window, head) keeps the
-// window's whole K and V for that head in shared memory (float32, K rows
-// padded to D+1 so the 32 lanes of a warp read 32 banks), and each warp
-// takes whole query rows: lanes split the keys for the scores, the softmax
-// runs on one shared-memory row per warp, and lanes split the head dim for
-// p.v and LePE.  Nothing of size N x N leaves the SM.  Window tokens are
-// addressed from (H, W, hsp, wsp) and a token stride, so vertical stripes are
-// read in place (no transpose) and q, k, v may be column slices of one qkv
-// tensor.  wgmma tiles are later work.
-#include "common.cuh"
+// device memory is the bound.  Two bodies, picked by dtype and head dim
+// (csu_attention_body):
+// * bf16 at head dims 16, 32 and 64, the tensor-core body
+//   (attention_fwd_mma.cuh, shared with the flash forward): a block takes 64
+//   query rows of one window and head and holds the window's whole K and V
+//   in shared memory as bf16; it sweeps the keys twice with mma.sync, first
+//   for the row's max and sum, then for p = round(drop(exp(s - m) / l)) and
+//   P V.  Grid (windows, heads, ceil(N / 64)).
+// * float32 (the exact-f32 route of cswinunet) and head dim 8, the CUDA-core
+//   body below: one block per (window, head) keeps the window's whole K and
+//   V for that head in shared memory (float32, K rows padded to D+1 so the
+//   32 lanes of a warp read 32 banks), and each warp takes whole query rows:
+//   lanes split the keys for the scores, the softmax runs on one
+//   shared-memory row per warp, and lanes split the head dim for p.v and
+//   LePE.
+// Nothing of size N x N leaves the SM.  Window tokens are addressed from (H,
+// W, hsp, wsp) and a token stride, so vertical stripes are read in place (no
+// transpose) and q, k, v may be column slices of one qkv tensor.
+#include "attention_fwd_mma.cuh"
 
 namespace csu {
 
@@ -173,21 +180,64 @@ static cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k,
                                      int64_t ldo, int B, int H, int W, int hsp,
                                      int wsp, int heads, float scale, AttnDrop drop,
                                      cudaStream_t stream) {
-#define CSU_ATTN_FWD(DIM)                                                                 \
-  return drop.threshold                                                                   \
-             ? launch_attention<T, DIM, true>(q, k, v, lepe_w, out, ldq, ldk, ldv, ldo, B, \
-                                              H, W, hsp, wsp, heads, scale, drop, stream) \
-             : launch_attention<T, DIM, false>(q, k, v, lepe_w, out, ldq, ldk, ldv, ldo,  \
-                                               B, H, W, hsp, wsp, heads, scale, drop,     \
-                                               stream)
-  switch (head_dim) {
-    case 8: CSU_ATTN_FWD(8);
-    case 16: CSU_ATTN_FWD(16);
-    case 32: CSU_ATTN_FWD(32);
-    case 64: CSU_ATTN_FWD(64);
-    default: return cudaErrorInvalidValue;
-  }
+#define CSU_ATTN_FWD(DIM)                                                                   \
+  if constexpr (!mma::serves(dtype_code<T>(), DIM))                                         \
+    if (head_dim == DIM)                                                                    \
+      return drop.threshold                                                                 \
+                 ? launch_attention<T, DIM, true>(q, k, v, lepe_w, out, ldq, ldk, ldv, ldo, \
+                                                  B, H, W, hsp, wsp, heads, scale, drop,    \
+                                                  stream)                                   \
+                 : launch_attention<T, DIM, false>(q, k, v, lepe_w, out, ldq, ldk, ldv,     \
+                                                   ldo, B, H, W, hsp, wsp, heads, scale,    \
+                                                   drop, stream);
+  CSU_FLASH_HEAD_DIMS(CSU_ATTN_FWD)
 #undef CSU_ATTN_FWD
+  return cudaErrorInvalidValue;
+}
+
+// The tensor-core body (bf16, D in 16, 32, 64): the whole window's K and V
+// in shared memory, the dropout mask of one N x N tile per window and head.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(mma::kThreads)
+stripe_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const float* __restrict__ lepe_w, __nv_bfloat16* __restrict__ out,
+                            int64_t ldo, FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char tiles[];  // not the float smem[] above
+  mma::attention_fwd<D, DROP, true>(q, k, v, lepe_w, out, ldo, nullptr, a, tiles);
+}
+
+template <int D, bool DROP>
+static cudaError_t launch_attention_mma(const void* q, const void* k, const void* v,
+                                        const void* lepe_w, void* out, int64_t ldo, int B,
+                                        const FlashArgs& a, cudaStream_t stream) {
+  const int ntiles = (a.hsp * a.wsp + mma::kTile - 1) / mma::kTile;
+  const size_t smem = mma::fwd_smem<D>(ntiles);
+  static std::atomic<int> opted[kMaxDevices];
+  const cudaError_t e = opt_in_smem(stripe_attention_mma_kernel<D, DROP>, smem, opted);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)(B * (a.H / a.hsp) * (a.W / a.wsp)), (unsigned)a.heads,
+                  (unsigned)ntiles);
+  using bf = __nv_bfloat16;
+  stripe_attention_mma_kernel<D, DROP><<<grid, mma::kThreads, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const float*>(lepe_w), static_cast<bf*>(out), ldo, a);
+  return cudaGetLastError();
+}
+
+static cudaError_t dispatch_attention_mma(int head_dim, const void* q, const void* k,
+                                          const void* v, const void* lepe_w, void* out,
+                                          int64_t ldo, int B, const FlashArgs& a,
+                                          cudaStream_t stream) {
+#define CSU_ATTN_FWD_MMA(DIM)                                                            \
+  if (head_dim == DIM)                                                                   \
+    return a.drop.threshold                                                              \
+               ? launch_attention_mma<DIM, true>(q, k, v, lepe_w, out, ldo, B, a, stream) \
+               : launch_attention_mma<DIM, false>(q, k, v, lepe_w, out, ldo, B, a, stream);
+  CSU_ATTN_FWD_MMA(16) CSU_ATTN_FWD_MMA(32) CSU_ATTN_FWD_MMA(64)
+#undef CSU_ATTN_FWD_MMA
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace csu
@@ -195,7 +245,9 @@ static cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k,
 // q, k, v: (B, H*W, *) token tensors whose channel block [0, heads*head_dim)
 // of each row is read, rows ldq/ldk/ldv elements apart; lepe_w: (C, 9) float32
 // taps, tap (dy+1)*3 + (dx+1) multiplies v at (y+dy, x+dx); out rows ldo apart.
-// seed, threshold, inv_keep: the attention dropout (threshold 0: none).
+// seed, threshold, inv_keep: the attention dropout (threshold 0: none).  The
+// tensor-core body reads and writes rows 16 bytes at a time: q, k, v and out
+// base and row strides 16-byte aligned.
 CSU_EXPORT int csu_stripe_attention_fwd(int dtype, const void* q, const void* k,
                                         const void* v, const void* lepe_w, void* out,
                                         int64_t ldq, int64_t ldk, int64_t ldv,
@@ -209,6 +261,11 @@ CSU_EXPORT int csu_stripe_attention_fwd(int dtype, const void* q, const void* k,
     return (int)csu::dispatch_head_dim<float>(head_dim, q, k, v, lepe_w, out, ldq, ldk,
                                               ldv, ldo, B, H, W, hsp, wsp, heads,
                                               scale, drop, s);
+  if (csu::mma::serves(dtype, head_dim)) {
+    const int N = hsp * wsp;  // the whole-window dropout mask: one N x N tile
+    const csu::FlashArgs a{H, W, hsp, wsp, heads, N, scale, drop, ldq, ldk, ldv, 0};
+    return (int)csu::dispatch_attention_mma(head_dim, q, k, v, lepe_w, out, ldo, B, a, s);
+  }
   if (dtype == csu::kBFloat16)
     return (int)csu::dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, lepe_w, out,
                                                       ldq, ldk, ldv, ldo, B, H, W, hsp,

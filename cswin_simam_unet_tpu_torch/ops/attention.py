@@ -111,6 +111,21 @@ def stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return windows2img(out, hsp, wsp, H, W).reshape(B, L, C)
 
 
+def stripe_attention_lse(q: torch.Tensor, k: torch.Tensor, *, H: int, W: int, hsp: int,
+                         wsp: int, num_heads: int, scale: float | None = None) -> torch.Tensor:
+    """The log-sum-exp of each query row's scores, (B*nWin, N, heads)
+    float32: the L = m + log(l) that the tiled K-A writes for its backward,
+    of the scores round(q * scale) . k as :func:`stripe_attention` forms
+    them."""
+    d_head = q.shape[-1] // num_heads
+    if scale is None:
+        scale = d_head ** -0.5
+    qh = window_heads(q, hsp, wsp, H, W, num_heads)
+    kh = window_heads(k, hsp, wsp, H, W, num_heads)
+    s = torch.matmul((qh * scale).float(), kh.float().transpose(-1, -2))
+    return torch.logsumexp(s, dim=-1).permute(0, 2, 1).contiguous()
+
+
 def _window_lepe_grads(v_wins: torch.Tensor, g_wins: torch.Tensor,
                        lepe_kernel: torch.Tensor, hsp: int, wsp: int):
     """VJP of :func:`lepe_depthwise` in float32: (dv (B*nWin, N, C), dw

@@ -19,14 +19,15 @@ modes, counted apart in ``_build.LAUNCHES`` (``<entry>:window`` and
   the whole-window mask convention (one N x N tile per window and head)
   and delta computed by the dq kernel.
 
-The dq and dk/dv entries each hold two bodies, which the C entry picks by
-dtype and head dim (:func:`bwd_body`): bf16 at head dims 16, 32 and 64 runs
-the tensor-core body ("mma", ``csrc/flash_attention_mma.cuh``), float32
+Each of the three entries holds two bodies, which the C entry picks by
+dtype and head dim (:func:`kernel_body`, as K-A picks): bf16 at head dims
+16, 32 and 64 runs the tensor-core body ("mma", ``csrc/flash_attention_mma.cuh``;
+the forward's, shared with K-A, ``csrc/attention_fwd_mma.cuh``), float32
 and head dim 8 the CUDA-core body ("fma").  A launch counts under
 ``_build.BODY_LAUNCHES["<entry>:<mode>:<body>"]`` beside its
-``LAUNCHES["<entry>:<mode>"]``.  The tensor-core body copies rows 16
-bytes at a time, so its wrapper hands it q, k, v and dO whose base and row
-stride are 16-byte aligned, copying a tensor that is not.
+``LAUNCHES["<entry>:<mode>"]``.  The tensor-core bodies copy rows 16
+bytes at a time, so their wrappers hand them q, k, v and dO whose base and
+row stride are 16-byte aligned, copying a tensor that is not.
 
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
 are the plain versions of the flash path, with its rounding points: q *
@@ -75,19 +76,19 @@ def rows_per_block(head_dim: int, body: str) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _body_code(dtype_code: int, head_dim: int) -> int:
-    return _build.library().csu_flash_bwd_body(dtype_code, head_dim)
+    return _build.library().csu_attention_body(dtype_code, head_dim)
 
 
-def bwd_body(q: torch.Tensor, head_dim: int) -> str:
-    """The body the dq and dk/dv entries launch for q's dtype and
-    ``head_dim``, as the C entries pick it: "mma" (bf16 tensor cores) or
-    "fma" (CUDA cores)."""
+def kernel_body(q: torch.Tensor, head_dim: int) -> str:
+    """The body the attention entries (K-A and the flash family's three)
+    launch for q's dtype and ``head_dim``, as the C entries pick it: "mma"
+    (bf16 tensor cores) or "fma" (CUDA cores)."""
     return "mma" if _body_code(_build.dtype_code(q), head_dim) else "fma"
 
 
-def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
+def rows_aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or an explicit contiguous copy of it where its base or row
-    stride is not 16-byte aligned: the tensor-core body copies rows 16 bytes
+    stride is not 16-byte aligned: the tensor-core bodies copy rows 16 bytes
     at a time (cp.async).  Rows without a usable stride stay, to be refused."""
     ld = _build.token_stride(t)
     if ld is None or (t.data_ptr() % 16 == 0 and ld * t.element_size() % 16 == 0):
@@ -139,6 +140,9 @@ def kernel_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None,
     """The forward kernel on CUDA tensors: (out (B, L, C) in q's dtype, L
     (B * windows, N, heads) float32)."""
     head_dim = check_args(q, k, v, lepe_kernel, H, W, hsp, wsp, num_heads)
+    body = kernel_body(q, head_dim)
+    if body == "mma":
+        q, k, v = (rows_aligned(t) for t in (q, k, v))
     B, L, C = q.shape
     N = hsp * wsp
     taps = _taps(mode, lepe_kernel, q.dtype)
@@ -152,7 +156,7 @@ def kernel_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None,
                   v.data_ptr(), None if taps is None else taps.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), ldq, ldk, ldv, B, H, W, hsp, wsp, num_heads, head_dim,
                   float(scale), _mask_tile(mode, N), *kernel_drop_args(attn_drop, seed),
-                  mode=mode)
+                  mode=mode, body=body)
     return out, lse
 
 
@@ -162,7 +166,7 @@ def _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp, num_heads,
     dout with strides the body takes, the shape arguments, the row strides,
     the body)."""
     head_dim = check_args(q, k, v, lepe_kernel, H, W, hsp, wsp, num_heads)
-    body = bwd_body(q, head_dim)
+    body = kernel_body(q, head_dim)
     N, n_win = hsp * wsp, q.shape[0] * (H // hsp) * (W // wsp)
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(f"dout must be like q {tuple(q.shape)} {q.dtype}, got "
@@ -180,7 +184,7 @@ def _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp, num_heads,
     shape = (q.shape[0], H, W, hsp, wsp, num_heads, head_dim, float(scale),
              _mask_tile(mode, N), *kernel_drop_args(attn_drop, seed))
     if body == "mma":
-        q, k, v, dout = (_rows_aligned(t) for t in (q, k, v, dout))
+        q, k, v, dout = (rows_aligned(t) for t in (q, k, v, dout))
     strides = _build.token_strides((q, "q"), (k, "k"), (v, "v"), (dout, "dout"))
     return q, k, v, dout, shape, strides, body
 

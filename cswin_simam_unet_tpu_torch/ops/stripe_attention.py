@@ -77,8 +77,15 @@ def _check(q, k, v, lepe_kernel, H, W, hsp, wsp, num_heads, smem) -> int:
 
 def attention_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None,
                   attn_drop=0.0, seed=None):
-    """K-A on CUDA tensors: (B, L, C) tokens in and out, lepe_kernel (3, 3, 1, C)."""
+    """K-A on CUDA tensors: (B, L, C) tokens in and out, lepe_kernel (3, 3, 1, C).
+    bf16 at head dims 16, 32 and 64 runs the tensor-core body ("mma", counted
+    in ``_build.BODY_LAUNCHES``), which takes q, k and v with 16-byte aligned
+    rows (copied where they are not); float32 and head dim 8 the CUDA-core
+    body ("fma")."""
     head_dim = _check(q, k, v, lepe_kernel, H, W, hsp, wsp, num_heads, smem_bytes)
+    body = flash_attention.kernel_body(q, head_dim)
+    if body == "mma":
+        q, k, v = (flash_attention.rows_aligned(t) for t in (q, k, v))
     drop = kernel_drop_args(attn_drop, seed)
     B, L, C = q.shape
     ldq, ldk, ldv = _build.token_strides((q, "q"), (k, "k"), (v, "v"))
@@ -88,7 +95,7 @@ def attention_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None
         scale = head_dim ** -0.5
     _build.launch(KERNEL, q.device, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), taps.data_ptr(), out.data_ptr(), ldq, ldk, ldv, C, B, H,
-                  W, hsp, wsp, num_heads, head_dim, float(scale), *drop)
+                  W, hsp, wsp, num_heads, head_dim, float(scale), *drop, body=body)
     return out
 
 

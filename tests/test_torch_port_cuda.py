@@ -25,7 +25,11 @@ to 2048 tokens), the launches of their three entry points, and a
 bf16 tensor-core dq and dk/dv: both modes at windows that are not
 multiples of their 64-row tiles, mask tiles that do not divide them, head
 dims 16, 32 and 64, batch 2; which body each dtype and head dim launches;
-unaligned rows; and the bodies a 2048^2 training step launches.
+unaligned rows; and the bodies a 2048^2 training step launches.  The bf16
+tensor-core forwards, K-A and the flash forward, the same way: K-A at
+windows of 128 to 384 tokens (tails among them), the flash forward at the
+backward's geometries in both modes with its L, very negative scores, and
+the bodies a 512^2 forward launches.
 """
 
 import pytest
@@ -688,6 +692,9 @@ MMA_GEOMS = [(20, 20, 20, 20, 32, 1), (20, 26, 20, 26, 32, 1), (14, 64, 7, 64, 3
              (8, 8, 8, 4, 16, 1)]
 
 
+BWD_ENTRIES = (flash_attention.DQ_KERNEL, flash_attention.DKV_KERNEL)
+
+
 def _flash_mode_bwd(q, k, v, g, kw, f32):
     """Flash mode's dq, dk, dv from the plain forward's O and L, and the
     plain version's, on the bands of full-width windows."""
@@ -732,7 +739,7 @@ def test_flash_bwd_tensor_core_bodies(dev, rate, H, W, hsp, wsp, C, heads):
             _check_scaled(a, b, dtype)
             _check_own(a, b, dtype)
     assert {n: c for n, c in _build.BODY_LAUNCHES.items() if c} == {
-        f"{e}:{m}:mma": 1 for e in _build.FLASH_BODY_ENTRIES for m in modes}
+        f"{e}:{m}:mma": 1 for e in BWD_ENTRIES for m in modes}
 
 
 @pytest.mark.parametrize("dtype,C,heads,body", [
@@ -749,7 +756,7 @@ def test_flash_bwd_body_by_dtype_and_head_dim(dev, dtype, C, heads, body):
     g = _randn(dev, 2, H * H, C, seed=2).to(dtype)
     kw = dict(H=H, W=H, hsp=H, wsp=H, num_heads=heads, attn_drop=0.3, seed=21)
     f32 = [t.float() for t in (q, k, v, lk, g)]
-    assert flash_attention.bwd_body(q, C // heads) == body
+    assert flash_attention.kernel_body(q, C // heads) == body
     _, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
     _build.reset_launches()
     got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
@@ -760,9 +767,9 @@ def test_flash_bwd_body_by_dtype_and_head_dim(dev, dtype, C, heads, body):
         _check_scaled(a, b, dtype)
         _check_own(a, b, dtype)
     assert {n: c for n, c in _build.BODY_LAUNCHES.items() if c} == {
-        f"{e}:{m}:{body}": 1 for e in _build.FLASH_BODY_ENTRIES for m in ("window", "flash")}
+        f"{e}:{m}:{body}": 1 for e in BWD_ENTRIES for m in ("window", "flash")}
     assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
-        f"{e}:{m}": 1 for e in _build.FLASH_BODY_ENTRIES for m in ("window", "flash")}
+        f"{e}:{m}": 1 for e in BWD_ENTRIES for m in ("window", "flash")}
 
 
 def test_flash_bwd_tensor_core_copies_unaligned_rows(dev):
@@ -809,8 +816,8 @@ def test_flash_bwd_tensor_core_tail_with_very_negative_lse(dev):
 
 def test_model_2048_training_step_runs_tensor_core_bodies(dev):
     """A bf16 training step of CSWin-SimAM-UNet at 2048^2 launches the
-    tensor-core dq and dk/dv 48 times each as the tiled K-A' and twice each
-    on the flash path, and the CUDA-core bodies never."""
+    tensor-core forward, dq and dk/dv 48 times each as the tiled K-A / K-A'
+    and twice each on the flash path, and the CUDA-core bodies never."""
     model = build_model("cswin_simam_2048", device=dev, seed=0)
     x = torch.rand(1, 2048, 2048, 3, device=dev)
     opt = engine.make_optimizer("adamw", 1e-4, 1e-4, model.parameters())
@@ -820,9 +827,181 @@ def test_model_2048_training_step_runs_tensor_core_bodies(dev):
     _build.reset_launches()
     out = step(images, masks)
     assert {n: c for n, c in _build.BODY_LAUNCHES.items() if c} == {
-        f"{e}:{m}:mma": n for e in _build.FLASH_BODY_ENTRIES
+        f"{e}:{m}:mma": n for e in _build.FLASH_ENTRIES
         for m, n in (("window", 48), ("flash", 2))}
     assert all(bool(torch.isfinite(torch.as_tensor(val))) for val in out.values())
+
+
+# ---- the attention forwards' bf16 tensor-core bodies: K-A and the flash
+# forward (csrc/attention_fwd_mma.cuh) ----
+
+# (H, W, hsp, wsp): K-A windows of 128 (1 x 128 and 128 x 1 stripes), 196
+# (7 x 28, cswinunet's stage 3: tails of the 64-row tiles and 16-key
+# chunks), 256 (8 x 32 and a 16 x 16 global window) and 384 tokens
+KA_MMA_GEOMS = [(128, 128, 1, 128), (128, 128, 128, 1), (28, 28, 7, 28), (32, 32, 8, 32),
+                (16, 16, 16, 16), (32, 24, 16, 24)]
+
+
+def _bf16_qkv(dev, B, L, C, wide=None):
+    """q, k, v as column slices of one qkv tensor, and the LePE kernel, bf16."""
+    qkv = _randn(dev, B, L, 3 * C, scale=0.5).to(torch.bfloat16)
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(torch.bfloat16)
+    return qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], lk
+
+
+def _check_fwd(got, want, dtype=torch.bfloat16):
+    """A forward output at both scales: max(1, max|plain|) and its own."""
+    _check(got, want, dtype)
+    _check_own(got, want, dtype)
+
+
+def _fwd_bodies():
+    return {n: c for n, c in _build.BODY_LAUNCHES.items() if c}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("H,W,hsp,wsp", KA_MMA_GEOMS)
+def test_stripe_attention_tensor_core_body(dev, rate, D, H, W, hsp, wsp):
+    """K-A's bf16 tensor-core body against the plain version, mask for mask,
+    batch 2, two heads of head dim D, with the LePE and without it (zero
+    taps), where the output is the attention alone and its own scale sees an
+    error in p that the LePE's larger values would hide: every launch takes
+    the tensor-core body."""
+    q, k, v, lk = _bf16_qkv(dev, 2, H * W, 2 * D)
+    kw = dict(H=H, W=W, hsp=hsp, wsp=wsp, num_heads=2, attn_drop=rate, seed=17)
+    _build.reset_launches()
+    for taps in (lk, torch.zeros_like(lk)):
+        got = stripe_attention.attention_fwd(q, k, v, taps, **kw)
+        assert got.shape == q.shape and got.dtype == torch.bfloat16
+        _check_fwd(got, attention.stripe_attention(*(t.float() for t in (q, k, v, taps)), **kw))
+    assert _fwd_bodies() == {f"{stripe_attention.KERNEL}:mma": 2}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("H,W,hsp,wsp,C,heads", MMA_GEOMS)
+def test_flash_fwd_tensor_core_body(dev, rate, H, W, hsp, wsp, C, heads):
+    """The flash forward's bf16 tensor-core body against the plain versions,
+    mask for mask, batch 2: window mode (the tiled K-A, with the LePE and
+    without it: out against the v2 version, L against the windows'
+    log-sum-exp) and, where the windows span
+    the width, flash mode (out and L against the plain flash forward).  L is
+    held in float32, at 1e-4, against the plain version on the same bf16
+    inputs; every launch takes the tensor-core body."""
+    q, k, v, lk = _bf16_qkv(dev, 2, H * W, C)
+    kw = dict(H=H, W=W, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=rate, seed=19)
+    geo = dict(H=H, W=W, hsp=hsp, wsp=wsp, num_heads=heads)
+    _build.reset_launches()
+    for taps in (lk, torch.zeros_like(lk)):  # with the LePE, and the attention alone
+        out, lse = stripe_attention.tiled_fwd(q, k, v, taps, **kw)
+        _check_fwd(out, attention.stripe_attention(*(t.float() for t in (q, k, v, taps)), **kw))
+        _check_scaled(lse, attention.stripe_attention_lse(q, k, **geo), torch.float32)
+    modes = ["window"]
+    if wsp == W:
+        modes.append("flash")
+        N = hsp * wsp
+        ref_kw = dict(heads=heads, attn_drop=rate, seed=19)
+        bands = [t.reshape(-1, N, C) for t in (q, k, v)]
+        out_ref, _ = flash_attention.flash_attention_reference(*(t.float() for t in bands),
+                                                               **ref_kw)
+        _, lse_ref = flash_attention.flash_attention_reference(*bands, **ref_kw)
+        out, lse = flash_attention.kernel_fwd(q, k, v, None, **kw, mode="flash")
+        _check_fwd(out.reshape(out_ref.shape), out_ref)
+        _check_scaled(lse, lse_ref, torch.float32)
+    assert _fwd_bodies() == {f"{flash_attention.FWD_KERNEL}:{m}:mma": 1 + (m == "window")
+                             for m in modes}
+
+
+@pytest.mark.parametrize("dtype,D,body", [
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 8, "fma"), (torch.float32, 32, "fma"), (torch.float32, 64, "fma")])
+def test_attention_fwd_body_by_dtype_and_head_dim(dev, dtype, D, body):
+    """The two forward entries pick their body as dq and dk/dv do: bf16 at
+    head dims 16, 32 and 64 the tensor-core body, float32 and head dim 8 the
+    CUDA-core body; K-A, the tiled K-A and the flash forward each right."""
+    H, C = 20, 2 * D
+    qkv = _randn(dev, 2, H * H, 3 * C, scale=0.5).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(dtype)
+    kw = dict(H=H, W=H, hsp=H, wsp=H, num_heads=2, attn_drop=0.3, seed=23)
+    f32 = [t.float() for t in (q, k, v, lk)]
+    assert flash_attention.kernel_body(q, D) == body
+    _build.reset_launches()
+    want = attention.stripe_attention(*f32, **kw)
+    _check_fwd(stripe_attention.attention_fwd(q, k, v, lk, **kw), want, dtype)
+    _check_fwd(stripe_attention.tiled_fwd(q, k, v, lk, **kw)[0], want, dtype)
+    out, _ = flash_attention.kernel_fwd(q, k, v, None, **kw, mode="flash")
+    want, _ = flash_attention.flash_attention_reference(
+        *(t.reshape(-1, H * H, C) for t in f32[:3]), heads=2, attn_drop=0.3, seed=23)
+    _check_fwd(out.reshape(want.shape), want, dtype)
+    assert _fwd_bodies() == {f"{stripe_attention.KERNEL}:{body}": 1,
+                             **{f"{flash_attention.FWD_KERNEL}:{m}:{body}": 1
+                                for m in ("window", "flash")}}
+
+
+def test_attention_fwd_tensor_core_copies_unaligned_rows(dev):
+    """q, k and v whose base and row stride are not 16-byte aligned (column
+    slices of a 3C + 1 wide tensor) reach the tensor-core forwards as
+    explicit aligned copies: K-A, the tiled K-A and the flash forward give
+    exactly what contiguous inputs give."""
+    C, H = 32, 20
+    wide = _randn(dev, 2, H * H, 3 * C + 1, scale=0.5).to(torch.bfloat16)
+    q, k, v = wide[..., 1:C + 1], wide[..., C + 1:2 * C + 1], wide[..., 2 * C + 1:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(torch.bfloat16)
+    kw = dict(H=H, W=H, hsp=H, wsp=H, num_heads=1, attn_drop=0.3, seed=5)
+    _build.reset_launches()
+    calls = (lambda *t: (stripe_attention.attention_fwd(*t, lk, **kw),),
+             lambda *t: stripe_attention.tiled_fwd(*t, lk, **kw),
+             lambda *t: flash_attention.kernel_fwd(*t, None, **kw, mode="flash"))
+    for call in calls:
+        for a, b in zip(call(q, k, v), call(*(t.contiguous() for t in (q, k, v)))):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert _fwd_bodies() == {f"{stripe_attention.KERNEL}:mma": 2,
+                             **{f"{flash_attention.FWD_KERNEL}:{m}:mma": 2
+                                for m in ("window", "flash")}}
+
+
+def test_attention_fwd_tensor_core_very_negative_scores(dev):
+    """Windows whose scores are all about -100 (q and k opposite along a
+    shared component), 196 tokens for K-A and 420 for the flash forward
+    (both modes; neither a multiple of the 64-key tiles): finite outputs
+    that agree with the plain versions, and L about -100."""
+    C = 32
+    for H, W in ((7, 28), (20, 21)):
+        q = (4.2 + 0.1 * _randn(dev, 1, H * W, C)).to(torch.bfloat16)
+        k = (-4.2 + 0.1 * _randn(dev, 1, H * W, C, seed=1)).to(torch.bfloat16)
+        v = _randn(dev, 1, H * W, C, scale=0.5, seed=2).to(torch.bfloat16)
+        lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=3).to(torch.bfloat16)
+        kw = dict(H=H, W=W, hsp=H, wsp=W, num_heads=1)
+        f32 = [t.float() for t in (q, k, v, lk)]
+        want = attention.stripe_attention(*f32, **kw)
+        if H * W <= 256:
+            pairs = [(stripe_attention.attention_fwd(q, k, v, lk, **kw), want)]
+        else:
+            out, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
+            assert float(lse.max()) < -88.0 and bool(torch.isfinite(lse).all())
+            flash, lse = flash_attention.kernel_fwd(q, k, v, None, **kw, mode="flash")
+            assert float(lse.max()) < -88.0 and bool(torch.isfinite(lse).all())
+            want_flash, _ = flash_attention.flash_attention_reference(
+                *(t.reshape(1, H * W, C) for t in f32[:3]), heads=1)
+            pairs = [(out, want), (flash.reshape(want_flash.shape), want_flash)]
+        for got, ref in pairs:
+            assert bool(torch.isfinite(got).all())
+            _check(got, ref, torch.bfloat16)
+
+
+def test_model_512_forward_runs_tensor_core_stripe_attention(dev):
+    """A bf16 forward of CSWin-SimAM-UNet at 512^2 launches K-A's
+    tensor-core body for each of its 50 attention branches and no CUDA-core
+    body; the float32 model the CUDA-core body only."""
+    x = torch.rand(1, 512, 512, 3, device=dev)
+    for dtype, body in (("bfloat16", "mma"), ("float32", "fma")):
+        model = build_model("cswin_simam_512", device=dev, seed=0, dtype=dtype)
+        _build.reset_launches()
+        with torch.inference_mode():
+            p = model.predict(x)
+        assert _fwd_bodies() == {f"{stripe_attention.KERNEL}:{body}": 50}
+        assert bool(torch.isfinite(p).all())
 
 
 # ---- the last six kernel bodies: K-LN, K-LN', K5 (with and without the

@@ -1,26 +1,30 @@
-"""The dropout keep bits of the flash family's bf16 tensor-core backward
-bodies, their indexing replayed on the CPU.
+"""The dropout keep bits of the bf16 tensor-core attention bodies, their
+indexing replayed on the CPU.
 
 ``csrc/flash_attention_mma.cuh`` computes the keep bit of score (query i,
 key j) from the mma fragment's (row, column) directly.  A block holds 64
-rows of one side (query rows in dq, key rows in dk/dv), 16 a warp, lane
+rows of one side (query rows in dq and in the forwards of K-A and the flash
+family, ``csrc/attention_fwd_mma.cuh``; key rows in dk/dv), 16 a warp, lane
 l = 4g + t holding rows g and g + 8; the other side streams in tiles of 64,
 and per chunk of 16 a lane holds columns nt * 8 + 2t + c (nt, c in {0, 1}).
 Per streamed tile the body either hoists the hash base and the counter
 base out of the elements ("fast": the tile's valid indices lie in one mask
 tile) or divides per element ("slow").  This file replays both paths in
-numpy's wrapping uint32 arithmetic, for dq (query fixed, key streamed) and
-dk/dv (key fixed, query streamed), and holds every bit against the plain
-mask, ``ops/dropout.py::hash_bits``, in window mode (mask tile N) and flash
-mode (mask tile ``pick_tile(N)``).
+numpy's wrapping uint32 arithmetic, for the query-fixed orientation (dq and
+the forwards: key streamed) and dk/dv (key fixed, query streamed), and holds
+every bit against the plain mask, ``ops/dropout.py::hash_bits``, in window
+mode (mask tile N), in K-A (the whole-window mask, mask tile N, which
+``window_keep_mask`` builds for the plain version) and in flash mode (mask
+tile ``pick_tile(N)``).  Last, the plain log-sum-exp of the tiled K-A's
+windows against the plain flash forward's, which computes the same L.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from cswin_simam_unet_tpu_torch.ops import dropout
-from cswin_simam_unet_tpu_torch.ops.flash_attention import pick_tile
+from cswin_simam_unet_tpu_torch.ops import attention, dropout
+from cswin_simam_unet_tpu_torch.ops.flash_attention import flash_attention_reference, pick_tile
 
 ROWS = TILE = 64   # mma::kRows, mma::kTile
 SEED = 2 ** 31 + 12345
@@ -115,3 +119,50 @@ def test_body_keep_bits_match_hash_keep_mask(N, mode, query_fixed):
         assert 0 < n_fast < n_tiles
     else:  # one mask tile per window, or mask tiles of whole 64-row tiles
         assert n_fast == n_tiles
+
+
+@pytest.mark.parametrize("N", [128, 196, 256, 384])
+def test_forward_keep_bits_match_whole_window_mask(N):
+    """K-A's tensor-core body: query fixed, the whole window's keys streamed
+    in tiles of 64 against one N x N mask tile (counter i * N + j), every
+    tile on the fast path; the bits are those of ``window_keep_mask``, the
+    plain K-A's mask, for window 5 and head 1."""
+    threshold = dropout.u32_threshold(0.3)
+    win, head = 5, 1
+    got, n_fast = _body_keep(win, head, N, N, threshold, query_fixed=True)
+    want = dropout.window_keep_mask(SEED, win + 1, head + 1, N, threshold)[win, head].numpy()
+    assert np.array_equal(got, want)
+    assert n_fast == -(-N // ROWS) * -(-N // TILE)
+
+
+@pytest.mark.parametrize("N,mode", [(196, "flash"), (384, "flash"), (520, "flash"),
+                                    (4096, "flash"), (512, "window")])
+def test_forward_keep_bits_query_fixed(N, mode):
+    """The flash forward's tensor-core body in both modes: the query-fixed
+    replay against ``hash_keep_mask`` over mask tiles of N (window mode) or
+    ``pick_tile(N)`` (flash mode: 196 and 384 one tile, 520 tiles of 104
+    that cut the 64-key tiles, 4096 tiles of 512)."""
+    T = N if mode == "window" else pick_tile(N)
+    threshold = dropout.u32_threshold(0.3)
+    got, _ = _body_keep(3, 2, N, T, threshold, query_fixed=True)
+    ar = torch.arange(N)
+    want = dropout.hash_keep_mask(SEED, torch.tensor(3), torch.tensor(2), ar[:, None],
+                                  ar[None, :], threshold, T).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_lse_matches_flash_reference(dtype):
+    """``attention.stripe_attention_lse``, the plain L of the tiled K-A, is
+    the plain flash forward's L on full-width windows (bands): the same
+    log-sum-exp of round(q * scale) . k."""
+    rs = np.random.RandomState(3)
+    B, H, W, hsp, heads, C = 2, 4, 14, 2, 2, 16
+    q, k, v = (torch.from_numpy(rs.randn(B, H * W, C).astype(np.float32)).to(dtype)
+               for _ in range(3))
+    got = attention.stripe_attention_lse(q, k, H=H, W=W, hsp=hsp, wsp=W, num_heads=heads)
+    N = hsp * W
+    _, want = flash_attention_reference(q.reshape(-1, N, C), k.reshape(-1, N, C),
+                                        v.reshape(-1, N, C), heads=heads)
+    assert got.shape == want.shape == (B * H // hsp, N, heads) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

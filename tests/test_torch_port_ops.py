@@ -107,6 +107,7 @@ def test_simam_flat_matches_jax(G):
     (8, 2, 1, 2, 16),    # horizontal
     (8, 8, -1, 4, 32),   # global window
     (4, 2, 1, 1, 8),     # horizontal, one head
+    (28, 7, 1, 2, 32),   # 7 x 28 windows (196 tokens, cswinunet's stage 3): tails of 64
 ])
 def test_stripe_attention_matches_pallas_v2(interpret, H, split, idx, heads, C):
     hsp, wsp = windows.stripe_geometry(H, split, idx)
