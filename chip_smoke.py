@@ -245,29 +245,37 @@ def check_pair(name, torch, kernel_fn, plain_fn, make, batch=2, own=False):
     return err32, err16, *rel
 
 
-def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2):
+def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2, own=()):
     """Backward kernel vs plain at float32 and at bf16, every output; the
     error of each output is taken relative to max(1, max|plain|) of it.
-    Returns the largest scaled errors (float32, bf16) and the largest
-    absolute one in float32."""
-    errs, abs32 = [], 0.0
+    The outputs listed in ``own`` (indices) are also held in bf16 to
+    TOL_BF16 times their own max|plain|, with no floor at 1; every output's
+    max|plain| and bf16 error over it are logged.  Returns the largest
+    scaled errors (float32, bf16) and the largest absolute one in float32."""
+    errs, abs32, tops = [], 0.0, []
     for dtype, tol in ((torch.float32, TOL_BWD_F32), (torch.bfloat16, TOL_BF16)):
         args = make(batch, dtype)
         got = kernel_fn(*args)
         want = plain_fn(*[t.float() if t.is_floating_point() else t for t in args])
         worst = 0.0
-        for g, w in zip(got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
             require(tuple(g.shape) == tuple(w.shape), f"{name}: shape {tuple(g.shape)} "
                     f"!= {tuple(w.shape)}")
-            err = max_err(g, w)
+            err, top = max_err(g, w), float(w.abs().max())
             if dtype == torch.float32:
                 abs32 = max(abs32, err)
-            worst = max(worst, err / max(1.0, float(w.abs().max())))
+            else:
+                tops.append(f"{top:.3g} ({err / max(top, 1e-30):.2e})")
+                require(i not in own or err <= TOL_BF16 * top,
+                        f"{name}: bf16 output {i} error {err} > {TOL_BF16} x max|plain| {top}")
+            worst = max(worst, err / max(1.0, top))
         torch.cuda.synchronize()
         require(worst <= tol, f"{name}: {dtype} scaled error {worst} > {tol}")
         errs.append(worst)
     log(f"  {name}: f32 scaled err {errs[0]:.3e} (tol {TOL_BWD_F32:g})  "
-        f"bf16 scaled err {errs[1]:.3e} (tol {TOL_BF16:g})  f32 max abs err {abs32:.3e}")
+        f"bf16 scaled err {errs[1]:.3e} (tol {TOL_BF16:g})  f32 max abs err {abs32:.3e}; "
+        f"bf16 max|plain| (err over it) per output: {', '.join(tops)}"
+        + (f"; own scale held for outputs {list(own)}" if own else ""))
     return errs[0], errs[1], abs32
 
 
@@ -420,12 +428,13 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
     rows["fwd"].update(device_ms_window=0.0, device_ms_flash=0.0, bands_window_ms=0.0,
                        bands_flash_ms=0.0)
 
-    def require_bodies(name, mode, entries):
+    def require_bodies(name, mode, entries, also=None):
         """One float32 and one bf16 call of each entry ran since the counts
         were reset: the CUDA-core body took the float32 call, the
-        tensor-core body the bf16 one."""
+        tensor-core body the bf16 one; ``also``: other body launches."""
         got = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
         want = {f"{e}:{mode}:{b}": 1 for e in entries for b in ("mma", "fma")}
+        want.update(also or {})
         require(got == want, f"{name}: flash body launches {got} != {want}")
 
     bwd_entries = (fa.DQ_KERNEL, fa.DKV_KERNEL)
@@ -457,8 +466,9 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                                                                                  **kw),
                            make_tokens(L, Cb, False), batch=1)
                 check_outputs("K-A' " + name, torch,
-                              lambda q, k, v, w, g, kw=kwr: sa.attention_bwd(q, k, v, w, g,
-                                                                             **kw),
+                              lambda q, k, v, w, g, kw=kwr: sa.attention_bwd(
+                                  q, k, v, w, g, **kw,
+                                  lse=sa.attention_fwd(q, k, v, w, **kw, with_lse=True)[1]),
                               lambda q, k, v, w, g, kw=kwr:
                               attention.stripe_attention_bwd_reference(q, k, v, w, g, **kw),
                               make_tokens(L, Cb, True), batch=1)
@@ -488,6 +498,17 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
                     make_tokens(L, Cb, True), {"dq": [0], "dkv": [1, 2, 3]}, scaled32=True),
                     rate)
                 require_bodies("tiled K-A' " + name, "window", _build.FLASH_ENTRIES)
+                _build.reset_launches()
+                fold(check_outputs_by_kernel(  # zero LePE taps: dv is P^T dO alone
+                    "tiled K-A' without LePE " + name, torch,
+                    no_lepe(lambda q, k, v, w, g, kw=kwr: sa.tiled_bwd(
+                        q, k, v, w, sa.tiled_fwd(q, k, v, w, **kw)[1], g, **kw)),
+                    no_lepe(lambda q, k, v, w, g, kw=kwr: attention.stripe_attention_bwd_reference(
+                        q, k, v, w, g, **kw)),
+                    make_tokens(L, Cb, True), {"dq": [0], "dkv": [1, 2, 3]}, scaled32=True),
+                    rate)
+                require_bodies("tiled K-A' without LePE " + name, "window",
+                               _build.FLASH_ENTRIES)
             else:
                 flip, Ht, Wt, wht = fa.band_geometry(reso, reso, hsp, wsp)
                 require(not flip, "the flash geometries of the configs are global windows")
@@ -540,10 +561,13 @@ def long_window_phase(torch, F, dev, randn, geoms, path_geoms) -> dict:
         "tiled vs whole-window K-A', 16x16 window, Cb 512", torch,
         lambda q, k, v, w, g: sa.tiled_bwd(q, k, v, w, sa.tiled_fwd(q, k, v, w, **kwc)[1], g,
                                            **kwc),
-        lambda q, k, v, w, g: sa.attention_bwd(q, k, v, w, g, **kwc),
+        lambda q, k, v, w, g: sa.attention_bwd(
+            q, k, v, w, g, **kwc, lse=sa.attention_fwd(q, k, v, w, **kwc, with_lse=True)[1]),
         make_tokens(256, 512, True), {"dq": [0], "dkv": [1, 2, 3]}, scaled32=True, batch=2),
         DROP)
-    require_bodies("tiled vs whole-window K-A'", "window", _build.FLASH_ENTRIES)
+    # the whole-window pair ran on the float32 inputs of both columns
+    require_bodies("tiled vs whole-window K-A'", "window", _build.FLASH_ENTRIES,
+                   {f"{sa.KERNEL}:fma": 2, f"{sa.BWD_KERNEL}:fma": 2})
 
     # times at the 2048^2 path's shapes: batch 1, bf16; per forward or step
     for (reso, Cb, heads, hsp, wsp), count in sorted(path_geoms.items()):
@@ -1343,7 +1367,11 @@ def main() -> int:
     # K-A' at each attention geometry of the model, without and with dropout
     kab = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err32=0.0, err16=0.0, abs32=0.0,
                bytes=0.0, flops=0.0, ms_drop=0.0, plain_ms_drop=0.0, library_ms_drop=0.0,
-               err32_drop=0.0, err16_drop=0.0, abs32_drop=0.0)
+               err32_drop=0.0, err16_drop=0.0, abs32_drop=0.0, rel32=0.0, rel16=0.0,
+               rel32_drop=0.0, rel16_drop=0.0, device_ms=0.0, device_ms_drop=0.0,
+               ms_fma_f32=0.0, ms_fma_f32_drop=0.0, library_device_ms=0.0,
+               library_device_ms_drop=0.0, device_ms_dq=0.0, device_ms_dkv=0.0,
+               device_ms_dkv_no_lepe=0.0, exps=0.0, hashes=0.0)
 
     def make_bwd(L, Cb):
         def make(B, dtype):
@@ -1352,12 +1380,36 @@ def main() -> int:
                     randn(3, 3, 1, Cb, scale=1 / 3, dtype=dtype), randn(B, L, Cb, dtype=dtype))
         return make
 
+    def ka_bwd(q, k, v, w, g, **kw):
+        """K-A' as the autograd Function runs it: from the L that K-A saves
+        (the tensor-core body reads it, the CUDA-core body's K-A saves none)."""
+        _, lse = stripe_attention.attention_fwd(q, k, v, w, **kw, with_lse=True)
+        return stripe_attention.attention_bwd(q, k, v, w, g, **kw, lse=lse)
+
     def check_bwd(name, kw, make):
         return check_outputs(
-            name, torch,
-            lambda q, k, v, w, g: stripe_attention.attention_bwd(q, k, v, w, g, **kw),
+            name, torch, lambda q, k, v, w, g: ka_bwd(q, k, v, w, g, **kw),
             lambda q, k, v, w, g: attention.stripe_attention_bwd_reference(
                 q, k, v, w, g, **kw), make)
+
+    def check_bwd_own(name, kw, make):
+        """Every output against its own max|plain| too (dq, dk, dv are
+        0.004-0.05 here, so the max(1, .) scale alone passed a dq at 0.9x),
+        with the LePE and without it (zero taps: dv is then P^T dO alone,
+        which the LePE's transpose hid)."""
+        worst = [0.0] * 4
+        for label, wrap in (("", lambda f: f), (" without LePE", no_lepe)):
+            res = check_outputs_by_kernel(
+                name + label, torch, wrap(lambda q, k, v, w, g: ka_bwd(q, k, v, w, g, **kw)),
+                wrap(lambda q, k, v, w, g: attention.stripe_attention_bwd_reference(
+                    q, k, v, w, g, **kw)), make, {"K-A'": [0, 1, 2, 3]}, scaled32=True,
+                batch=2)["K-A'"]
+            worst = [max(a, b) for a, b in zip(worst, res)]
+        return worst
+
+    def fold_bwd(errs, keys):
+        for key, val in zip(keys, errs):
+            kab[key] = max(kab[key], val)
 
     for (reso, Cb, heads, hsp, wsp), count in sorted(geoms.items()):
         L = reso * reso
@@ -1365,11 +1417,45 @@ def main() -> int:
         kwd = dict(kw, attn_drop=DROP, seed=DROP_SEED)
         make = make_bwd(L, Cb)
         name = f"K-A' reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads}"
+        _build.reset_launches()
         e32, e16, a32 = check_bwd(name, kw, make)
         d32, d16, da32 = check_bwd(name + " dropout 0.3", kwd, make)
+        fold_bwd((e32, e16, a32, d32, d16, da32),
+                 ("err32", "err16", "abs32", "err32_drop", "err16_drop", "abs32_drop"))
+        fold_bwd(check_bwd_own(name, kw, make)[2:], ("rel32", "rel16"))
+        fold_bwd(check_bwd_own(name + " dropout 0.3", kwd, make)[2:],
+                 ("rel32_drop", "rel16_drop"))
+        bodies = {n: c for n, c in _build.BODY_LAUNCHES.items()
+                  if c and n.startswith(stripe_attention.BWD_KERNEL)}
+        require(bodies == {f"{stripe_attention.BWD_KERNEL}:{b}": 6 for b in ("mma", "fma")},
+                f"{name}: K-A' body launches {bodies}: float32 takes the CUDA-core body, bf16 "
+                "the tensor-core body")
         q, k, v, w, g = make(TIME_BATCH, torch.bfloat16)
-        ms = time_ms(torch, lambda: stripe_attention.attention_bwd(q, k, v, w, g, **kw))
-        ms_drop = time_ms(torch, lambda: stripe_attention.attention_bwd(q, k, v, w, g, **kwd))
+        _, lse = stripe_attention.attention_fwd(q, k, v, w, **kw, with_lse=True)
+
+        def kab_call(kw_):
+            return lambda: stripe_attention.attention_bwd(q, k, v, w, g, **kw_, lse=lse)
+
+        ms, ms_drop = time_ms(torch, kab_call(kw)), time_ms(torch, kab_call(kwd))
+        dev_ms, dev_ms_drop = device_ms(torch, kab_call(kw)), device_ms(torch, kab_call(kwd))
+        # where the device time goes, at rate 0: the two kernels apart (dq
+        # sweeps the keys twice, for delta and for ds), and dk/dv also in
+        # flash mode (no LePE transpose, no dw partial) on the same windows
+        delta = flash_attention.kernel_dq(q, k, v, lse, g, **kw, mode="window")[1]
+        dq_dev = device_ms(torch, lambda: flash_attention.kernel_dq(q, k, v, lse, g, **kw,
+                                                                    mode="window"))
+        dkv_dev = device_ms(torch, lambda: flash_attention.kernel_dkv(
+            q, k, v, w, lse, delta, g, **kw, mode="window"))
+        dkv_bare = device_ms(torch, lambda: flash_attention.kernel_dkv(
+            q, k, v, None, lse, delta, g, **kw, mode="flash"))
+        del delta
+        # the CUDA-core body on the same inputs in float32
+        q32, k32, v32, w32, g32 = (t.float() for t in (q, k, v, w, g))
+        fma = time_ms(torch, lambda: stripe_attention.attention_bwd(q32, k32, v32, w32, g32,
+                                                                    **kw), iters=3)
+        fma_drop = time_ms(torch, lambda: stripe_attention.attention_bwd(q32, k32, v32, w32, g32,
+                                                                         **kwd), iters=3)
+        del q32, k32, v32, w32, g32
         plain = time_ms(torch, lambda: attention.stripe_attention_bwd_reference(
             q, k, v, w, g, **kw), iters=3)
         plain_drop = time_ms(torch, lambda: attention.stripe_attention_bwd_reference(
@@ -1384,36 +1470,58 @@ def main() -> int:
         libs = []
         for p_drop in (0.0, DROP):
             # the SDPA call draws its dropout mask in the forward; its backward
-            # is timed on that one graph
+            # is timed on that one graph, with host dispatch and on the device
             sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, dropout_p=p_drop,
                                                       scale=D ** -0.5)
-            libs.append(time_ms(torch, lambda: torch.autograd.grad(
-                sdpa_out, (qh, kh, vh), gh, retain_graph=True)))
-            del sdpa_out
-        lib, lib_drop = libs
+
+            def sdpa_bwd(out=sdpa_out):
+                return torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True)
+
+            libs += [time_ms(torch, sdpa_bwd), device_ms(torch, sdpa_bwd)]
+            del sdpa_out, sdpa_bwd
+        lib, lib_dev, lib_drop, lib_dev_drop = libs
         del qh, kh, vh, gh
         nbytes = 7 * TIME_BATCH * L * Cb * 2 + Cb * 9 * 4 * 2
         flops = (10 * N + 36) * TIME_BATCH * L * Cb
         b_ms, _ = bound_ms(nbytes, flops, "bfloat16")
-        log(f"    x{count}/step: kernel {ms:.4f} ms (dropout 0.3: {ms_drop:.4f})  plain "
-            f"{plain:.4f} ms ({plain_drop:.4f})  sdpa bwd {lib:.4f} ms ({lib_drop:.4f})  "
-            f"bound {b_ms:.4f} ms")
+        log(f"    x{count}/step: kernel {ms:.4f} ms (dropout 0.3: {ms_drop:.4f}; device "
+            f"{dev_ms:.4f}, {dev_ms_drop:.4f}; at rate 0 dq {dq_dev:.4f}, dk/dv {dkv_dev:.4f}, "
+            f"dk/dv without the LePE {dkv_bare:.4f})  CUDA-core body, f32: {fma:.4f} "
+            f"({fma_drop:.4f})  plain {plain:.4f} ms ({plain_drop:.4f})  sdpa bwd {lib:.4f} ms "
+            f"({lib_drop:.4f}; device {lib_dev:.4f}, {lib_dev_drop:.4f})  bound {b_ms:.4f} ms")
+        # dq sweeps the keys twice (delta, then ds), dk/dv the queries once:
+        # three exps per score; the hash in dq's first sweep and in dk/dv
+        scores = TIME_BATCH * (reso // hsp) * (reso // wsp) * heads * N * N
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bytes", nbytes), ("flops", flops), ("ms_drop", ms_drop),
-                         ("plain_ms_drop", plain_drop), ("library_ms_drop", lib_drop)):
+                         ("plain_ms_drop", plain_drop), ("library_ms_drop", lib_drop),
+                         ("device_ms", dev_ms), ("device_ms_drop", dev_ms_drop),
+                         ("device_ms_dq", dq_dev), ("device_ms_dkv", dkv_dev),
+                         ("device_ms_dkv_no_lepe", dkv_bare),
+                         ("ms_fma_f32", fma), ("ms_fma_f32_drop", fma_drop),
+                         ("library_device_ms", lib_dev), ("library_device_ms_drop", lib_dev_drop),
+                         ("exps", 3 * scores), ("hashes", 2 * scores)):
             kab[key] += count * val
-        for key, val in (("err32", e32), ("err16", e16), ("abs32", a32), ("err32_drop", d32),
-                         ("err16_drop", d16), ("abs32_drop", da32)):
-            kab[key] = max(kab[key], val)
+        del lse
     kab["bound_ms"], kab["bound_by"] = bound_ms(kab["bytes"], kab["flops"], "bfloat16")
+    add_floor(torch, kab)
+    log(f"  K-A' per flagship step (batch {TIME_BATCH}, bf16): {kab['ms']:.3f} / "
+        f"{kab['ms_drop']:.3f} ms at rate 0 / {DROP} (device {kab['device_ms']:.3f} / "
+        f"{kab['device_ms_drop']:.3f}; at rate 0 dq {kab['device_ms_dq']:.3f}, dk/dv "
+        f"{kab['device_ms_dkv']:.3f}, dk/dv without the LePE {kab['device_ms_dkv_no_lepe']:.3f}); "
+        f"CUDA-core body in float32 {kab['ms_fma_f32']:.3f} / "
+        f"{kab['ms_fma_f32_drop']:.3f}; SDPA backward {kab['library_ms']:.3f} / "
+        f"{kab['library_ms_drop']:.3f} (device {kab['library_device_ms']:.3f} / "
+        f"{kab['library_device_ms_drop']:.3f}); bound {kab['bound_ms']:.4f} ({kab['bound_by']}); "
+        + floor_text(kab))
     for (reso, Cb, heads, hsp, wsp), _ in sorted(geoms448.items()):
         kwd = dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=DROP,
                    seed=DROP_SEED)
-        d32, d16, da32 = check_bwd(
-            f"K-A' 448^2 reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads} dropout 0.3",
-            kwd, make_bwd(reso * reso, Cb))
-        for key, val in (("err32_drop", d32), ("err16_drop", d16), ("abs32_drop", da32)):
-            kab[key] = max(kab[key], val)
+        name = f"K-A' 448^2 reso {reso} window {hsp}x{wsp} Cb {Cb} heads {heads} dropout 0.3"
+        fold_bwd(check_bwd(name, kwd, make_bwd(reso * reso, Cb)),
+                 ("err32_drop", "err16_drop", "abs32_drop"))
+        fold_bwd(check_bwd_own(name, kwd, make_bwd(reso * reso, Cb))[2:],
+                 ("rel32_drop", "rel16_drop"))
     table["K-A'"] = kab
 
     # K-C' at the three decoder CARAFEs
@@ -1431,7 +1539,7 @@ def main() -> int:
         e32, e16, a32 = check_outputs(
             f"K-C' x ({reso},{reso},{C}) S {S}", torch,
             lambda x, e, d, S=S: carafe_kernels.carafe_flat_bwd(x, e, d, S),
-            lambda x, e, d, S=S: carafe.carafe_bwd_reference(x, e, d, S), make)
+            lambda x, e, d, S=S: carafe.carafe_bwd_reference(x, e, d, S), make, own=(0, 1))
         x, e, d = make(TIME_BATCH, torch.bfloat16)
         ms = time_ms(torch, lambda: carafe_kernels.carafe_flat_bwd(x, e, d, S))
         plain = time_ms(torch, lambda: carafe.carafe_bwd_reference(x, e, d, S), iters=3)
@@ -1461,7 +1569,7 @@ def main() -> int:
         "K3 fb (128,128,1024) G 16", torch,
         lambda fb, dy, mu, v, w: carafe_head.head_bwd1(fb, dy, mu, v, w, G),
         lambda fb, dy, mu, v, w: carafe_head.head_bwd1_reference(fb, dy, mu, v, w, G),
-        make_head)
+        make_head, own=(0, 1, 2))
     fb, dy, mu, v, w = make_head(TIME_BATCH, torch.bfloat16)
     ms = time_ms(torch, lambda: carafe_head.head_bwd1(fb, dy, mu, v, w, G))
     plain = time_ms(torch, lambda: carafe_head.head_bwd1_reference(fb, dy, mu, v, w, G),
@@ -1483,7 +1591,7 @@ def main() -> int:
     e32, e16, a32 = check_outputs(
         "K4 x (128,128,64) S 4", torch,
         lambda *a: carafe_head.fused_head_bwd(*a, S_HEAD),
-        lambda *a: carafe_head.fused_head_bwd_reference(*a, S_HEAD), make_k4)
+        lambda *a: carafe_head.fused_head_bwd_reference(*a, S_HEAD), make_k4, own=(0, 1, 2))
     args = make_k4(TIME_BATCH, torch.bfloat16)
     ms = time_ms(torch, lambda: carafe_head.fused_head_bwd(*args, S_HEAD))
     plain = time_ms(torch, lambda: carafe_head.fused_head_bwd_reference(*args, S_HEAD),
@@ -1510,7 +1618,7 @@ def main() -> int:
         "K3 no gate fb (112,112,1024) G 16", torch,
         lambda fb, dy, w: carafe_head.head_bwd1(fb, dy, None, None, w, G, gate=False)[2:],
         lambda fb, dy, w: carafe_head.head_bwd1_reference(fb, dy, None, None, w, G,
-                                                          gate=False)[2:], make_ng)
+                                                          gate=False)[2:], make_ng, own=(0,))
     fb, dy, w = make_ng(B448, torch.float32)
     ms = time_ms(torch, lambda: carafe_head.head_bwd1(fb, dy, None, None, w, G, gate=False))
     plain = time_ms(torch, lambda: carafe_head.head_bwd1_reference(fb, dy, None, None, w, G,
@@ -1537,7 +1645,7 @@ def main() -> int:
                                                     S_HEAD, gate=False)
 
     e32, e16, a32 = check_outputs("K4 no gate x (112,112,64) S 4", torch, k4ng, k4ng_plain,
-                                  make_k4ng)
+                                  make_k4ng, own=(0, 1, 2))
     args = make_k4ng(B448, torch.float32)
     ms = time_ms(torch, lambda: k4ng(*args))
     plain = time_ms(torch, lambda: k4ng_plain(*args), iters=3)
@@ -1708,12 +1816,15 @@ def main() -> int:
                     **{n: 48 for n in stripe_attention.TILED_BWD_KERNELS},
                     flash_attention.DQ_KERNEL + ":flash": 2,
                     flash_attention.DKV_KERNEL + ":flash": 2}
-    # every bf16 path runs the tensor-core bodies (K-A; the 2048^2 step's
-    # forward, dq and dk/dv), cswinunet (float32) the CUDA-core K-A only
+    # every bf16 path runs the tensor-core bodies (K-A and K-A'; the 2048^2
+    # step's forward, dq and dk/dv), cswinunet (float32) the CUDA-core K-A
+    # and K-A' only
     bodies2048 = {f"{e}:{m}:mma": n for e in _build.FLASH_ENTRIES
                   for m, n in (("window", 48), ("flash", 2))}
-    bodies512 = {ka_mma: per_step[stripe_attention.KERNEL]}
-    bodies448 = {f"{stripe_attention.KERNEL}:fma": n_attn448}
+    bodies512 = {f"{e}:mma": per_step[stripe_attention.KERNEL]
+                 for e in (stripe_attention.KERNEL, stripe_attention.BWD_KERNEL)}
+    bodies448 = {f"{e}:fma": n_attn448 for e in (stripe_attention.KERNEL,
+                                                  stripe_attention.BWD_KERNEL)}
     model0 = build_model("cswin_simam_512", device=dev, seed=SEED, **NO_DROPS)
     runs = {}
     for label, net, cfg_name, want_step, want_bodies in (
@@ -1867,8 +1978,8 @@ def main() -> int:
                     48 if label == "flash fwd" else 0),
                 ms_window=row["ms_window"], ms_flash=row["ms_flash"],
                 bound_ms_window=row["bound_ms_window"], bound_ms_flash=row["bound_ms_flash"])
-        if label in ("K-A", "flash fwd", "flash dq", "flash dkv"):  # the bf16 tensor-core body
-            if label == "K-A":
+        if label in ("K-A", "K-A'", "flash fwd", "flash dq", "flash dkv"):  # the tensor-core body
+            if label in ("K-A", "K-A'"):
                 launches_mma = bodies512_run.get(f"{fn}:mma", 0)
             else:
                 launches_mma = {m: bodies2048_run.get(f"{fn}:{m}:mma", 0)
@@ -1883,6 +1994,13 @@ def main() -> int:
         if label == "flash fwd":
             entry.update({k: row[k] for k in ("device_ms_window", "device_ms_flash",
                                               "bands_window_ms", "bands_flash_ms")})
+        if label == "K-A'":
+            entry.update(path="cswin_simam_512 training step, batch 8, bf16",
+                         launches_fma_cswinunet_step=runs["cswinunet drops 0.3"]["bodies"].get(
+                             f"{fn}:fma", 0),
+                         **{k: row[k] for k in ("library_device_ms", "library_device_ms_drop",
+                                                "device_ms_dq", "device_ms_dkv",
+                                                "device_ms_dkv_no_lepe")})
         kernels.append(entry)
     rest_sources = {
         "K-LN": ("csu_layernorm_fwd", "cswin_simam_unet_tpu_torch/csrc/layernorm.cu",

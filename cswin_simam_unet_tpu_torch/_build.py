@@ -37,9 +37,9 @@ NVCC_TIMEOUT_S = 300
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U = ctypes.c_uint32
 _SIGNATURES = {
-    # dtype, q, k, v, lepe_w, out, ldq, ldk, ldv, ldo,
+    # dtype, q, k, v, lepe_w, out, lse, ldq, ldk, ldv, ldo,
     # B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, stream
-    "csu_stripe_attention_fwd": [_I, _P, _P, _P, _P, _P, _L, _L, _L, _L,
+    "csu_stripe_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
                                  _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
     # dtype, x, enc, out, B, H, W, C, S, vec, px, stream
     "csu_carafe_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -50,10 +50,10 @@ _SIGNATURES = {
     # lam, gate, stream
     "csu_simam_head_fwd": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
                            _F, _I, _P],
-    # dtype, q, k, v, lepe_w, dout, dq, dk, dv, dw_part, ldq, ldk, ldv, ldg,
-    # B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, stream
-    "csu_stripe_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
-                                 _L, _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
+    # dtype, q, k, v, lepe_w, dout, lse, delta, dq, dk, dv, dw_part, ldq, ldk, ldv,
+    # ldg, B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, stream
+    "csu_stripe_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
+                                 _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
     # dtype, x, enc, dacc, dx, denc, B, H, W, C, S, vec, px, stream
     "csu_carafe_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, fb, dy, mu, var, w, a_part, b_part, dw_part, B, H, W, C, G, F,
@@ -111,13 +111,13 @@ FLASH_MODES = ("window", "flash")
 LAUNCHES = {key: 0 for name in _SIGNATURES for key in (
     [f"{name}:{mode}" for mode in FLASH_MODES] if name in FLASH_ENTRIES else [name])}
 
-# The attention entries (K-A and the flash family's three) launch one of two
-# bodies, which the C entry picks by dtype and head dim (csu_attention_body):
-# "mma", the bf16 tensor-core body, or "fma", the CUDA-core body.  Each
-# launch also counts under "<entry>:<body>" (K-A) or "<entry>:<mode>:<body>"
-# (the flash family) here, apart from LAUNCHES, whose keys stay one per entry
-# and mode.
-BODY_ENTRIES = ("csu_stripe_attention_fwd", *FLASH_ENTRIES)
+# The attention entries (K-A, K-A' and the flash family's three) launch one
+# of two bodies, which the C entry picks by dtype and head dim
+# (csu_attention_body): "mma", the bf16 tensor-core body, or "fma", the
+# CUDA-core body.  Each launch also counts under "<entry>:<body>" (K-A,
+# K-A') or "<entry>:<mode>:<body>" (the flash family) here, apart from
+# LAUNCHES, whose keys stay one per entry and mode.
+BODY_ENTRIES = ("csu_stripe_attention_fwd", "csu_stripe_attention_bwd", *FLASH_ENTRIES)
 BODIES = ("mma", "fma")
 BODY_LAUNCHES = {f"{key}:{body}": 0 for key in LAUNCHES
                  if key.split(":")[0] in BODY_ENTRIES for body in BODIES}

@@ -3,7 +3,8 @@
 //
 // Replaces cswin_simam_unet_tpu/ops/pallas_attention_flash.py::
 // _flash_dkv_kernel (pallas_call at :338) in flash mode, and the key-row
-// half of pallas_attention_v2.py::_attn_bwd_kernel (:401) in window mode.
+// half of pallas_attention_v2.py::_attn_bwd_kernel (:401) in window mode
+// (the tiled K-A' and, launched from csu_stripe_attention_bwd, K-A').
 // Per key row j, with L and delta per query row (the forward's and the dq
 // kernel's or the caller's):
 //     p_ij = exp(round(q_i * scale) . k_j - L_i)   pd_ij = drop(p_ij)
@@ -25,7 +26,11 @@
 //   and dP^T = V dO^T with the key rows as M, so that the rounded drop(p)^T
 //   and ds^T are A fragments already: dV += round(drop(p))^T dO and
 //   dK += ds^T Q read dO and q through ldmatrix .trans.  As in dq, exp and
-//   the dropout hash, not the tensor cores, set the pace.
+//   the dropout hash, not the tensor cores, set the pace of the sweep; in
+//   window mode at the short windows of K-A' (128-256 tokens, 2-4 query
+//   tiles a block) the epilogue, which adds the LePE transpose and writes
+//   the dw partial, is a large share of a launch, so it reads and writes 16
+//   bytes at a time (see there).
 // * float32 and head dim 8, the CUDA-core body: each thread owns a key row
 //   (k, v and both accumulators in registers) and the queries stream through
 //   shared-memory tiles of 32.
@@ -333,57 +338,113 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     return;
   }
 
-  // Window mode: dv += LePE^T(dO) and the block's dw partial, a thread per
-  // column c and group of rows (rows grp, grp + G, ...), so that every load
-  // and the dv store run along a row's columns.  dv's fragments meet the
-  // thread of their column in shared memory (the tiles are free now).
-  constexpr int G = kThreads / D, DP = D + 1;
-  float* dvs = reinterpret_cast<float*>(smem);  // (kRows, D + 1)
-  float* red = dvs + kRows * DP;                // (G, 9, D)
-  static_assert((kRows * DP + 9 * kThreads) * 4 <= flash_dkv_mma_smem<D>(), "scratch fits");
+  // Window mode: dv += LePE^T(dO) and the block's dw partial.  dv's
+  // fragments are staged in float32 through shared memory (the tiles are
+  // free now), so that a thread then takes 8 columns of a row, as the
+  // forward's epilogue does: dO and v are read and dv written 16 bytes at a
+  // time, and each thread's loads of a row issue together (the epilogue
+  // waits on L2, not on arithmetic).
+  //   dv: a thread per (row, 8 columns), the 9 taps of the transpose;
+  //   dw: a thread per (tap row dy, 8 columns, row subset), 3 taps x 8
+  //   columns in registers; the subsets are summed in order.
+  constexpr int CPR = D / 8, RPP = kThreads / CPR;  // threads per row, rows per pass
+  constexpr int OLD = D + 8;                        // floats per staged row
+  constexpr int SUB = kThreads / (3 * CPR);         // row subsets of the dw pass
+  float* dvs = reinterpret_cast<float*>(smem);      // (kRows, OLD)
+  float* red = dvs + kRows * OLD;                   // (SUB, 9, D)
+  float* wsm = red + SUB * 9 * D;                   // the taps, (9, D)
+  static_assert((kRows * OLD + SUB * 9 * D + 9 * D) * 4 <= flash_dkv_mma_smem<D>(),
+                "scratch fits");
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      float* row = dvs + (warp * 16 + (lane >> 2) + 8 * r) * DP + n * 8 + 2 * t;
-      row[0] = av[n][2 * r];
-      row[1] = av[n][2 * r + 1];
-    }
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(dvs + (warp * 16 + (lane >> 2) + 8 * r) * OLD + n * 8 +
+                                 2 * t) = make_float2(av[n][2 * r], av[n][2 * r + 1]);
+  for (int idx = threadIdx.x; idx < 9 * D; idx += kThreads)
+    wsm[idx] = lepe_w[(int64_t)(c0 + idx % D) * 9 + idx / D];
   __syncthreads();
-  const int c = threadIdx.x % D, grp = threadIdx.x / D, ch = c0 + c;
-  const float* w9 = lepe_w + (int64_t)ch * 9;
-  float dw[9];
+  const int c = (threadIdx.x % CPR) * 8, ch = c0 + c;
+  auto load8 = [](float (&x)[8], const bf16* p) {  // 8 bf16, 16-byte aligned
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap) dw[tap] = 0.f;
-  for (int m = grp; m < kRows && j0 + m < N; m += G) {
-    const int n = j0 + m, ty = n / a.wsp, tx = n - ty * a.wsp;
-    const int64_t tj = tok(ty, tx);
-    const float o = dvs[m * DP + c] + lepe_at(dout, a.ldg, tok, ty, tx, ch, w9, -1);
-    dv[tj * ldd + ch] = __float2bfloat16_rn(o);
-    // tap (dy+1)*3 + (dx+1) pairs dO at (y, x) with v at (y+dy, x+dx)
-    const float gv = __bfloat162float(dout[tj * a.ldg + ch]);
+    for (int h = 0; h < 4; ++h) {
+      const float2 f = unpack(w4[h]);
+      x[2 * h] = f.x;
+      x[2 * h + 1] = f.y;
+    }
+  };
+#pragma unroll
+  for (int pass = 0; pass < kRows / RPP; ++pass) {
+    const int m = pass * RPP + threadIdx.x / CPR, n = j0 + m;
+    if (n >= N) break;
+    const int ty = n / a.wsp, tx = n - ty * a.wsp;
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; e += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(dvs + m * OLD + c + e);
+      o[e] = f.x, o[e + 1] = f.y, o[e + 2] = f.z, o[e + 3] = f.w;
+    }
+    // LePE transpose: out(y, x) took w[dy, dx] * v(y+dy, x+dx)
 #pragma unroll
     for (int dy = -1; dy <= 1; ++dy) {
-      const int yy = ty + dy;
+      const int yy = ty - dy;
       if (yy < 0 || yy >= a.hsp) continue;
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx) {
+        const int xx = tx - dx;
+        if (xx < 0 || xx >= a.wsp) continue;
+        float g[8];
+        load8(g, dout + tok(yy, xx) * a.ldg + ch);
+        const float* w = wsm + ((dy + 1) * 3 + (dx + 1)) * D + c;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[e] = fmaf(w[e], g[e], o[e]);
+      }
+    }
+    *reinterpret_cast<uint4*>(dv + tok(ty, tx) * ldd + ch) =
+        make_uint4(pack(o[0], o[1]), pack(o[2], o[3]), pack(o[4], o[5]), pack(o[6], o[7]));
+  }
+
+  // dw[tap, c] pairs dO at (y, x) with v at (y+dy, x+dx), tap (dy+1)*3 + (dx+1)
+  const int item = threadIdx.x / CPR, dy = item % 3 - 1, sub = item / 3;
+  if (sub < SUB) {
+    float acc[3][8];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
+#pragma unroll 2
+    for (int m = sub; m < kRows && j0 + m < N; m += SUB) {
+      const int n = j0 + m, ty = n / a.wsp, tx = n - ty * a.wsp, yy = ty + dy;
+      if (yy < 0 || yy >= a.hsp) continue;
+      float g[8];
+      load8(g, dout + tok(ty, tx) * a.ldg + ch);
 #pragma unroll
       for (int dx = -1; dx <= 1; ++dx) {
         const int xx = tx + dx;
         if (xx < 0 || xx >= a.wsp) continue;
-        dw[(dy + 1) * 3 + dx + 1] =
-            fmaf(gv, __bfloat162float(v[tok(yy, xx) * a.ldv + ch]), dw[(dy + 1) * 3 + dx + 1]);
+        float x[8];
+        load8(x, v + tok(yy, xx) * a.ldv + ch);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[dx + 1][e] = fmaf(g[e], x[e], acc[dx + 1][e]);
       }
     }
-  }
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap) red[(grp * 9 + tap) * D + c] = dw[tap];
+    for (int k = 0; k < 3; ++k) {
+      float* dst = red + (sub * 9 + (dy + 1) * 3 + k) * D + c;
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(acc[k][4], acc[k][5], acc[k][6], acc[k][7]);
+    }
+  }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < 9 * D; idx += kThreads) {  // groups summed in order
-    float acc = 0.f;
-    for (int gi = 0; gi < G; ++gi) acc += red[gi * 9 * D + idx];
+  for (int idx = threadIdx.x; idx < 9 * D; idx += kThreads) {  // subsets summed in order
+    float sum = 0.f;
+    for (int si = 0; si < SUB; ++si) sum += red[si * 9 * D + idx];
     const int tap = idx / D, d = idx - tap * D;
     const int64_t part = ((int64_t)win * gridDim.z + blockIdx.z) * 9 + tap;
-    dw_part[part * ldd + c0 + d] = acc;
+    dw_part[part * ldd + c0 + d] = sum;
   }
 }
 
@@ -408,11 +469,10 @@ static cudaError_t launch_flash_dkv_mma(const void* q, const void* k, const void
   return cudaGetLastError();
 }
 
-static cudaError_t dispatch_flash_dkv_mma(int head_dim, const void* q, const void* k,
-                                          const void* v, const void* lepe_w, const void* dout,
-                                          const void* lse, const void* delta, void* dk,
-                                          void* dv, void* dw_part, int B, const FlashArgs& a,
-                                          cudaStream_t stream) {
+cudaError_t dispatch_flash_dkv_mma(int head_dim, const void* q, const void* k, const void* v,
+                                   const void* lepe_w, const void* dout, const void* lse,
+                                   const void* delta, void* dk, void* dv, void* dw_part, int B,
+                                   const FlashArgs& a, cudaStream_t stream) {
 #define CSU_FLASH_DKV_MMA(DIM)                                                               \
   if (head_dim == DIM)                                                                       \
     return a.drop.threshold                                                                  \

@@ -3,7 +3,8 @@
 //
 // Replaces cswin_simam_unet_tpu/ops/pallas_attention_flash.py::
 // _flash_dq_kernel (pallas_call at :323) in flash mode, and the query-row
-// half of pallas_attention_v2.py::_attn_bwd_kernel (:401) in window mode.
+// half of pallas_attention_v2.py::_attn_bwd_kernel (:401) in window mode
+// (the tiled K-A' and, launched from csu_stripe_attention_bwd, K-A').
 // Per query row i, with L_i from the forward and dO the output cotangent:
 //     p_j = exp(round(q_i * scale) . k_j - L_i)    dp_j = drop(dO_i . v_j)
 //     ds_j = round(p_j * (dp_j - delta_i))          dq_i = scale * sum_j ds_j k_j
@@ -350,10 +351,10 @@ static cudaError_t launch_flash_dq_mma(const void* q, const void* k, const void*
   return cudaGetLastError();
 }
 
-static cudaError_t dispatch_flash_dq_mma(int head_dim, const void* q, const void* k,
-                                         const void* v, const void* dout, const void* lse,
-                                         void* delta, int delta_given, void* dq, int B,
-                                         const FlashArgs& a, cudaStream_t stream) {
+cudaError_t dispatch_flash_dq_mma(int head_dim, const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, void* delta,
+                                  int delta_given, void* dq, int B, const FlashArgs& a,
+                                  cudaStream_t stream) {
 #define CSU_FLASH_DQ_MMA(DIM)                                                               \
   if (head_dim == DIM)                                                                      \
     return a.drop.threshold                                                                 \

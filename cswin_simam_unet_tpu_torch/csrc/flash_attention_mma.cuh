@@ -269,4 +269,17 @@ __device__ __forceinline__ uint32_t keep_bits(const KeepTile& k, const KeepFixed
 }
 
 }  // namespace mma
+
+// The tensor-core dq and dk/dv bodies (flash_attention_dq.cu and
+// flash_attention_dkv.cu), launched by the flash family's entries and, in
+// window mode at mask tile N, by K-A' (stripe_attention_bwd.cu).
+cudaError_t dispatch_flash_dq_mma(int head_dim, const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, void* delta,
+                                  int delta_given, void* dq, int B, const FlashArgs& a,
+                                  cudaStream_t stream);
+cudaError_t dispatch_flash_dkv_mma(int head_dim, const void* q, const void* k, const void* v,
+                                   const void* lepe_w, const void* dout, const void* lse,
+                                   const void* delta, void* dk, void* dv, void* dw_part, int B,
+                                   const FlashArgs& a, cudaStream_t stream);
+
 }  // namespace csu

@@ -24,7 +24,8 @@
 //   query rows of one window and head and holds the window's whole K and V
 //   in shared memory as bf16; it sweeps the keys twice with mma.sync, first
 //   for the row's max and sum, then for p = round(drop(exp(s - m) / l)) and
-//   P V.  Grid (windows, heads, ceil(N / 64)).
+//   P V, and writes each row's L = m + log(l) for the tensor-core K-A'
+//   when the caller asks for it.  Grid (windows, heads, ceil(N / 64)).
 // * float32 (the exact-f32 route of cswinunet) and head dim 8, the CUDA-core
 //   body below: one block per (window, head) keeps the window's whole K and
 //   V for that head in shared memory (float32, K rows padded to D+1 so the
@@ -203,15 +204,16 @@ stripe_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             const float* __restrict__ lepe_w, __nv_bfloat16* __restrict__ out,
-                            int64_t ldo, FlashArgs a) {
+                            int64_t ldo, float* __restrict__ lse, FlashArgs a) {
   extern __shared__ __align__(16) unsigned char tiles[];  // not the float smem[] above
-  mma::attention_fwd<D, DROP, true>(q, k, v, lepe_w, out, ldo, nullptr, a, tiles);
+  mma::attention_fwd<D, DROP, true>(q, k, v, lepe_w, out, ldo, lse, a, tiles);
 }
 
 template <int D, bool DROP>
 static cudaError_t launch_attention_mma(const void* q, const void* k, const void* v,
-                                        const void* lepe_w, void* out, int64_t ldo, int B,
-                                        const FlashArgs& a, cudaStream_t stream) {
+                                        const void* lepe_w, void* out, int64_t ldo,
+                                        void* lse, int B, const FlashArgs& a,
+                                        cudaStream_t stream) {
   const int ntiles = (a.hsp * a.wsp + mma::kTile - 1) / mma::kTile;
   const size_t smem = mma::fwd_smem<D>(ntiles);
   static std::atomic<int> opted[kMaxDevices];
@@ -222,19 +224,21 @@ static cudaError_t launch_attention_mma(const void* q, const void* k, const void
   using bf = __nv_bfloat16;
   stripe_attention_mma_kernel<D, DROP><<<grid, mma::kThreads, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const float*>(lepe_w), static_cast<bf*>(out), ldo, a);
+      static_cast<const float*>(lepe_w), static_cast<bf*>(out), ldo,
+      static_cast<float*>(lse), a);
   return cudaGetLastError();
 }
 
 static cudaError_t dispatch_attention_mma(int head_dim, const void* q, const void* k,
                                           const void* v, const void* lepe_w, void* out,
-                                          int64_t ldo, int B, const FlashArgs& a,
+                                          int64_t ldo, void* lse, int B, const FlashArgs& a,
                                           cudaStream_t stream) {
 #define CSU_ATTN_FWD_MMA(DIM)                                                            \
   if (head_dim == DIM)                                                                   \
-    return a.drop.threshold                                                              \
-               ? launch_attention_mma<DIM, true>(q, k, v, lepe_w, out, ldo, B, a, stream) \
-               : launch_attention_mma<DIM, false>(q, k, v, lepe_w, out, ldo, B, a, stream);
+    return a.drop.threshold ? launch_attention_mma<DIM, true>(q, k, v, lepe_w, out, ldo, \
+                                                              lse, B, a, stream)         \
+                            : launch_attention_mma<DIM, false>(q, k, v, lepe_w, out,     \
+                                                               ldo, lse, B, a, stream);
   CSU_ATTN_FWD_MMA(16) CSU_ATTN_FWD_MMA(32) CSU_ATTN_FWD_MMA(64)
 #undef CSU_ATTN_FWD_MMA
   return cudaErrorInvalidValue;
@@ -247,10 +251,12 @@ static cudaError_t dispatch_attention_mma(int head_dim, const void* q, const voi
 // taps, tap (dy+1)*3 + (dx+1) multiplies v at (y+dy, x+dx); out rows ldo apart.
 // seed, threshold, inv_keep: the attention dropout (threshold 0: none).  The
 // tensor-core body reads and writes rows 16 bytes at a time: q, k, v and out
-// base and row strides 16-byte aligned.
+// base and row strides 16-byte aligned; where lse is not null it also writes
+// each row's L = m + log(l), (B * windows, hsp*wsp, heads) float32, which
+// the tensor-core K-A' reads (the CUDA-core body ignores lse).
 CSU_EXPORT int csu_stripe_attention_fwd(int dtype, const void* q, const void* k,
                                         const void* v, const void* lepe_w, void* out,
-                                        int64_t ldq, int64_t ldk, int64_t ldv,
+                                        void* lse, int64_t ldq, int64_t ldk, int64_t ldv,
                                         int64_t ldo, int B, int H, int W, int hsp,
                                         int wsp, int heads, int head_dim, float scale,
                                         uint32_t seed, uint32_t threshold, float inv_keep,
@@ -264,7 +270,8 @@ CSU_EXPORT int csu_stripe_attention_fwd(int dtype, const void* q, const void* k,
   if (csu::mma::serves(dtype, head_dim)) {
     const int N = hsp * wsp;  // the whole-window dropout mask: one N x N tile
     const csu::FlashArgs a{H, W, hsp, wsp, heads, N, scale, drop, ldq, ldk, ldv, 0};
-    return (int)csu::dispatch_attention_mma(head_dim, q, k, v, lepe_w, out, ldo, B, a, s);
+    return (int)csu::dispatch_attention_mma(head_dim, q, k, v, lepe_w, out, ldo, lse, B, a,
+                                            s);
   }
   if (dtype == csu::kBFloat16)
     return (int)csu::dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, lepe_w, out,

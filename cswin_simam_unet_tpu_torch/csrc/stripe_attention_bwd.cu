@@ -9,30 +9,45 @@
 //     dq = scale * ds k                     dk = scale * ds^T q
 //     dw[tap, c] += sum over the window of dO * shift_tap(v)
 // rounding where the TPU kernel rounds to the compute dtype.  With dropout
-// (the DROP instantiation) each score's keep bit is recomputed from the hash
-// in both phases, p becomes pd = keep ? p / (1 - rate) : 0 for dv, and dp is
-// masked and scaled the same way before the softmax VJP, so the row
-// statistic rowsum(dp * p) of phase 1 is taken over the masked dp
-// (pallas_attention_v2.py:253-262).  dw crosses
-// windows: each block writes its (9, head_dim) partial in float32 and the
-// caller sums the partials in a fixed order, so the result is deterministic.
+// each score's keep bit is recomputed from the hash, p becomes pd = keep ?
+// p / (1 - rate) : 0 for dv, and dp is masked and scaled the same way before
+// the softmax VJP, so the row statistic rowsum(dp * p) is taken over the
+// masked dp (pallas_attention_v2.py:253-262).  dw crosses windows: each
+// block writes its (9, head_dim) partial in float32 and the caller sums the
+// partials in a fixed order, so the result is deterministic.
 //
 // What bounds it on the H100: about 10 N flops per q/k/v/dO element against
-// 14 bytes of q, k, v, dO read and dq, dk, dv written (bf16), so device
-// memory by the roofline; this version does its products on the CUDA cores
-// in float32 and is bound by shared-memory reads and FMA throughput.
-// Design: one block per (window, head) holds Q, K, V and dO of the window
-// (float32, rows padded to D+1) in shared memory: 154 KB at N = 256, D = 32,
-// so a 256-token window fits one block and nothing of size N x N leaves the
-// SM.  Two phases, as FlashAttention-2's backward splits them, so that no
-// two warps add into one row: phase 1 gives each warp query rows (recompute
-// the score row, softmax, dp row, ds row; dq of the row; keep the row's
-// max, sum and rowsum(dp*p)); phase 2 gives each warp key rows and
-// recomputes p and ds column-wise from those row statistics (bitwise the
-// same values, the same FMA chains), accumulating dk and dv of its key with
-// lanes over the head dim.  bf16 copies in shared memory or wgmma tiles are
-// later work.
-#include "common.cuh"
+// 14 bytes of q, k, v, dO read and dq, dk, dv written (bf16): at the
+// windows K-A' takes (N <= 384 at head dim 32) device memory by the
+// roofline.  Two bodies, picked by dtype and head dim (csu_attention_body):
+// * bf16 at head dims 16, 32 and 64, the tensor-core bodies of the tiled
+//   K-A' (flash_attention_dq.cu and flash_attention_dkv.cu, mma.sync
+//   m16n8k16), launched one after the other from this entry in window mode
+//   with the whole-window mask (one N x N tile): a dq block takes 64 query
+//   rows and streams the window's k and v, a dk/dv block 64 key rows and
+//   streams q, dO, L and delta, in 64-row tiles double-buffered by cp.async
+//   (a variant that loaded the window's other side whole into shared memory
+//   once was slower on the flagship's windows: fewer blocks per SM and no
+//   overlap of loads with products).  p = exp(s - L) from the L that K-A's
+//   tensor-core body writes; dq computes delta = rowsum(dp * p) in a first
+//   sweep and writes it for dk/dv, which adds the LePE transpose to dv and
+//   writes a dw partial per 64 key rows.  Grid (windows, heads, ceil(N /
+//   64)): 512 blocks a kernel at the flagship's stage 3, where one block per
+//   (window, head) gave 128 for 132 SMs.  Three exps a score (dq's two
+//   sweeps, dk/dv's one), each block's loads of its window and the dk/dv
+//   epilogue set the pace, not device memory.
+// * float32 (the exact-f32 route) and head dim 8, the CUDA-core body below:
+//   one block per (window, head) holds Q, K, V and dO of the window
+//   (float32, rows padded to D+1) in shared memory: 154 KB at N = 256,
+//   D = 32, so nothing of size N x N leaves the SM.  Two phases, as
+//   FlashAttention-2's backward splits them, so that no two warps add into
+//   one row: phase 1 gives each warp query rows (recompute the score row,
+//   softmax, dp row, ds row; dq of the row; keep the row's max, sum and
+//   rowsum(dp*p)); phase 2 gives each warp key rows and recomputes p and ds
+//   column-wise from those row statistics (bitwise the same values, the same
+//   FMA chains), accumulating dk and dv of its key with lanes over the head
+//   dim.
+#include "flash_attention_mma.cuh"
 
 namespace csu {
 
@@ -284,46 +299,58 @@ static cudaError_t dispatch_bwd_head_dim(int head_dim, const void* q, const void
                                          int64_t ldv, int64_t ldg, int B, int H, int W,
                                          int hsp, int wsp, int heads, float scale,
                                          AttnDrop drop, cudaStream_t stream) {
-#define CSU_ATTN_BWD(DIM)                                                               \
-  return drop.threshold                                                                 \
-             ? launch_attention_bwd<T, DIM, true>(q, k, v, lepe_w, dout, dq, dk, dv,    \
-                                                  dw_part, ldq, ldk, ldv, ldg, B, H, W, \
-                                                  hsp, wsp, heads, scale, drop, stream) \
-             : launch_attention_bwd<T, DIM, false>(q, k, v, lepe_w, dout, dq, dk, dv,   \
-                                                   dw_part, ldq, ldk, ldv, ldg, B, H,   \
-                                                   W, hsp, wsp, heads, scale, drop,     \
-                                                   stream)
-  switch (head_dim) {
-    case 8: CSU_ATTN_BWD(8);
-    case 16: CSU_ATTN_BWD(16);
-    case 32: CSU_ATTN_BWD(32);
-    case 64: CSU_ATTN_BWD(64);
-    default: return cudaErrorInvalidValue;
-  }
+#define CSU_ATTN_BWD(DIM)                                                                 \
+  if constexpr (!mma::serves(dtype_code<T>(), DIM))                                       \
+    if (head_dim == DIM)                                                                  \
+      return drop.threshold                                                               \
+                 ? launch_attention_bwd<T, DIM, true>(q, k, v, lepe_w, dout, dq, dk, dv,  \
+                                                      dw_part, ldq, ldk, ldv, ldg, B, H,  \
+                                                      W, hsp, wsp, heads, scale, drop,    \
+                                                      stream)                             \
+                 : launch_attention_bwd<T, DIM, false>(q, k, v, lepe_w, dout, dq, dk, dv, \
+                                                       dw_part, ldq, ldk, ldv, ldg, B, H, \
+                                                       W, hsp, wsp, heads, scale, drop,   \
+                                                       stream);
+  CSU_FLASH_HEAD_DIMS(CSU_ATTN_BWD)
 #undef CSU_ATTN_BWD
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace csu
 
 // Backward of csu_stripe_attention_fwd.  q, k, v, lepe_w as there; dout the
 // output cotangent, rows ldg apart; dq, dk, dv (B, H*W, heads*head_dim)
-// contiguous; dw_part (B * windows, 9, heads*head_dim) float32 receives each
-// window's LePE-weight gradient, which the caller sums over windows.  seed,
-// threshold and inv_keep must be the forward's.
+// contiguous.  The tensor-core body (bf16 at head dims 16, 32, 64) reads
+// lse, (B * windows, hsp*wsp, heads) float32, as K-A's tensor-core body
+// wrote it, uses delta, of the same shape, as scratch, and writes dw_part
+// (B * windows * ceil(hsp*wsp / 64), 9, heads*head_dim) float32; the
+// CUDA-core body ignores lse and delta and writes dw_part (B * windows, 9,
+// heads*head_dim).  The caller sums dw_part over its first axis.  seed,
+// threshold and inv_keep must be the forward's.  Two kernels, one after the
+// other on the stream, in the tensor-core body, one in the CUDA-core body.
 CSU_EXPORT int csu_stripe_attention_bwd(int dtype, const void* q, const void* k,
                                         const void* v, const void* lepe_w,
-                                        const void* dout, void* dq, void* dk, void* dv,
-                                        void* dw_part, int64_t ldq, int64_t ldk,
-                                        int64_t ldv, int64_t ldg, int B, int H, int W,
-                                        int hsp, int wsp, int heads, int head_dim,
-                                        float scale, uint32_t seed, uint32_t threshold,
-                                        float inv_keep, void* stream) {
+                                        const void* dout, const void* lse, void* delta,
+                                        void* dq, void* dk, void* dv, void* dw_part,
+                                        int64_t ldq, int64_t ldk, int64_t ldv, int64_t ldg,
+                                        int B, int H, int W, int hsp, int wsp, int heads,
+                                        int head_dim, float scale, uint32_t seed,
+                                        uint32_t threshold, float inv_keep, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const csu::AttnDrop drop{seed, threshold, inv_keep};
   if (dtype == csu::kFloat32)
     return (int)csu::dispatch_bwd_head_dim<float>(head_dim, q, k, v, lepe_w, dout, dq,
                                                   dk, dv, dw_part, ldq, ldk, ldv, ldg, B,
                                                   H, W, hsp, wsp, heads, scale, drop, s);
+  if (csu::mma::serves(dtype, head_dim)) {
+    const int N = hsp * wsp;  // the whole-window dropout mask: one N x N tile
+    const csu::FlashArgs a{H, W, hsp, wsp, heads, N, scale, drop, ldq, ldk, ldv, ldg};
+    const cudaError_t e =
+        csu::dispatch_flash_dq_mma(head_dim, q, k, v, dout, lse, delta, 0, dq, B, a, s);
+    if (e != cudaSuccess) return (int)e;
+    return (int)csu::dispatch_flash_dkv_mma(head_dim, q, k, v, lepe_w, dout, lse, delta, dk,
+                                            dv, dw_part, B, a, s);
+  }
   if (dtype == csu::kBFloat16)
     return (int)csu::dispatch_bwd_head_dim<__nv_bfloat16>(
         head_dim, q, k, v, lepe_w, dout, dq, dk, dv, dw_part, ldq, ldk, ldv, ldg, B, H, W,

@@ -29,7 +29,14 @@ unaligned rows; and the bodies a 2048^2 training step launches.  The bf16
 tensor-core forwards, K-A and the flash forward, the same way: K-A at
 windows of 128 to 384 tokens (tails among them), the flash forward at the
 backward's geometries in both modes with its L, very negative scores, and
-the bodies a 512^2 forward launches.
+the bodies a 512^2 forward launches.  The tensor-core K-A' (the tiled
+K-A' dq and dk/dv launched from the K-A' entry at the whole-window mask,
+from the L that K-A saves) at K-A's windows, head dims and rates, with the
+LePE and without it, each output also at its own scale; which body each dtype and
+head dim launches; the L K-A saves; unaligned rows; very negative scores;
+and the bodies a 512^2 and a cswinunet training step launch.  Every K-A'
+and tiled K-A' check also runs with zero LePE taps, where dv is P^T dO
+alone.
 """
 
 import pytest
@@ -38,7 +45,7 @@ import torch
 from cswin_simam_unet_tpu_torch import _build
 from cswin_simam_unet_tpu_torch.configs import TRAIN_CONFIGS, build_model
 from cswin_simam_unet_tpu_torch.models import CSWinUNet
-from cswin_simam_unet_tpu_torch.models.layers import FusedLayerNorm, FusedSimAMHead
+from cswin_simam_unet_tpu_torch.models.layers import FusedLayerNorm, FusedSimAMHead, LePEAttention
 from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head, dropout, layernorm
 from cswin_simam_unet_tpu_torch.ops import carafe_kernels, flash_attention, simam_head
 from cswin_simam_unet_tpu_torch.ops import stripe_attention, window_attention
@@ -89,6 +96,13 @@ def _check_own(got, want, dtype):
     assert top > 0.0
     tol = (TOL_F32 if dtype == torch.float32 else TOL_BF16) * top
     assert err <= tol, (err, tol)
+
+
+def _ka_bwd(q, k, v, lk, g, **kw):
+    """K-A' as the autograd Function runs it: from the L that K-A saves (the
+    tensor-core body reads it; the CUDA-core body's K-A saves none)."""
+    _, lse = stripe_attention.attention_fwd(q, k, v, lk, **kw, with_lse=True)
+    return stripe_attention.attention_bwd(q, k, v, lk, g, **kw, lse=lse)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -193,20 +207,29 @@ ATTN_BWD_GEOMS = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,split,idx,C,heads", ATTN_BWD_GEOMS)
 def test_stripe_attention_bwd_kernel(dev, dtype, H, split, idx, C, heads):
+    """K-A' against the plain version, every output: float32 absolute, bf16
+    at max(1, max|plain|) and at each output's own max|plain| (dq, dk, dv
+    stay far below 1); with the LePE and without it (zero taps: dv is then
+    P^T dO alone, which the LePE's transpose would hide), at rates 0 and
+    0.3."""
     hsp, wsp = stripe_geometry(H, split, idx)
     qkv = _randn(dev, 2, H * H, 3 * C, scale=0.5).to(dtype)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(dtype)
     g = _randn(dev, 2, H * H, 2 * C, seed=2).to(dtype)[..., C:]  # strided cotangent
-    kw = dict(H=H, W=H, hsp=hsp, wsp=wsp, num_heads=heads)
-    _build.reset_launches()
-    got = stripe_attention.attention_bwd(q, k, v, lk, g, **kw)
-    assert _build.LAUNCHES[stripe_attention.BWD_KERNEL] == 1
-    want = attention.stripe_attention_bwd_reference(q.float(), k.float(), v.float(),
-                                                    lk.float(), g.float(), **kw)
-    for a, b in zip(got, want):
-        assert a.shape == b.shape and a.dtype == dtype
-        _check(a, b, dtype)
+    for rate in (0.0, 0.3):
+        for taps in (lk, torch.zeros_like(lk)):
+            kw = dict(H=H, W=H, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=rate, seed=29)
+            _build.reset_launches()
+            got = _ka_bwd(q, k, v, taps, g, **kw)
+            assert _build.LAUNCHES[stripe_attention.BWD_KERNEL] == 1
+            want = attention.stripe_attention_bwd_reference(q.float(), k.float(), v.float(),
+                                                            taps.float(), g.float(), **kw)
+            for a, b in zip(got, want):
+                assert a.shape == b.shape and a.dtype == dtype
+                _check(a, b, dtype)
+                if dtype == torch.bfloat16:
+                    _check_own(a, b, dtype)
 
 
 def test_stripe_attention_bwd_kernel_rejects(dev):
@@ -357,7 +380,7 @@ def test_stripe_attention_dropout_kernels(dev, dtype, H, hsp, wsp, C, heads):
     _check(got, want, dtype)
     nodrop = attention.stripe_attention(*f32[:4], **{**kw, "attn_drop": 0.0})
     assert float((want - nodrop).abs().max()) > 1e-2
-    got = stripe_attention.attention_bwd(q, k, v, lk, g, **kw)
+    got = _ka_bwd(q, k, v, lk, g, **kw)
     want = attention.stripe_attention_bwd_reference(*f32, **kw)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == dtype
@@ -501,20 +524,25 @@ def _long_inputs(dev, dtype, H, C, B=1):
 @pytest.mark.parametrize("H,hsp,wsp,C,heads", LONG_GEOMS)
 def test_tiled_attention_kernels(dev, dtype, rate, H, hsp, wsp, C, heads):
     """The tiled K-A and K-A' (window mode) against the plain v2 versions,
-    mask for mask, every output."""
+    mask for mask, every output; the backward also without the LePE (zero
+    taps, dv = P^T dO alone), bf16 also at each output's own scale."""
     q, k, v, lk, g = _long_inputs(dev, dtype, H, C)
     kw = dict(H=H, W=H, hsp=hsp, wsp=wsp, num_heads=heads, attn_drop=rate, seed=2 ** 31 + 9)
     f32 = [t.float() for t in (q, k, v, lk, g)]
-    _build.reset_launches()
-    out, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
-    got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
-    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
-        stripe_attention.TILED_KERNEL: 1, **{n: 1 for n in stripe_attention.TILED_BWD_KERNELS}}
-    _check(out, attention.stripe_attention(*f32[:4], **kw), dtype)
-    want = attention.stripe_attention_bwd_reference(*f32, **kw)
-    for a, b in zip(got, want):
-        assert a.shape == b.shape and a.dtype == dtype
-        _check_scaled(a, b, dtype)
+    for taps in (lk, torch.zeros_like(lk)):
+        _build.reset_launches()
+        out, lse = stripe_attention.tiled_fwd(q, k, v, taps, **kw)
+        got = stripe_attention.tiled_bwd(q, k, v, taps, lse, g, **kw)
+        assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+            stripe_attention.TILED_KERNEL: 1,
+            **{n: 1 for n in stripe_attention.TILED_BWD_KERNELS}}
+        _check(out, attention.stripe_attention(*f32[:3], taps.float(), **kw), dtype)
+        want = attention.stripe_attention_bwd_reference(*f32[:3], taps.float(), f32[4], **kw)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == dtype
+            _check_scaled(a, b, dtype)
+            if dtype == torch.bfloat16:
+                _check_own(a, b, dtype)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
@@ -569,7 +597,7 @@ def test_tiled_matches_whole_window(dev, dtype, H, hsp, wsp, C, heads):
     out, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
     _check(out, stripe_attention.attention_fwd(q, k, v, lk, **kw).float(), dtype)
     got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
-    want = stripe_attention.attention_bwd(q, k, v, lk, g, **kw)
+    want = _ka_bwd(q, k, v, lk, g, **kw)
     for a, b in zip(got, want):
         _check_scaled(a, b.float(), dtype)
 
@@ -727,11 +755,13 @@ def test_flash_bwd_tensor_core_bodies(dev, rate, H, W, hsp, wsp, C, heads):
     f32 = [t.float() for t in (q, k, v, lk, g)]
     _, lse = stripe_attention.tiled_fwd(q, k, v, lk, **kw)
     _build.reset_launches()
-    got = stripe_attention.tiled_bwd(q, k, v, lk, lse, g, **kw)
-    for a, b in zip(got, attention.stripe_attention_bwd_reference(*f32, **kw)):
-        assert a.shape == b.shape and a.dtype == dtype
-        _check_scaled(a, b, dtype)
-        _check_own(a, b, dtype)
+    for taps in (lk, torch.zeros_like(lk)):  # with the LePE, and dv = P^T dO alone
+        got = stripe_attention.tiled_bwd(q, k, v, taps, lse, g, **kw)
+        want = attention.stripe_attention_bwd_reference(*f32[:3], taps.float(), f32[4], **kw)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == dtype
+            _check_scaled(a, b, dtype)
+            _check_own(a, b, dtype)
     modes = ["window"]
     if wsp == W:
         modes.append("flash")
@@ -739,7 +769,7 @@ def test_flash_bwd_tensor_core_bodies(dev, rate, H, W, hsp, wsp, C, heads):
             _check_scaled(a, b, dtype)
             _check_own(a, b, dtype)
     assert {n: c for n, c in _build.BODY_LAUNCHES.items() if c} == {
-        f"{e}:{m}:mma": 1 for e in BWD_ENTRIES for m in modes}
+        f"{e}:{m}:mma": 1 + (m == "window") for e in BWD_ENTRIES for m in modes}
 
 
 @pytest.mark.parametrize("dtype,C,heads,body", [
@@ -1002,6 +1032,156 @@ def test_model_512_forward_runs_tensor_core_stripe_attention(dev):
             p = model.predict(x)
         assert _fwd_bodies() == {f"{stripe_attention.KERNEL}:{body}": 50}
         assert bool(torch.isfinite(p).all())
+
+
+# ---- the bf16 tensor-core K-A': the tiled K-A' dq and dk/dv bodies
+# (csrc/flash_attention_mma.cuh) launched from the K-A' entry at the
+# whole-window mask, from the L that K-A's tensor-core body saves ----
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("H,W,hsp,wsp", KA_MMA_GEOMS)
+def test_stripe_attention_bwd_tensor_core_body(dev, rate, D, H, W, hsp, wsp):
+    """The bf16 tensor-core K-A' against the plain version, mask for
+    mask, batch 2, two heads of head dim D, with the LePE and without it
+    (zero taps: dv is P^T dO alone, which the LePE's transpose would hide):
+    dq, dk, dv and dw each at max(1, max|plain|) and at its own max|plain|;
+    every launch of K-A and K-A' takes the tensor-core body."""
+    q, k, v, lk = _bf16_qkv(dev, 2, H * W, 2 * D)
+    g = _randn(dev, 2, H * W, 2 * D, seed=2).to(torch.bfloat16)
+    kw = dict(H=H, W=W, hsp=hsp, wsp=wsp, num_heads=2, attn_drop=rate, seed=31)
+    _build.reset_launches()
+    for taps in (lk, torch.zeros_like(lk)):
+        got = _ka_bwd(q, k, v, taps, g, **kw)
+        want = attention.stripe_attention_bwd_reference(
+            *(t.float() for t in (q, k, v, taps, g)), **kw)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == torch.bfloat16
+            _check(a, b, torch.bfloat16)
+            _check_own(a, b, torch.bfloat16)
+    assert _fwd_bodies() == {f"{stripe_attention.KERNEL}:mma": 2,
+                             f"{stripe_attention.BWD_KERNEL}:mma": 2}
+
+
+@pytest.mark.parametrize("dtype,D,body", [
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 8, "fma"), (torch.float32, 32, "fma"), (torch.float32, 64, "fma")])
+def test_stripe_attention_bwd_body_by_dtype_and_head_dim(dev, dtype, D, body):
+    """K-A' picks its body as K-A does: bf16 at head dims 16, 32 and 64 the
+    tensor-core body, float32 and head dim 8 the CUDA-core body (whose K-A
+    saves no L), each right at a 144-token window with dropout."""
+    H, C = 12, 2 * D
+    qkv = _randn(dev, 2, H * H, 3 * C, scale=0.5).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(dtype)
+    g = _randn(dev, 2, H * H, C, seed=2).to(dtype)
+    kw = dict(H=H, W=H, hsp=H, wsp=H, num_heads=2, attn_drop=0.3, seed=37)
+    assert flash_attention.kernel_body(q, D) == body
+    _build.reset_launches()
+    _, lse = stripe_attention.attention_fwd(q, k, v, lk, **kw, with_lse=True)
+    assert (lse is None) == (body == "fma")
+    got = stripe_attention.attention_bwd(q, k, v, lk, g, **kw, lse=lse)
+    want = attention.stripe_attention_bwd_reference(*(t.float() for t in (q, k, v, lk, g)),
+                                                    **kw)
+    for a, b in zip(got, want):
+        _check(a, b, dtype)
+        if dtype == torch.bfloat16:
+            _check_own(a, b, dtype)
+    assert _fwd_bodies() == {f"{stripe_attention.KERNEL}:{body}": 1,
+                             f"{stripe_attention.BWD_KERNEL}:{body}": 1}
+
+
+def test_stripe_attention_bwd_tensor_core_needs_lse(dev):
+    """The tensor-core K-A' reads the forward's L: without it, or with one
+    of another shape, the wrapper raises before any launch."""
+    q, k, v, lk = _bf16_qkv(dev, 1, 256, 32)
+    kw = dict(H=16, W=16, hsp=16, wsp=16, num_heads=1)
+    _build.reset_launches()
+    for lse in (None, torch.zeros(1, 256, 2, device=dev)):
+        with pytest.raises(ValueError, match="lse"):
+            stripe_attention.attention_bwd(q, k, v, lk, q, **kw, lse=lse)
+    assert _build.LAUNCHES[stripe_attention.BWD_KERNEL] == 0
+
+
+def test_stripe_attention_bwd_tensor_core_copies_unaligned_rows(dev):
+    """q, k, v and dO whose base or row stride is not 16-byte aligned (column
+    slices of a 3C + 1 wide tensor) reach the tensor-core K-A' as
+    explicit aligned copies: dq, dk, dv and dw equal those of contiguous
+    inputs."""
+    C, H = 32, 16
+    wide = _randn(dev, 2, H * H, 3 * C + 1, scale=0.5).to(torch.bfloat16)
+    q, k, v = wide[..., 1:C + 1], wide[..., C + 1:2 * C + 1], wide[..., 2 * C + 1:]
+    g = _randn(dev, 2, H * H, C + 1, seed=2).to(torch.bfloat16)[..., 1:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=1).to(torch.bfloat16)
+    kw = dict(H=H, W=H, hsp=2, wsp=H, num_heads=1, attn_drop=0.3, seed=5)
+    _build.reset_launches()
+    got = _ka_bwd(q, k, v, lk, g, **kw)
+    want = _ka_bwd(*(t.contiguous() for t in (q, k, v)), lk, g.contiguous(), **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert _fwd_bodies() == {f"{stripe_attention.KERNEL}:mma": 2,
+                             f"{stripe_attention.BWD_KERNEL}:mma": 2}
+
+
+def test_stripe_attention_bwd_tensor_core_very_negative_scores(dev):
+    """A 196-token window (7 x 28: not a multiple of the 64-row tiles or of
+    the 16-key chunks) whose scores are all about -100, so L < -88: the
+    zero-filled rows past N must give p = 0, not exp(-L) = inf; dq, dk, dv
+    and dw finite and within the max(1, .) scale (q and k share a large
+    component, along which the bf16 rounding of ds, which the float32 plain
+    version skips, sums without cancelling)."""
+    C, H, W = 32, 7, 28
+    q = (4.2 + 0.1 * _randn(dev, 1, H * W, C)).to(torch.bfloat16)
+    k = (-4.2 + 0.1 * _randn(dev, 1, H * W, C, seed=1)).to(torch.bfloat16)
+    v = _randn(dev, 1, H * W, C, scale=0.5, seed=2).to(torch.bfloat16)
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=3).to(torch.bfloat16)
+    g = _randn(dev, 1, H * W, C, seed=4).to(torch.bfloat16)
+    kw = dict(H=H, W=W, hsp=H, wsp=W, num_heads=1)
+    _, lse = stripe_attention.attention_fwd(q, k, v, lk, **kw, with_lse=True)
+    assert float(lse.max()) < -88.0 and bool(torch.isfinite(lse).all())
+    got = stripe_attention.attention_bwd(q, k, v, lk, g, **kw, lse=lse)
+    want = attention.stripe_attention_bwd_reference(
+        *(t.float() for t in (q, k, v, lk, g)), **kw)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        _check_scaled(a, b, torch.bfloat16)
+
+
+@pytest.mark.parametrize("H,W,hsp,wsp", KA_MMA_GEOMS)
+def test_stripe_attention_tensor_core_saves_lse(dev, H, W, hsp, wsp):
+    """The L that K-A's tensor-core body saves for K-A', (B * windows, N,
+    heads) float32, against ``stripe_attention_lse`` on the same bf16
+    inputs at 1e-4 x max(1, max|L|), with dropout (L sums the undropped
+    p); the float32 call, on the CUDA-core body, saves none."""
+    q, k, v, lk = _bf16_qkv(dev, 2, H * W, 64)
+    kw = dict(H=H, W=W, hsp=hsp, wsp=wsp, num_heads=2)
+    _, lse = stripe_attention.attention_fwd(q, k, v, lk, **kw, attn_drop=0.3, seed=3,
+                                            with_lse=True)
+    assert lse.shape == (2 * (H // hsp) * (W // wsp), hsp * wsp, 2)
+    _check_scaled(lse, attention.stripe_attention_lse(q, k, **kw), torch.float32)
+    f32 = [t.float() for t in (q, k, v, lk)]
+    assert stripe_attention.attention_fwd(*f32, **kw, with_lse=True)[1] is None
+
+
+def test_model_512_training_step_runs_tensor_core_stripe_attention_bwd(dev):
+    """A bf16 training step of CSWin-SimAM-UNet at 512^2 launches K-A's and
+    K-A' tensor-core bodies for each of its 50 attention branches and no
+    CUDA-core body; a cswinunet step (float32, 448^2) the CUDA-core bodies
+    only; both losses finite."""
+    for name, img, body in (("cswin_simam_512", 512, "mma"), ("cswinunet", 448, "fma")):
+        model = build_model(name, device=dev, seed=0)
+        n = len([m for m in model.modules() if isinstance(m, LePEAttention)])
+        x = torch.rand(1, img, img, 3, device=dev)
+        opt = engine.make_optimizer("adamw", 1e-4, 1e-4, model.parameters())
+        step = engine.make_train_step(model, opt, seed=0)
+        images = (x * 255).to(torch.uint8)
+        masks = ((x[..., :1] > 0.5) * 255).to(torch.uint8)
+        _build.reset_launches()
+        out = step(images, masks)
+        assert _fwd_bodies() == {f"{stripe_attention.KERNEL}:{body}": n,
+                                 f"{stripe_attention.BWD_KERNEL}:{body}": n}, name
+        assert n == 50 or name == "cswinunet"
+        assert all(bool(torch.isfinite(torch.as_tensor(val))) for val in out.values())
 
 
 # ---- the last six kernel bodies: K-LN, K-LN', K5 (with and without the

@@ -13,9 +13,9 @@ tile) or divides per element ("slow").  This file replays both paths in
 numpy's wrapping uint32 arithmetic, for the query-fixed orientation (dq and
 the forwards: key streamed) and dk/dv (key fixed, query streamed), and holds
 every bit against the plain mask, ``ops/dropout.py::hash_bits``, in window
-mode (mask tile N), in K-A (the whole-window mask, mask tile N, which
-``window_keep_mask`` builds for the plain version) and in flash mode (mask
-tile ``pick_tile(N)``).  Last, the plain log-sum-exp of the tiled K-A's
+mode (mask tile N), in K-A and K-A' (the whole-window mask, mask tile N,
+which ``window_keep_mask`` builds for the plain versions) and in flash mode
+(mask tile ``pick_tile(N)``).  Last, the plain log-sum-exp of the tiled K-A's
 windows against the plain flash forward's, which computes the same L.
 """
 
@@ -130,6 +130,22 @@ def test_forward_keep_bits_match_whole_window_mask(N):
     threshold = dropout.u32_threshold(0.3)
     win, head = 5, 1
     got, n_fast = _body_keep(win, head, N, N, threshold, query_fixed=True)
+    want = dropout.window_keep_mask(SEED, win + 1, head + 1, N, threshold)[win, head].numpy()
+    assert np.array_equal(got, want)
+    assert n_fast == -(-N // ROWS) * -(-N // TILE)
+
+
+@pytest.mark.parametrize("query_fixed", [True, False], ids=["dq", "dkv"])
+@pytest.mark.parametrize("N", [128, 196, 256, 384])
+def test_backward_keep_bits_match_whole_window_mask(N, query_fixed):
+    """The tensor-core bodies of K-A', the tiled K-A' dq and dk/dv launched at
+    the whole-window mask (mask tile N): query fixed in dq, key fixed in
+    dk/dv (counter i * N + j stepped by N per streamed query), every tile on
+    the fast path; the bits are ``window_keep_mask``'s, the plain K-A'
+    mask, for window 6 and head 2."""
+    threshold = dropout.u32_threshold(0.3)
+    win, head = 6, 2
+    got, n_fast = _body_keep(win, head, N, N, threshold, query_fixed)
     want = dropout.window_keep_mask(SEED, win + 1, head + 1, N, threshold)[win, head].numpy()
     assert np.array_equal(got, want)
     assert n_fast == -(-N // ROWS) * -(-N // TILE)
