@@ -24,7 +24,11 @@ Phases, in order; any failed check raises and the exit code is non-zero:
 4. each backward kernel (K-A', K-C', K3, K4, and K3 and K4 without the gate)
    the same way, at the training step's shapes, every output of the kernel
    checked; K-A' with dropout as K-A; the two kernels without the gate at
-   ``cswinunet``'s head (448^2, float32, batch 2);
+   ``cswinunet``'s head (448^2, float32, batch 2); K4 with and without the
+   gate also at x (45, 77, 64), in runs of 16 rows and strips of 8 columns
+   that divide neither side; K3 and K4 (with and without the gate) also
+   timed on the device behind a spin kernel, and at the 2048^2 head (batch
+   1, bf16), with K4's SFU and ALU floors logged;
 4b. the flash-attention family (the tiled K-A / K-A' of windows of up to
    2048 tokens, and the flash fwd, dq and dk/dv kernels of longer ones)
    against their plain versions at every attention geometry of
@@ -186,15 +190,20 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sm_clock(torch) -> tuple[int, float]:
+    """The card's SM count and maximum SM clock (MHz)."""
+    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                     "--format=csv,noheader,nounits"]).splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count, mhz
+
+
 def add_floor(torch, row) -> None:
     """The SFU/ALU floor of a tensor-core body from its ``exps`` and
     ``hashes`` (computed from assumed rates, not measured): exp2 on the SFU
     (SFU_PER_CLOCK a clock per SM), the hash's fmix32 at about HASH_OPS
     integer operations (INT_PER_CLOCK a clock per SM), at the card's maximum
     SM clock; at rate 0 no hash runs."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                     "--format=csv,noheader,nounits"]).splitlines()[0])
+    sms, mhz = sm_clock(torch)
     hz = mhz * 1e6
     row["sfu_ms"] = row["exps"] / (sms * SFU_PER_CLOCK * hz) * 1e3
     row["alu_ms"] = row["hashes"] * HASH_OPS / (sms * INT_PER_CLOCK * hz) * 1e3
@@ -208,6 +217,32 @@ def floor_text(row) -> str:
             f"{row['floor_ms']:.3f} / {row['floor_ms_drop']:.3f} ms "
             f"({row['exps'] / 1e9:.3f} G exps: {row['sfu_ms']:.3f} ms on {row['floor_clock']}; "
             f"{row['hashes'] / 1e9:.3f} G hashes: {row['alu_ms']:.3f} ms)")
+
+
+def k4_bytes(x, e, fb, dy, E, F_cls) -> float:
+    """Bytes K4 must move in bf16: x, enc, fb and dy read, dx and denc
+    written, the (B, E) float32 statistics, w and db."""
+    B = x.shape[0]
+    return ((2 * x.numel() + 2 * e.numel() + fb.numel() + dy.numel()) * 2
+            + 4 * B * E * 4 + E * F_cls * 2 + E * 4)
+
+
+def head_floor_text(torch, numel, pixels, G, kernel) -> str:
+    """The SFU and ALU floors of K3 or K4 over a flat head map of ``numel``
+    elements (computed from assumed rates, not measured): one sigmoid per
+    element (exp2 and a reciprocal on the SFU, SFU_PER_CLOCK a clock per SM;
+    K4 also the 9*G tap exps and reciprocals of each of ``pixels`` pixels),
+    and the float32 operations at 128 a clock per SM (K3: about 12 an
+    element; K4: the SimAM VJP, about 16, plus dp and dx, 9 FMAs each), at
+    the card's maximum SM clock."""
+    sms, mhz = sm_clock(torch)
+    hz = mhz * 1e6
+    sfu_ops = 2 * numel + (2 * 9 * G * pixels if kernel == "K4" else 0)
+    alu_ops = (16 + 18) * numel if kernel == "K4" else 12 * numel
+    sfu = sfu_ops / (sms * SFU_PER_CLOCK * hz) * 1e3
+    alu = alu_ops / (sms * 128 * hz) * 1e3
+    return (f"{kernel} SFU floor {sfu:.4f} ms, ALU floor {alu:.4f} ms (computed from assumed "
+            f"rates, not measured; {sms} SMs at {mhz:.0f} MHz)")
 
 
 def no_lepe(fn):
@@ -1572,13 +1607,15 @@ def main() -> int:
         make_head, own=(0, 1, 2))
     fb, dy, mu, v, w = make_head(TIME_BATCH, torch.bfloat16)
     ms = time_ms(torch, lambda: carafe_head.head_bwd1(fb, dy, mu, v, w, G))
+    dms = device_ms(torch, lambda: carafe_head.head_bwd1(fb, dy, mu, v, w, G))
     plain = time_ms(torch, lambda: carafe_head.head_bwd1_reference(fb, dy, mu, v, w, G),
                     iters=3)
     nbytes = (fb.numel() + dy.numel()) * 2 + 4 * TIME_BATCH * E * 4 + E * F_cls * 8
     flops = (16 + 4 * F_cls) * fb.numel()
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"    x1/step: kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.4f} ms")
-    table["K3"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+    log(f"    x1/step: kernel {ms:.4f} ms (device {dms:.4f})  plain {plain:.4f} ms  "
+        f"bound {b_ms:.4f} ms; {head_floor_text(torch, fb.numel(), fb.numel() // (G * E), G, 'K3')}")
+    table["K3"] = dict(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=None, err32=e32, err16=e16, abs32=a32)
     del fb, dy
 
@@ -1592,19 +1629,65 @@ def main() -> int:
         "K4 x (128,128,64) S 4", torch,
         lambda *a: carafe_head.fused_head_bwd(*a, S_HEAD),
         lambda *a: carafe_head.fused_head_bwd_reference(*a, S_HEAD), make_k4, own=(0, 1, 2))
+    # K4 where runs and strips do not divide the image: x (45, 77, 64), runs of
+    # 16 rows (45 = 2 x 16 + 13) over strips of 8 columns (77 = 9 x 8 + 5)
+    def make_k4_ragged(B, dtype):
+        fb = randn(B, 45, 77, G * E, dtype=dtype)
+        fbf = fb.float()
+        mu, v = pooled_stats(fbf.sum((1, 2)), (fbf * fbf).sum((1, 2)), 45 * 77 * G, G)
+        dy = randn(B, 45, 77, G * F_cls, dtype=dtype)
+        w = randn(E, F_cls, scale=E ** -0.5)
+        A, Bq, _ = carafe_head.head_bwd1_reference(fbf, dy.float(), mu, v, w, G)
+        return (randn(B, 45, 77, E, dtype=dtype), randn(B, 45, 77, 9 * G, dtype=dtype),
+                fb, dy, mu, v, A, Bq, w)
+
+    for gate in (True, False):
+        check_outputs(
+            f"K4{'' if gate else ' no gate'} x (45,77,64) S 4, runs of 16 rows, strips of 8",
+            torch, lambda *a, gate=gate: carafe_head.fused_head_bwd(*a, S_HEAD, gate=gate,
+                                                                    tile=(16, 8)),
+            lambda *a, gate=gate: carafe_head.fused_head_bwd_reference(*a, S_HEAD, gate=gate),
+            make_k4_ragged, own=(0, 1, 2))
     args = make_k4(TIME_BATCH, torch.bfloat16)
     ms = time_ms(torch, lambda: carafe_head.fused_head_bwd(*args, S_HEAD))
+    dms = device_ms(torch, lambda: carafe_head.fused_head_bwd(*args, S_HEAD))
     plain = time_ms(torch, lambda: carafe_head.fused_head_bwd_reference(*args, S_HEAD),
                     iters=3)
     x, e, fb, dy = args[:4]
-    nbytes = ((2 * x.numel() + 2 * e.numel() + fb.numel() + dy.numel()) * 2
-              + 4 * TIME_BATCH * E * 4 + E * F_cls * 2 + E * 4)
+    nbytes = k4_bytes(x, e, fb, dy, E, F_cls)
     flops = 6 * 9 * fb.numel() + 16 * fb.numel()
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"    x1/step: kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.4f} ms")
-    table["K4"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+    log(f"    x1/step: kernel {ms:.4f} ms (device {dms:.4f})  plain {plain:.4f} ms  "
+        f"bound {b_ms:.4f} ms; {head_floor_text(torch, fb.numel(), x.numel() // E, G, 'K4')}")
+    table["K4"] = dict(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=None, err32=e32, err16=e16, abs32=a32)
     del args, x, e, fb, dy
+
+    # K3 and K4 at the 2048^2 head (cswin_simam_2048: batch 1, x (1,512,512,64)), bf16,
+    # device time only; A and B from K3
+    r2k = IMG2048 // 4
+    fb = randn(1, r2k, r2k, G * E, dtype=torch.bfloat16)
+    fbf = fb.float()
+    mu, v = pooled_stats(fbf.sum((1, 2)), (fbf * fbf).sum((1, 2)), r2k * r2k * G, G)
+    del fbf
+    dy = randn(1, r2k, r2k, G * F_cls, dtype=torch.bfloat16)
+    w = randn(E, F_cls, scale=E ** -0.5)
+    x = randn(1, r2k, r2k, E, dtype=torch.bfloat16)
+    e = randn(1, r2k, r2k, 9 * G, dtype=torch.bfloat16)
+    A, Bq, _ = carafe_head.head_bwd1(fb, dy, mu, v, w, G)
+    k3_2k = device_ms(torch, lambda: carafe_head.head_bwd1(fb, dy, mu, v, w, G))
+    k4_2k = device_ms(torch, lambda: carafe_head.fused_head_bwd(x, e, fb, dy, mu, v, A, Bq, w,
+                                                                S_HEAD))
+    nb3 = (fb.numel() + dy.numel()) * 2 + 4 * E * 4 + E * F_cls * 8
+    nb4 = k4_bytes(x, e, fb, dy, E, F_cls)
+    log(f"    2048^2 head (batch 1, bf16): K3 device {k3_2k:.4f} ms (bound "
+        f"{bound_ms(nb3, 0, 'bfloat16')[0]:.4f}), K4 device {k4_2k:.4f} ms (bound "
+        f"{bound_ms(nb4, 0, 'bfloat16')[0]:.4f}); "
+        f"{head_floor_text(torch, fb.numel(), x.numel() // E, G, 'K4')}")
+    table["K3"]["device_ms_2048"] = k3_2k
+    table["K4"]["device_ms_2048"] = k4_2k
+    del fb, dy, x, e, A, Bq
+    torch.cuda.empty_cache()
 
     # K3 and K4 without the gate at cswinunet's head: fb (2,112,112,1024),
     # S 4, one class, float32 (its compute dtype), batch 2 (its batch)
@@ -1621,14 +1704,15 @@ def main() -> int:
                                                           gate=False)[2:], make_ng, own=(0,))
     fb, dy, w = make_ng(B448, torch.float32)
     ms = time_ms(torch, lambda: carafe_head.head_bwd1(fb, dy, None, None, w, G, gate=False))
+    dms = device_ms(torch, lambda: carafe_head.head_bwd1(fb, dy, None, None, w, G, gate=False))
     plain = time_ms(torch, lambda: carafe_head.head_bwd1_reference(fb, dy, None, None, w, G,
                                                                    gate=False), iters=3)
     nbytes = (fb.numel() + dy.numel()) * 4 + E * F_cls * 4
     flops = 2 * F_cls * fb.numel()
     b_ms, b_by = bound_ms(nbytes, flops, "float32")
-    log(f"    x1/step (batch {B448}, float32): kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-        f"bound {b_ms:.4f} ms")
-    table["K3 no gate"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+    log(f"    x1/step (batch {B448}, float32): kernel {ms:.4f} ms (device {dms:.4f})  "
+        f"plain {plain:.4f} ms  bound {b_ms:.4f} ms")
+    table["K3 no gate"] = dict(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                library_ms=None, err32=e32, err16=e16, abs32=a32)
 
     def make_k4ng(B, dtype):
@@ -1648,14 +1732,15 @@ def main() -> int:
                                   make_k4ng, own=(0, 1, 2))
     args = make_k4ng(B448, torch.float32)
     ms = time_ms(torch, lambda: k4ng(*args))
+    dms = device_ms(torch, lambda: k4ng(*args))
     plain = time_ms(torch, lambda: k4ng_plain(*args), iters=3)
     x, e, _, dy, _ = args
     nbytes = (2 * x.numel() + 2 * e.numel() + dy.numel()) * 4 + E * F_cls * 4 + E * 4
     flops = 6 * 9 * x.numel() * G + 2 * F_cls * x.numel() * G
     b_ms, b_by = bound_ms(nbytes, flops, "float32")
-    log(f"    x1/step (batch {B448}, float32): kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-        f"bound {b_ms:.4f} ms")
-    table["K4 no gate"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+    log(f"    x1/step (batch {B448}, float32): kernel {ms:.4f} ms (device {dms:.4f})  "
+        f"plain {plain:.4f} ms  bound {b_ms:.4f} ms")
+    table["K4 no gate"] = dict(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                library_ms=None, err32=e32, err16=e16, abs32=a32)
     del args, x, e, fb, dy
     torch.cuda.empty_cache()
@@ -1915,12 +2000,12 @@ def main() -> int:
                  "cswin_simam_unet_tpu/ops/pallas_carafe.py:196"),
         "K3": ("csu_head_bwd1", "cswin_simam_unet_tpu_torch/csrc/simam_head.cu",
                "cswin_simam_unet_tpu/ops/pallas_simam_head.py:124"),
-        "K4": ("csu_carafe_head_bwd", "cswin_simam_unet_tpu_torch/csrc/carafe.cu",
+        "K4": ("csu_carafe_head_bwd", "cswin_simam_unet_tpu_torch/csrc/carafe_head_bwd.cu",
                "cswin_simam_unet_tpu/ops/pallas_carafe_head.py:163"),
         "K3 no gate": ("csu_head_bwd1_nogate", "cswin_simam_unet_tpu_torch/csrc/simam_head.cu",
                        "cswin_simam_unet_tpu/ops/pallas_simam_head.py:178"),
         "K4 no gate": ("csu_carafe_head_bwd_nogate",
-                       "cswin_simam_unet_tpu_torch/csrc/carafe.cu",
+                       "cswin_simam_unet_tpu_torch/csrc/carafe_head_bwd.cu",
                        "cswin_simam_unet_tpu/ops/pallas_carafe_head.py:163"),
         "flash fwd": (flash_attention.FWD_KERNEL,
                       "cswin_simam_unet_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1991,6 +2076,8 @@ def main() -> int:
                 launches_mma=launches_mma,
                 **{k: row[k] for k in ("device_ms", "device_ms_drop", "ms_fma_f32",
                                        "ms_fma_f32_drop")})
+        if label in ("K3", "K4", "K3 no gate", "K4 no gate"):
+            entry.update({k: row[k] for k in ("device_ms", "device_ms_2048") if k in row})
         if label == "flash fwd":
             entry.update({k: row[k] for k in ("device_ms_window", "device_ms_flash",
                                               "bands_window_ms", "bands_flash_ms")})

@@ -56,16 +56,14 @@ _SIGNATURES = {
                                  _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
     # dtype, x, enc, dacc, dx, denc, B, H, W, C, S, vec, px, stream
     "csu_carafe_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, fb, dy, mu, var, w, a_part, b_part, dw_part, B, H, W, C, G, F,
-    # vec, lam, stream
-    "csu_head_bwd1": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _F, _P],
+    # dtype, fb, dy, mu, var, w, part, B, H, W, C, G, F, vec, lam, pc, stream
+    "csu_head_bwd1": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # dtype, x, enc, fb, dy, w, mu, var, A, Bq, dx, denc, db_part, B, H, W, C,
-    # S, F, vec, px, lam, stream
+    # S, F, vec, px, rows, lam, stream
     "csu_carafe_head_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # dtype, fb, dy, dw_part, B, H, W, C, G, F, vec, stream
-    "csu_head_bwd1_nogate": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # dtype, fb, dy, part, B, H, W, C, G, F, vec, pc, stream
+    "csu_head_bwd1_nogate": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, q, k, v, lepe_w, out, lse, ldq, ldk, ldv, B, H, W, hsp, wsp, heads,
     # head_dim, scale, mask_tile, seed, threshold, inv_keep, stream
     "csu_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,
@@ -79,9 +77,9 @@ _SIGNATURES = {
     # inv_keep, stream
     "csu_flash_attention_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
                                 _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P],
-    # dtype, x, enc, dy, w, dx, denc, db_part, B, H, W, C, S, F, vec, px, stream
+    # dtype, x, enc, dy, w, dx, denc, db_part, B, H, W, C, S, F, vec, px, rows, stream
     "csu_carafe_head_bwd_nogate": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _P],
+                                   _I, _I, _I, _P],
     # dtype, fb, dy, mu, var, A, Bq, w, dx, db_part, B, H, W, C, G, F, vec, lam, stream
     "csu_head_bwd2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _F, _P],

@@ -99,117 +99,162 @@ static cudaError_t launch_head(const void* fb, const void* mu, const void* var,
 //     t = dg * x * g (1 - g)
 //     A[l] += t (x - mu_c)        B[l] += t (x - mu_c)^2
 //     dW[c, f] += round(x * g) * dy[g*F + f]
-// summed over the pixels of one image row per block; the caller sums the
-// rows and pools A and B per real channel (as head_bwd1_pallas does).
+// summed over a chunk of pixels of one image per block; the caller sums the
+// chunks and pools A and B per real channel (as head_bwd1_pallas does).
 //
 // What bounds it on the H100: one read of the 268 MB flat map at the 512^2
-// head, so device memory (about 80 us at 3.35 TB/s).  Design: a block owns
-// one image row, each thread one (g, 16-byte channel vector) slot of a pixel,
-// so each pixel's G*C values are one coalesced block-wide load; a thread
-// walks the row's pixels and keeps its A, B and dW sums in registers, and
-// writes them once, so no atomics and a fixed summation order.
+// head, so device memory (about 80 us at 3.35 TB/s), then the SFU (one
+// sigmoid an element).  Design: a block owns a chunk of `pc` consecutive
+// pixels of one image (the wrapper picks pc so that the grid fills the card
+// several times, 2048^2 included), each thread one (g, 16-byte channel
+// vector) slot of a pixel, so each pixel's G*C values are one coalesced
+// block-wide load; a thread walks the chunk U pixels at a time with their U
+// loads issued together, keeps its A, B and dW sums in registers and writes
+// them once: no atomics and a fixed summation order.  F is a compile-time
+// bound (1, 2, 4, 8), so one class costs two FMAs an element for dg and dW,
+// not sixteen.  The gate is K-H2's arithmetic, so round(x * g) rounds as in
+// the forward; its two divisions are rcp_rn and div_rn_by (common.cuh), which
+// give what / gives without the compiler's check-and-call slow path, whose
+// branches cost K3 about a third of its time.
 //
 // K3 without the gate (GATE false) replaces ops/pallas_simam_head.py::
 // _bwd1_nogate_kernel (launched at pallas_carafe_head.py:382, the fused head
 // without SimAM): dW[c, f] = sum over the map of fb * dy[g*F + f], the same
-// per-row float32 partials in the same order, and no A, B, mu, var or W.
-template <typename T, int VEC, bool GATE>
+// per-chunk float32 partials in the same order, and no A, B, mu, var or W.
+template <typename T, int VEC, bool GATE, int FM>
 __global__ void head_bwd1_kernel(const T* __restrict__ fb, const T* __restrict__ dy,
                                  const float* __restrict__ mu,
                                  const float* __restrict__ var, const T* __restrict__ w,
-                                 float* __restrict__ a_part, float* __restrict__ b_part,
-                                 float* __restrict__ dw_part, int H, int W, int C, int G,
-                                 int F, float lam) {
+                                 float* __restrict__ part, int HW, int C, int G, int F,
+                                 float lam, int pc, int chunks) {
+  constexpr int U = FM <= 2 ? 4 : 2;  // pixels whose loads are in flight together
   const int CV = C / VEC, GC = G * C;
   const int g = threadIdx.x / CV, cv = threadIdx.x - g * CV, c = cv * VEC;
-  const int row = blockIdx.x, b = row / H;  // row = b*H + y
-  float mu_c[VEC], den[VEC], wv[VEC][kMaxClasses];
-  float a[VEC], bq[VEC], dw[VEC][kMaxClasses];
+  const int chunk = blockIdx.x % chunks, b = blockIdx.x / chunks;
+  const int64_t p0 = (int64_t)b * HW + (int64_t)chunk * pc;
+  const int n = min(pc, HW - chunk * pc);
+  float mu_c[VEC], den[VEC], rden[VEC], wv[VEC][FM];
+  float a[VEC], bq[VEC], dw[VEC][FM];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
     mu_c[i] = GATE ? mu[(int64_t)b * C + c + i] : 0.f;
     den[i] = GATE ? 4.f * (var[(int64_t)b * C + c + i] + lam) : 1.f;
+    rden[i] = rcp_rn(den[i]);
     a[i] = bq[i] = 0.f;
 #pragma unroll
-    for (int f = 0; f < kMaxClasses; ++f) {
+    for (int f = 0; f < FM; ++f) {
       wv[i][f] = GATE && f < F ? to_f(w[(int64_t)(c + i) * F + f]) : 0.f;
       dw[i][f] = 0.f;
     }
   }
-  for (int xx = 0; xx < W; ++xx) {
-    const int64_t pix = (int64_t)row * W + xx;
-    float xv[VEC], dyv[kMaxClasses];
-    load_vec<T, VEC>(fb + pix * GC + g * C + c, xv);
+  for (int u0 = 0; u0 < n; u0 += U) {
+    float xv[U][VEC], dyv[U][FM];
 #pragma unroll
-    for (int f = 0; f < kMaxClasses; ++f)
-      dyv[f] = f < F ? to_f(dy[pix * G * F + g * F + f]) : 0.f;
+    for (int u = 0; u < U; ++u) {
+      const int64_t pix = p0 + u0 + u;
+      const bool in = u0 + u < n;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const float xf = xv[i];
-      if constexpr (!GATE) {
+      for (int i = 0; i < VEC; ++i) xv[u][i] = 0.f;
+      if (in) load_vec<T, VEC>(fb + pix * GC + g * C + c, xv[u]);
 #pragma unroll
-        for (int f = 0; f < kMaxClasses; ++f) dw[i][f] = fmaf(xf, dyv[f], dw[i][f]);
-        continue;
+      for (int f = 0; f < FM; ++f)
+        dyv[u][f] = in && f < F ? to_f(dy[(pix * G + g) * F + f]) : 0.f;
+    }
+    // a pixel past the chunk has x = dy = 0 and adds zero to every sum
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xf = xv[u][i];
+        if constexpr (!GATE) {
+#pragma unroll
+          for (int f = 0; f < FM; ++f) dw[i][f] = fmaf(xf, dyv[u][f], dw[i][f]);
+          continue;
+        }
+        const float xc = xf - mu_c[i];
+        // K-H2's gate, bit for bit: div_rn_by and rcp_rn round as / does
+        const float e = div_rn_by(xc * xc, den[i], rden[i]) + 0.5f;
+        const float gt = rcp_rn(1.f + expf(-e));
+        float dg = 0.f;
+#pragma unroll
+        for (int f = 0; f < FM; ++f) dg = fmaf(dyv[u][f], wv[i][f], dg);
+        const float t = dg * xf * (gt * (1.f - gt));
+        a[i] = fmaf(t, xc, a[i]);
+        bq[i] = fmaf(t * xc, xc, bq[i]);
+        const float gated = round_to<T>(xf * gt);
+#pragma unroll
+        for (int f = 0; f < FM; ++f) dw[i][f] = fmaf(gated, dyv[u][f], dw[i][f]);
       }
-      const float xc = xf - mu_c[i];
-      const float e = xc * xc / den[i] + 0.5f;
-      const float gt = 1.f / (1.f + expf(-e));
-      float dg = 0.f;
-#pragma unroll
-      for (int f = 0; f < kMaxClasses; ++f) dg = fmaf(dyv[f], wv[i][f], dg);
-      const float t = dg * xf * (gt * (1.f - gt));
-      a[i] = fmaf(t, xc, a[i]);
-      bq[i] = fmaf(t * xc, xc, bq[i]);
-      const float gated = round_to<T>(xf * gt);
-#pragma unroll
-      for (int f = 0; f < kMaxClasses; ++f) dw[i][f] = fmaf(gated, dyv[f], dw[i][f]);
     }
   }
-  const int64_t lane0 = (int64_t)row * GC + g * C + c;
+  // this block's row of part: [A (G*C), B (G*C)] with the gate, then dW (F, G*C)
+  const int lane = g * C + c;
+  float* row = part + (int64_t)blockIdx.x * (GATE ? 2 + F : F) * GC;
+  float* dwr = row + (GATE ? 2 * GC : 0);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
     if constexpr (GATE) {
-      a_part[lane0 + i] = a[i];
-      b_part[lane0 + i] = bq[i];
+      row[lane + i] = a[i];
+      row[GC + lane + i] = bq[i];
     }
-    for (int f = 0; f < F; ++f) dw_part[(lane0 + i) * F + f] = dw[i][f];
+#pragma unroll
+    for (int f = 0; f < FM; ++f)
+      if (f < F) dwr[f * GC + lane + i] = dw[i][f];
   }
 }
 
-template <typename T, int VEC, bool GATE>
+template <typename T, int VEC, bool GATE, int FM>
 static cudaError_t launch_head_bwd1(const void* fb, const void* dy, const void* mu,
-                                    const void* var, const void* w, void* a_part,
-                                    void* b_part, void* dw_part, int B, int H, int W,
-                                    int C, int G, int F, float lam, cudaStream_t stream) {
-  if (C % VEC || F < 1 || F > kMaxClasses) return cudaErrorInvalidValue;
-  const int threads = G * (C / VEC);
-  if (threads > 1024) return cudaErrorInvalidValue;
-  head_bwd1_kernel<T, VEC, GATE><<<(unsigned)(B * H), threads, 0, stream>>>(
+                                    const void* var, const void* w, void* part, int B, int HW,
+                                    int C, int G, int F, float lam, int pc,
+                                    cudaStream_t stream) {
+  const int chunks = (HW + pc - 1) / pc;
+  head_bwd1_kernel<T, VEC, GATE, FM><<<(unsigned)(B * chunks), G * (C / VEC), 0, stream>>>(
       static_cast<const T*>(fb), static_cast<const T*>(dy), static_cast<const float*>(mu),
-      static_cast<const float*>(var), static_cast<const T*>(w),
-      static_cast<float*>(a_part), static_cast<float*>(b_part),
-      static_cast<float*>(dw_part), H, W, C, G, F, lam);
+      static_cast<const float*>(var), static_cast<const T*>(w), static_cast<float*>(part),
+      HW, C, G, F, lam, pc, chunks);
   return cudaGetLastError();
+}
+
+template <typename T, int VEC, bool GATE>
+static cudaError_t launch_head_bwd1_f(const void* fb, const void* dy, const void* mu,
+                                      const void* var, const void* w, void* part, int B,
+                                      int HW, int C, int G, int F, float lam, int pc,
+                                      cudaStream_t s) {
+  if (F <= 1)
+    return launch_head_bwd1<T, VEC, GATE, 1>(fb, dy, mu, var, w, part, B, HW, C, G, F, lam,
+                                             pc, s);
+  if (F <= 2)
+    return launch_head_bwd1<T, VEC, GATE, 2>(fb, dy, mu, var, w, part, B, HW, C, G, F, lam,
+                                             pc, s);
+  if (F <= 4)
+    return launch_head_bwd1<T, VEC, GATE, 4>(fb, dy, mu, var, w, part, B, HW, C, G, F, lam,
+                                             pc, s);
+  return launch_head_bwd1<T, VEC, GATE, 8>(fb, dy, mu, var, w, part, B, HW, C, G, F, lam, pc,
+                                           s);
 }
 
 template <bool GATE>
 static cudaError_t dispatch_head_bwd1(int dtype, int vec, const void* fb, const void* dy,
                                       const void* mu, const void* var, const void* w,
-                                      void* a_part, void* b_part, void* dw_part, int B,
-                                      int H, int W, int C, int G, int F, float lam,
-                                      cudaStream_t s) {
+                                      void* part, int B, int H, int W, int C, int G, int F,
+                                      float lam, int pc, cudaStream_t s) {
+  if (vec < 1 || C % vec || F < 1 || F > kMaxClasses || pc < 1 || B < 1 || H < 1 || W < 1 ||
+      G * (C / vec) > 1024)
+    return cudaErrorInvalidValue;
+  const int HW = H * W;
   if (dtype == kFloat32 && vec == 4)
-    return launch_head_bwd1<float, 4, GATE>(fb, dy, mu, var, w, a_part, b_part, dw_part, B,
-                                            H, W, C, G, F, lam, s);
+    return launch_head_bwd1_f<float, 4, GATE>(fb, dy, mu, var, w, part, B, HW, C, G, F, lam,
+                                              pc, s);
   if (dtype == kFloat32 && vec == 1)
-    return launch_head_bwd1<float, 1, GATE>(fb, dy, mu, var, w, a_part, b_part, dw_part, B,
-                                            H, W, C, G, F, lam, s);
+    return launch_head_bwd1_f<float, 1, GATE>(fb, dy, mu, var, w, part, B, HW, C, G, F, lam,
+                                              pc, s);
   if (dtype == kBFloat16 && vec == 8)
-    return launch_head_bwd1<__nv_bfloat16, 8, GATE>(fb, dy, mu, var, w, a_part, b_part,
-                                                    dw_part, B, H, W, C, G, F, lam, s);
+    return launch_head_bwd1_f<__nv_bfloat16, 8, GATE>(fb, dy, mu, var, w, part, B, HW, C, G,
+                                                      F, lam, pc, s);
   if (dtype == kBFloat16 && vec == 1)
-    return launch_head_bwd1<__nv_bfloat16, 1, GATE>(fb, dy, mu, var, w, a_part, b_part,
-                                                    dw_part, B, H, W, C, G, F, lam, s);
+    return launch_head_bwd1_f<__nv_bfloat16, 1, GATE>(fb, dy, mu, var, w, part, B, HW, C, G,
+                                                      F, lam, pc, s);
   return cudaErrorInvalidValue;
 }
 
@@ -352,25 +397,26 @@ CSU_EXPORT int csu_simam_head_fwd(int dtype, const void* fb, const void* mu,
 
 
 // K3: fb (B, H, W, G*C) and dy (B, H, W, G*F) in the compute dtype, mu and
-// var (B, C) float32, w (C, F) in the compute dtype; a_part and b_part
-// (B*H, G*C) and dw_part (B*H, G*C, F) float32 receive each image row's sums.
+// var (B, C) float32, w (C, F) in the compute dtype; part (blocks,
+// (2 + F)*G*C) float32 receives each block's sums, A (G*C), B (G*C) and
+// dW (F, G*C) in a row, a block per chunk of pc pixels of one image:
+// blocks = B * ceil(H*W / pc), image-major.
 CSU_EXPORT int csu_head_bwd1(int dtype, const void* fb, const void* dy, const void* mu,
-                             const void* var, const void* w, void* a_part, void* b_part,
-                             void* dw_part, int B, int H, int W, int C, int G, int F,
-                             int vec, float lam, void* stream) {
-  return (int)csu::dispatch_head_bwd1<true>(dtype, vec, fb, dy, mu, var, w, a_part, b_part,
-                                            dw_part, B, H, W, C, G, F, lam,
-                                            static_cast<cudaStream_t>(stream));
+                             const void* var, const void* w, void* part, int B, int H, int W,
+                             int C, int G, int F, int vec, float lam, int pc, void* stream) {
+  return (int)csu::dispatch_head_bwd1<true>(dtype, vec, fb, dy, mu, var, w, part, B, H, W, C,
+                                            G, F, lam, pc, static_cast<cudaStream_t>(stream));
 }
 
-// K3 without the gate: dw_part (B*H, G*C, F) float32 receives each image
-// row's sums of fb * dy for fb (B, H, W, G*C) and dy (B, H, W, G*F).
-CSU_EXPORT int csu_head_bwd1_nogate(int dtype, const void* fb, const void* dy,
-                                    void* dw_part, int B, int H, int W, int C, int G,
-                                    int F, int vec, void* stream) {
+// K3 without the gate: part (blocks, F*G*C) float32 receives each block's
+// sums of fb * dy for fb (B, H, W, G*C) and dy (B, H, W, G*F), the blocks as
+// for csu_head_bwd1.
+CSU_EXPORT int csu_head_bwd1_nogate(int dtype, const void* fb, const void* dy, void* part,
+                                    int B, int H, int W, int C, int G, int F, int vec,
+                                    int pc, void* stream) {
   return (int)csu::dispatch_head_bwd1<false>(dtype, vec, fb, dy, nullptr, nullptr, nullptr,
-                                             nullptr, nullptr, dw_part, B, H, W, C, G, F,
-                                             0.f, static_cast<cudaStream_t>(stream));
+                                             part, B, H, W, C, G, F, 0.f, pc,
+                                             static_cast<cudaStream_t>(stream));
 }
 
 // K5: fb (B, H, W, G*C) and dy (B, H, W, G*F) in the compute dtype, mu,

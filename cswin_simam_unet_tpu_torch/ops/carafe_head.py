@@ -13,16 +13,21 @@ Forward:
 * K-H2 (``csrc/simam_head.cu``, ``csu_simam_head_fwd``): gate + head dot.
 
 Backward (SimAM on):
-* K3 (``csrc/simam_head.cu``, ``csu_head_bwd1``): per-row partials of the
-  SimAM VJP reductions A, B and of dW; plain torch sums them and pools A and
-  B per real channel (``pallas_simam_head.py:286-291``);
-* K4 (``csrc/carafe.cu``, ``csu_carafe_head_bwd``): the head's elementwise
-  VJP recomputed from fb and fed straight into the CARAFE backward -> dx,
-  denc and per-block bias-gradient partials.
+* K3 (``csrc/simam_head.cu``, ``csu_head_bwd1``): per-block partials (a
+  chunk of pixels a block) of the SimAM VJP reductions A, B and of dW; plain
+  torch sums them and pools A and B per real channel
+  (``pallas_simam_head.py:286-291``);
+* K4 (``csrc/carafe_head_bwd.cu``, ``csu_carafe_head_bwd``): the head's
+  elementwise VJP recomputed from fb, row by row down a block's run, and fed
+  straight into the CARAFE backward -> dx, denc and per-block bias-gradient
+  partials.
+
+:func:`k4_geometry` and :func:`k3_geometry` pick the two kernels' blocks
+(mirroring the C side's shared-memory formula and block decode).
 
 Backward without SimAM (``gate=False``):
 * K3 without the gate (``csu_head_bwd1_nogate``, for
-  ``pallas_simam_head.py::_bwd1_nogate_kernel``): per-row partials of
+  ``pallas_simam_head.py::_bwd1_nogate_kernel``): per-block partials of
   dW = sum fb * dy;
 * K4 without the gate (``csu_carafe_head_bwd_nogate``, the ``gate=False``
   branch of ``pallas_carafe_head.py::_fused_bwd_kernel``): dacc = dy W^T
@@ -41,7 +46,7 @@ import torch
 
 from .. import _build
 from . import carafe
-from .carafe_kernels import bwd_pixels_per_block, check_carafe_args, threads_for
+from .carafe_kernels import check_carafe_args, threads_for
 from .simam import LAMBDA, pooled_stats
 from .windows import pixel_unshuffle
 
@@ -52,6 +57,85 @@ FUSED_BWD_KERNEL = "csu_carafe_head_bwd"
 BWD1_NOGATE_KERNEL = "csu_head_bwd1_nogate"
 FUSED_BWD_NOGATE_KERNEL = "csu_carafe_head_bwd_nogate"
 MAX_CLASSES = 8
+
+# Launch geometry of K3 and K4 (csrc/simam_head.cu, csrc/carafe_head_bwd.cu).
+H100_SMS = 132
+WAVES = 4                      # the grid fills the card's SMs at least this many times
+SMEM_LIMIT = 227 * 1024        # shared memory one block may use (common.cuh kMaxSmem)
+K4_SMEM_BUDGET = 113 * 1024    # K4 picks the widest strip that keeps two blocks an SM
+K4_PX = (8, 4, 2, 1)           # own columns of a K4 block, a warp each
+K4_ROWS = (32, 16, 8, 4, 2, 1)  # rows of a K4 block's run, the longest that fills the card
+K3_PIXELS = (1024, 512, 256, 128, 64, 32, 16)  # pixels of a K3 block, the same way
+
+
+def class_bound(F: int) -> int:
+    """The compile-time class bound the kernels take for F classes."""
+    return next(fm for fm in (1, 2, 4, 8) if F <= fm)
+
+
+def k4_smem_bytes(C: int, S: int, vec: int, elem: int, px: int, F: int, gate: bool) -> int:
+    """Shared memory of one K4 block (csrc/carafe_head_bwd.cu::head_bwd_smem):
+    the 3-row ring of dacc and p, the channel constants, W, and the db sums
+    when a thread stages several vector slots."""
+    def align16(n):
+        return (n + 15) & ~15
+    S2 = S * S
+    SC, PW, NT = S2 * C, px + 2, 32 * px
+    nvec = SC // vec
+    single = nvec <= NT
+    ring = align16(3 * PW * (SC + 9 * S2) * elem)
+    scratch = (NT // nvec) * SC * 4 if single else 0
+    return (max(ring, scratch) + (16 * C if gate else 0) + align16(4 * class_bound(F) * C)
+            + (0 if single else 4 * SC))
+
+
+def k4_geometry(B: int, H: int, W: int, C: int, S: int, vec: int, elem: int, F: int,
+                gate: bool, sms: int = H100_SMS, tile: tuple[int, int] | None = None) -> dict:
+    """K4's launch: a block owns ``px`` columns (a warp each, 32*px threads)
+    and a run of ``rows`` rows of one image.  px is the widest (up to W)
+    whose shared memory keeps two blocks an SM; rows the longest run that
+    still gives WAVES x ``sms`` blocks (1 where none does).  ``tile`` =
+    (rows, px) overrides both.  Raises where a block cannot fit."""
+    threads_for(C, S, vec)
+    if tile is not None:
+        rows, px = tile
+        if not (1 <= rows and 1 <= px <= K4_PX[0]):
+            raise ValueError(f"K4 tile {tile}: rows >= 1 and 1 <= px <= {K4_PX[0]}")
+    else:
+        px = next(p for p in K4_PX if p == 1 or (
+            p <= W and k4_smem_bytes(C, S, vec, elem, p, F, gate) <= K4_SMEM_BUDGET))
+    smem = k4_smem_bytes(C, S, vec, elem, px, F, gate)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a K4 block of C={C}, S={S} takes {smem} bytes of shared memory")
+    strips = -(-W // px)
+    if tile is None:
+        rows = next(r for r in K4_ROWS if r == 1 or B * -(-H // r) * strips >= WAVES * sms)
+    runs = -(-H // rows)
+    return dict(px=px, rows=rows, strips=strips, runs=runs, blocks=B * runs * strips,
+                threads=32 * px, smem=smem)
+
+
+def k4_block_pixels(geom: dict, H: int, W: int, block: int):
+    """(b, y0, y1, x0, x1): the image and own pixel rectangle of K4 block
+    ``block``, decoded as the kernel decodes blockIdx.x."""
+    strip, rest = block % geom["strips"], block // geom["strips"]
+    run, b = rest % geom["runs"], rest // geom["runs"]
+    y0, x0 = run * geom["rows"], strip * geom["px"]
+    return b, y0, min(H, y0 + geom["rows"]), x0, min(W, x0 + geom["px"])
+
+
+def k3_geometry(B: int, H: int, W: int, sms: int = H100_SMS) -> dict:
+    """K3's launch: a block owns ``pixels`` consecutive pixels of one image,
+    the most that still gives WAVES x ``sms`` blocks (the fewest where none
+    does)."""
+    pc = next(p for p in K3_PIXELS if p == K3_PIXELS[-1]
+              or B * -(-(H * W) // p) >= WAVES * sms)
+    chunks = -(-(H * W) // pc)
+    return dict(pixels=pc, chunks=chunks, blocks=B * chunks)
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def head_reference(x_flat: torch.Tensor, bias: torch.Tensor, w: torch.Tensor,
@@ -218,34 +302,36 @@ def head_bwd1(fb, dy, mu, v, w, G: int, lam: float = LAMBDA, gate: bool = True):
         return head_bwd1_reference(fb, dy, mu, v, w, G, lam, gate)
     dy = dy.contiguous()
     _check_head_grads(fb, dy, mu, v, w, G, gate)
-    B, H, W, GC = fb.shape
+    B, H, W, _ = fb.shape
     C, Fc = w.shape
     vec = _build.vec_width(fb, channels=C)
     if G * (C // vec) > 1024:
         raise ValueError(f"G*C/{vec} = {G * C // vec} threads exceed one block")
-    dw_part = torch.empty(B * H, GC, Fc, dtype=torch.float32, device=fb.device)
+    geom = k3_geometry(B, H, W, _sms(fb.device))
+    pc = geom["pixels"]
+    # one row of partial sums a block, image-major: A, B (with the gate), then
+    # dW by class, each over (G, C); one reduction over chunks and G
+    rows = (2 if gate else 0) + Fc
+    part = torch.empty(B, geom["chunks"], rows, G, C, dtype=torch.float32, device=fb.device)
     dtype = _build.dtype_code(fb)
     if not gate:
         _build.launch(BWD1_NOGATE_KERNEL, fb.device, dtype, fb.data_ptr(), dy.data_ptr(),
-                      dw_part.data_ptr(), B, H, W, C, G, Fc, vec)
-        return None, None, dw_part.reshape(B * H * G, C, Fc).sum(dim=0)
+                      part.data_ptr(), B, H, W, C, G, Fc, vec, pc)
+        return None, None, part.sum(dim=(0, 1, 3)).t().contiguous()
     wt = w.to(fb.dtype).contiguous()
-    a_part = torch.empty(B * H, GC, dtype=torch.float32, device=fb.device)
-    b_part = torch.empty_like(a_part)
     _build.launch(BWD1_KERNEL, fb.device, dtype, fb.data_ptr(),
-                  dy.data_ptr(), mu.data_ptr(), v.data_ptr(), wt.data_ptr(),
-                  a_part.data_ptr(), b_part.data_ptr(), dw_part.data_ptr(), B, H, W, C, G,
-                  Fc, vec, float(lam))
-    A = a_part.reshape(B, H, G, C).sum(dim=(1, 2))
-    Bq = b_part.reshape(B, H, G, C).sum(dim=(1, 2))
-    return A, Bq, dw_part.reshape(B * H * G, C, Fc).sum(dim=0)
+                  dy.data_ptr(), mu.data_ptr(), v.data_ptr(), wt.data_ptr(), part.data_ptr(),
+                  B, H, W, C, G, Fc, vec, float(lam), pc)
+    sums = part.sum(dim=(1, 3))  # (B, 2 + F, C)
+    return sums[:, 0], sums[:, 1], sums[:, 2:].sum(dim=0).t().contiguous()
 
 
 def fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int, lam: float = LAMBDA,
-                   gate: bool = True):
+                   gate: bool = True, tile: tuple[int, int] | None = None):
     """K4 on CUDA tensors, :func:`fused_head_bwd_reference` on CPU ones:
     (dx like x, denc like enc, db (C,) float32).  Without the gate, K4
-    without the gate, which reads neither fb nor mu, v, A, Bq."""
+    without the gate, which reads neither fb nor mu, v, A, Bq.  ``tile`` =
+    (rows, px) sets K4's block (:func:`k4_geometry`)."""
     if x.device.type == "cpu":
         return fused_head_bwd_reference(x, enc, fb, dy, mu, v, A, Bq, w, up_factor, lam,
                                         gate)
@@ -261,9 +347,9 @@ def fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int, lam: float =
     dx = torch.empty_like(x)
     denc = torch.empty_like(enc)
     vec = _build.vec_width(x, fb, dx, channels=C)
-    threads_for(C, S, vec)
-    px = bwd_pixels_per_block(C, S, vec, x.element_size(), W)
-    blocks = B * H * ((W + px - 1) // px)
+    Fc = w.shape[1]
+    geom = k4_geometry(B, H, W, C, S, vec, x.element_size(), Fc, gate, _sms(x.device), tile)
+    blocks, px, rows = geom["blocks"], geom["px"], geom["rows"]
     db_part = torch.empty(blocks, G * C, dtype=torch.float32, device=x.device)
     if gate:
         A, Bq = A.float().contiguous(), Bq.float().contiguous()
@@ -273,12 +359,11 @@ def fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int, lam: float =
                       enc.data_ptr(), fb.data_ptr(), dy.data_ptr(), wt.data_ptr(),
                       mu.data_ptr(), v.data_ptr(), A.data_ptr(), Bq.data_ptr(),
                       dx.data_ptr(), denc.data_ptr(), db_part.data_ptr(), B, H, W, C, S,
-                      w.shape[1], vec, px, float(lam))
+                      Fc, vec, px, rows, float(lam))
     else:
         _build.launch(FUSED_BWD_NOGATE_KERNEL, x.device, _build.dtype_code(x), x.data_ptr(),
                       enc.data_ptr(), dy.data_ptr(), wt.data_ptr(), dx.data_ptr(),
-                      denc.data_ptr(), db_part.data_ptr(), B, H, W, C, S, w.shape[1], vec,
-                      px)
+                      denc.data_ptr(), db_part.data_ptr(), B, H, W, C, S, Fc, vec, px, rows)
     return dx, denc, db_part.reshape(blocks * G, C).sum(dim=0)
 
 

@@ -36,8 +36,15 @@ LePE and without it, each output also at its own scale; which body each dtype an
 head dim launches; the L K-A saves; unaligned rows; very negative scores;
 and the bodies a 512^2 and a cswinunet training step launch.  Every K-A'
 and tiled K-A' check also runs with zero LePE taps, where dv is P^T dO
-alone.
+alone.  The head's backward, K3 and K4 with and without the gate: odd
+channel counts, a single row, W below a strip, 1, 3 and 8 classes, K4 at
+blocks (rows, px) that cross the image every way, each bf16 output also at
+its own scale; two calls bitwise equal; and the branch-free division and
+reciprocal of K3's gate (common.cuh) against / bit for bit.
 """
+
+import ctypes
+import subprocess
 
 import pytest
 import torch
@@ -265,32 +272,152 @@ def test_carafe_bwd_kernel_rejects(dev):
                                        torch.zeros(1, 4, 4, 16, device=dev), 2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,W,C,S,F", [(8, 8, 16, 4, 1), (4, 6, 8, 2, 3), (4, 4, 6, 2, 8),
-                                       (6, 20, 64, 4, 1)])
-def test_head_bwd_kernels(dev, dtype, H, W, C, S, F):
+# (H, W, C, S, F) of the head's backward kernels: odd channel counts (C 6:
+# scalar slots; C 24 in bf16: three channel vectors a sub-pixel; C 512: more
+# channel vectors than a warp's lanes, and in float32 more vector slots
+# than a K4 block's threads), a single row, W below a strip, 1, 3 and 8
+# classes, S 2 and 4
+HEAD_BWD_GEOMS = [(8, 8, 16, 4, 1), (4, 6, 8, 2, 3), (4, 4, 6, 2, 8), (6, 20, 64, 4, 1),
+                  (9, 13, 24, 2, 3), (1, 11, 16, 4, 8), (5, 6, 64, 4, 3), (3, 5, 512, 2, 1)]
+
+
+def _k4_tiles(H, W, C, S, F, dtype):
+    """K4 blocks (rows, px) that cross the image in every way: the default,
+    one column a block, runs of H - 1 rows (H = rows + 1) and of 2 over
+    strips of 8 (a single strip where W <= 8), runs of 4 over strips of 2;
+    those whose block fits shared memory."""
+    elem = torch.finfo(dtype).bits // 8
+    vec = 16 // elem if C % (16 // elem) == 0 else 1
+    return [None] + [t for t in [(2, 1), (max(1, H - 1), 8), (2, 8), (4, 2)]
+                     if carafe_head.k4_smem_bytes(C, S, vec, elem, t[1], F, True)
+                     <= carafe_head.SMEM_LIMIT]
+
+
+def _head_bwd_inputs(dev, dtype, H, W, C, S, F, B=2):
     G = S * S
-    x = _randn(dev, 2, H, W, C).to(dtype)
-    enc = _randn(dev, 2, H, W, 9 * G, seed=1).to(dtype)
-    fb = _randn(dev, 2, H, W, G * C, seed=2).to(dtype)
-    dy = _randn(dev, 2, H, W, G * F, seed=3).to(dtype)
+    x = _randn(dev, B, H, W, C).to(dtype)
+    enc = _randn(dev, B, H, W, 9 * G, seed=1).to(dtype)
+    fb = _randn(dev, B, H, W, G * C, seed=2).to(dtype)
+    dy = _randn(dev, B, H, W, G * F, seed=3).to(dtype)
     w = _randn(dev, C, F, scale=C ** -0.5, seed=4)
     f = fb.float()
     mu, v = pooled_stats(f.sum((1, 2)), (f * f).sum((1, 2)), H * W * G, G)
+    return x, enc, fb, dy, w, mu, v
+
+
+def _check_both(got, want, dtype):
+    """A head backward output: float32 within TOL_F32, bf16 within TOL_BF16
+    times max(1, max|plain|) and times its own max|plain|."""
+    _check(got, want, dtype)
+    if dtype == torch.bfloat16:
+        _check_own(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,S,F", HEAD_BWD_GEOMS)
+def test_head_bwd_kernels(dev, dtype, H, W, C, S, F):
+    """K3, then K4 at every tile of _k4_tiles, against the plain versions."""
+    G = S * S
+    x, enc, fb, dy, w, mu, v = _head_bwd_inputs(dev, dtype, H, W, C, S, F)
+    f = fb.float()
     _build.reset_launches()
     got = carafe_head.head_bwd1(fb, dy, mu, v, w, G)
     assert _build.LAUNCHES[carafe_head.BWD1_KERNEL] == 1
     want = carafe_head.head_bwd1_reference(f, dy.float(), mu, v, w, G)
     for a, b in zip(got, want):
-        _check(a, b, dtype)
+        _check_both(a, b, dtype)
     A, Bq = want[0], want[1]
-    got = carafe_head.fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, S)
-    assert _build.LAUNCHES[carafe_head.FUSED_BWD_KERNEL] == 1
     want = carafe_head.fused_head_bwd_reference(x.float(), enc.float(), f, dy.float(), mu,
                                                 v, A, Bq, w, S)
-    assert got[0].dtype == dtype and got[1].dtype == dtype and got[2].shape == (C,)
-    for a, b in zip(got, want):
-        _check(a, b, dtype)
+    for tile in _k4_tiles(H, W, C, S, F, dtype):
+        _build.reset_launches()
+        got = carafe_head.fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, S, tile=tile)
+        assert _build.LAUNCHES[carafe_head.FUSED_BWD_KERNEL] == 1
+        assert got[0].dtype == dtype and got[1].dtype == dtype and got[2].shape == (C,)
+        for a, b in zip(got, want):
+            _check_both(a, b, dtype)
+
+
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_bwd_kernels_deterministic(dev, dtype, gate):
+    """Two calls of K3 and of K4 give bitwise equal outputs (no float
+    atomics; partial sums in a fixed order), at a geometry with several runs
+    and strips and ragged ends."""
+    H, W, C, S, F = 19, 21, 64, 4, 3
+    x, enc, fb, dy, w, mu, v = _head_bwd_inputs(dev, dtype, H, W, C, S, F)
+    if not gate:
+        mu = v = None
+    first = carafe_head.head_bwd1(fb, dy, mu, v, w, S * S, gate=gate)
+    second = carafe_head.head_bwd1(fb, dy, mu, v, w, S * S, gate=gate)
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+    A, Bq = first[0], first[1]
+    for tile in (None, (4, 8)):
+        first = carafe_head.fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, S, gate=gate,
+                                           tile=tile)
+        second = carafe_head.fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, S, gate=gate,
+                                            tile=tile)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+_DIVISION_CHECK = r"""
+#include "common.cuh"
+__global__ void division_check(const float* a, const float* b, float* fast, float* ref,
+                               int n, int rcp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fast[i] = rcp ? csu::rcp_rn(b[i]) : csu::div_rn(a[i], b[i]);
+  ref[i] = rcp ? 1.f / b[i] : a[i] / b[i];
+}
+extern "C" int run_division_check(const float* a, const float* b, float* fast, float* ref,
+                                  int n, int rcp) {
+  division_check<<<(n + 255) / 256, 256>>>(a, b, fast, ref, n, rcp);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def test_branch_free_division_rounds_as_division(dev, tmp_path):
+    """K3's gate takes rcp_rn and div_rn (common.cuh) where K-H2 divides, and
+    must round x * g as K-H2 does: both must give what / gives, bit for bit.
+    rcp_rn over every float in [1, 2) (every normal mantissa; the gate's
+    1 + exp(-e) lies in [1, 1.61]); div_rn over 2^24 quotients whose operands
+    spread over 2^+-60 and 2^+-20, zeros among them, and over the gate's own
+    range (xc^2 over 4 (v + lam))."""
+    src = tmp_path / "division_check.cu"
+    src.write_text(_DIVISION_CHECK)
+    lib_path = tmp_path / "libdivision_check.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build._CSRC),
+                    "-o", str(lib_path), str(src)], check=True, capture_output=True,
+                   timeout=_build.NVCC_TIMEOUT_S)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.run_division_check.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int]
+
+    def run(a, b, rcp):
+        fast, ref = torch.empty_like(b), torch.empty_like(b)
+        assert lib.run_division_check(a.data_ptr(), b.data_ptr(), fast.data_ptr(),
+                                      ref.data_ptr(), b.numel(), rcp) == 0
+        bad = int((fast.view(torch.int32) != ref.view(torch.int32)).sum())
+        assert bad == 0, (bad, b.numel())
+
+    mantissas = torch.arange(0x3F800000, 0x40000000, dtype=torch.int32, device=dev)
+    x = mantissas.view(torch.float32)
+    run(x, x, 1)
+    g = torch.Generator(device=dev).manual_seed(0)
+    n = 1 << 24
+
+    def spread(lo, hi):
+        m = 1.0 + torch.rand(n, generator=g, device=dev)
+        return torch.ldexp(m, torch.randint(lo, hi, (n,), generator=g, device=dev))
+
+    a = spread(-60, 60)
+    a[::97] = 0.0
+    run(a, spread(-20, 20), 0)
+    xc = torch.randn(n, generator=g, device=dev) * 3.0
+    v = torch.rand(n, generator=g, device=dev) * 4.0
+    run(xc * xc, 4.0 * (v + 1e-4), 0)
 
 
 def test_head_bwd_kernels_reject(dev):
@@ -327,30 +454,29 @@ def test_head_backward_without_simam_raises(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,W,C,S,F", [(8, 8, 16, 4, 1), (4, 6, 8, 2, 3), (4, 4, 6, 2, 8),
-                                       (6, 20, 64, 4, 1)])
+@pytest.mark.parametrize("H,W,C,S,F", HEAD_BWD_GEOMS)
 def test_head_bwd_nogate_kernels(dev, dtype, H, W, C, S, F):
+    """K3 and K4 without the gate, K4 at every tile of _k4_tiles."""
     G = S * S
-    x = _randn(dev, 2, H, W, C).to(dtype)
-    enc = _randn(dev, 2, H, W, 9 * G, seed=1).to(dtype)
-    fb = _randn(dev, 2, H, W, G * C, seed=2).to(dtype)
-    dy = _randn(dev, 2, H, W, G * F, seed=3).to(dtype)
-    w = _randn(dev, C, F, scale=C ** -0.5, seed=4)
+    x, enc, fb, dy, w, _, _ = _head_bwd_inputs(dev, dtype, H, W, C, S, F)
     _build.reset_launches()
     got = carafe_head.head_bwd1(fb, dy, None, None, w, G, gate=False)
     assert _build.LAUNCHES[carafe_head.BWD1_NOGATE_KERNEL] == 1
     want = carafe_head.head_bwd1_reference(fb.float(), dy.float(), None, None, w, G,
                                            gate=False)
     assert got[0] is None and got[1] is None
-    _check(got[2], want[2], dtype)
-    got = carafe_head.fused_head_bwd(x, enc, fb, dy, None, None, None, None, w, S, gate=False)
-    assert _build.LAUNCHES[carafe_head.FUSED_BWD_NOGATE_KERNEL] == 1
+    _check_both(got[2], want[2], dtype)
     want = carafe_head.fused_head_bwd_reference(x.float(), enc.float(), fb.float(),
                                                 dy.float(), None, None, None, None, w, S,
                                                 gate=False)
-    assert got[0].dtype == dtype and got[1].dtype == dtype and got[2].shape == (C,)
-    for a, b in zip(got, want):
-        _check(a, b, dtype)
+    for tile in _k4_tiles(H, W, C, S, F, dtype):
+        _build.reset_launches()
+        got = carafe_head.fused_head_bwd(x, enc, fb, dy, None, None, None, None, w, S,
+                                         gate=False, tile=tile)
+        assert _build.LAUNCHES[carafe_head.FUSED_BWD_NOGATE_KERNEL] == 1
+        assert got[0].dtype == dtype and got[1].dtype == dtype and got[2].shape == (C,)
+        for a, b in zip(got, want):
+            _check_both(a, b, dtype)
 
 
 # ---- attention dropout in K-A and K-A' ----
