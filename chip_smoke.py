@@ -228,17 +228,22 @@ def k4_bytes(x, e, fb, dy, E, F_cls) -> float:
 
 
 def head_floor_text(torch, numel, pixels, G, kernel) -> str:
-    """The SFU and ALU floors of K3 or K4 over a flat head map of ``numel``
-    elements (computed from assumed rates, not measured): one sigmoid per
-    element (exp2 and a reciprocal on the SFU, SFU_PER_CLOCK a clock per SM;
-    K4 also the 9*G tap exps and reciprocals of each of ``pixels`` pixels),
-    and the float32 operations at 128 a clock per SM (K3: about 12 an
-    element; K4: the SimAM VJP, about 16, plus dp and dx, 9 FMAs each), at
-    the card's maximum SM clock."""
+    """The SFU and ALU floors of K3, K4, K-H1 or K-H2 over a flat head map of
+    ``numel`` elements (computed from assumed rates, not measured) on the
+    SFU (SFU_PER_CLOCK a clock per SM) and in float32 operations (128 a clock
+    per SM), at the card's maximum SM clock.  K3 and K-H2: one sigmoid per
+    element (exp2 and a reciprocal), about 12 operations an element (K-H2 14,
+    with the dot); K4: the same plus the 9*G tap exps and reciprocals of
+    each of ``pixels`` pixels, and the SimAM VJP, about 16, plus dp and dx,
+    9 FMAs each; K-H1: 9 exps and a reciprocal per (pixel, sub-pixel), and
+    about 15 operations an element (9 FMAs, two roundings, the bias, the
+    moments)."""
     sms, mhz = sm_clock(torch)
     hz = mhz * 1e6
-    sfu_ops = 2 * numel + (2 * 9 * G * pixels if kernel == "K4" else 0)
-    alu_ops = (16 + 18) * numel if kernel == "K4" else 12 * numel
+    sfu_ops = {"K3": 2 * numel, "K-H2": 2 * numel, "K4": 2 * numel + 2 * 9 * G * pixels,
+               "K-H1": 10 * G * pixels}[kernel]
+    alu_ops = {"K3": 12 * numel, "K-H2": 14 * numel, "K4": (16 + 18) * numel,
+               "K-H1": 15 * numel}[kernel]
     sfu = sfu_ops / (sms * SFU_PER_CLOCK * hz) * 1e3
     alu = alu_ops / (sms * 128 * hz) * 1e3
     return (f"{kernel} SFU floor {sfu:.4f} ms, ALU floor {alu:.4f} ms (computed from assumed "
@@ -1345,28 +1350,36 @@ def main() -> int:
     def h1_plain(x, e, b):
         return carafe.carafe_flat(x, e, S) + b.repeat(G)
 
-    e32, e16 = check_pair("K-H1 x (128,128,64) S 4", torch, h1_kernel, h1_plain, make_h1)
-    # the moments: pooled kernel sums against torch sums of the kernel's own map
+    e32, e16, rel32, rel16 = check_pair("K-H1 x (128,128,64) S 4", torch, h1_kernel, h1_plain,
+                                        make_h1, own=True)
+    # the moments: K-H1's per-channel block sums (B, chunks, C), pooled, against
+    # torch sums of the kernel's own map
     for dtype in (torch.float32, torch.bfloat16):
         x, e, b = make_h1(2, dtype)
         fb, s1, s2 = carafe_head.carafe_biased_moments(x, e, b, S)
-        mu, v = pooled_stats(s1.reshape(2, -1, G * E).sum(1), s2.reshape(2, -1, G * E).sum(1),
-                             r0 * r0 * G, G)
+        mu, v = pooled_stats(s1.sum(1), s2.sum(1), r0 * r0 * G, 1)
         fbf = fb.float()
         mu_p, v_p = pooled_stats(fbf.sum((1, 2)), (fbf * fbf).sum((1, 2)), r0 * r0 * G, G)
         rel = max(float(((mu - mu_p).abs() / (1 + mu_p.abs())).max()),
                   float(((v - v_p).abs() / (1 + v_p.abs())).max()))
         log(f"  K-H1 moments {dtype}: max rel err {rel:.3e} (tol {TOL_STATS:g})")
         require(rel <= TOL_STATS, f"K-H1 moments error {rel} > {TOL_STATS}")
+    def h1_bytes(x, e):
+        # x and enc read, the biased map written, bias and the (B, C) moments
+        return ((x.numel() + e.numel() + x.numel() * G + E) * x.element_size()
+                + 2 * x.shape[0] * E * 4)
+
     x, e, b = make_h1(TIME_BATCH, torch.bfloat16)
     ms = time_ms(torch, lambda: carafe_head.carafe_biased_moments(x, e, b, S))
+    dms = device_ms(torch, lambda: carafe_head.carafe_biased_moments(x, e, b, S))
     plain = time_ms(torch, lambda: h1_plain(x, e, b), iters=3)
-    nbytes = (x.numel() + e.numel() + x.numel() * G + E) * 2 + 2 * TIME_BATCH * G * E * 4
     flops = 2 * 9 * x.numel() * G + 3 * x.numel() * G
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"    x1/forward: kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.4f} ms")
-    table["K-H1"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, err32=e32, err16=e16)
+    b_ms, b_by = bound_ms(h1_bytes(x, e), flops, "bfloat16")
+    log(f"    x1/forward: kernel {ms:.4f} ms (device {dms:.4f})  plain {plain:.4f} ms  "
+        f"bound {b_ms:.4f} ms; "
+        f"{head_floor_text(torch, x.numel() * G, x.numel() // E, G, 'K-H1')}")
+    table["K-H1"] = dict(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, err32=e32, err16=e16, own32=rel32, own16=rel16)
 
     def make_h2(B, dtype):
         fb = randn(B, r0, r0, G * E, dtype=dtype)
@@ -1380,21 +1393,57 @@ def main() -> int:
     def h2_plain(fb, w):
         return carafe_head.head_reference(fb, torch.zeros(E, device=dev), w, G)
 
-    e32, e16 = check_pair("K-H2 fb (128,128,1024) G 16", torch, h2_kernel, h2_plain, make_h2)
+    e32, e16, rel32, rel16 = check_pair("K-H2 fb (128,128,1024) G 16", torch, h2_kernel,
+                                        h2_plain, make_h2, own=True)
+
+    def h2_bytes(fb):
+        # the map read, the logits written, the (B, C) statistics and w
+        return (fb.numel() + fb.numel() // E * F_cls + E * F_cls) * fb.element_size() \
+            + 2 * fb.shape[0] * E * 4
+
     fb, w = make_h2(TIME_BATCH, torch.bfloat16)
     fbf = fb.float()
     mu, v = pooled_stats(fbf.sum((1, 2)), (fbf * fbf).sum((1, 2)), r0 * r0 * G, G)
     del fbf
     ms = time_ms(torch, lambda: carafe_head.simam_head_flat(fb, mu, v, w, G))
+    dms = device_ms(torch, lambda: carafe_head.simam_head_flat(fb, mu, v, w, G))
     plain = time_ms(torch, lambda: h2_plain(fb, w), iters=3)
-    nbytes = (fb.numel() * 2 + fb.numel() // E * F_cls * 2 + 2 * TIME_BATCH * E * 4
-              + E * F_cls * 2)
     flops = 2 * fb.numel() * F_cls + 6 * fb.numel()
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"    x1/forward: kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.4f} ms")
-    table["K-H2"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, err32=e32, err16=e16)
+    b_ms, b_by = bound_ms(h2_bytes(fb), flops, "bfloat16")
+    log(f"    x1/forward: kernel {ms:.4f} ms (device {dms:.4f})  plain {plain:.4f} ms  "
+        f"bound {b_ms:.4f} ms; {head_floor_text(torch, fb.numel(), 0, G, 'K-H2')}")
+    table["K-H2"] = dict(ms=ms, device_ms=dms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, err32=e32, err16=e16, own32=rel32, own16=rel16)
     del fb, x, e
+
+    # K-H1 and K-H2 at the 2048^2 head (cswin_simam_2048: batch 1, bf16) and
+    # at cswinunet's (448^2, batch 2, float32, no SimAM): device time, the
+    # wrappers' torch glue included
+    r2k = IMG2048 // 4
+    for label, B, r, dtype, gate in (("2048", 1, r2k, torch.bfloat16, True),
+                                     ("448", TRAIN_CONFIGS["cswinunet"].batch_size,
+                                      IMG448 // 4, torch.float32, False)):
+        x = randn(B, r, r, E, dtype=dtype)
+        e = randn(B, r, r, 9 * G, dtype=dtype)
+        b = randn(E, scale=0.1, dtype=dtype)
+        w = randn(E, F_cls, scale=E ** -0.5, dtype=dtype)
+        fb, _, _ = carafe_head.carafe_biased_moments(x, e, b, S, gate)
+        mu = v = None
+        if gate:
+            fbf = fb.float()
+            mu, v = pooled_stats(fbf.sum((1, 2)), (fbf * fbf).sum((1, 2)), r * r * G, G)
+            del fbf
+        h1 = device_ms(torch, lambda: carafe_head.carafe_biased_moments(x, e, b, S, gate))
+        h2 = device_ms(torch, lambda: carafe_head.simam_head_flat(fb, mu, v, w, G, gate=gate))
+        log(f"    {label}^2 head (batch {B}, {dtype}, gate {gate}): K-H1 device {h1:.4f} ms "
+            f"(bound {bound_ms(h1_bytes(x, e), 0, 'bfloat16')[0]:.4f}), K-H2 device "
+            f"{h2:.4f} ms (bound {bound_ms(h2_bytes(fb), 0, 'bfloat16')[0]:.4f})"
+            + (f"; {head_floor_text(torch, fb.numel(), x.numel() // E, G, 'K-H1')}; "
+               f"{head_floor_text(torch, fb.numel(), 0, G, 'K-H2')}" if gate else ""))
+        table["K-H1"][f"device_ms_{label}"] = h1
+        table["K-H2"][f"device_ms_{label}"] = h2
+        del x, e, fb
+    torch.cuda.empty_cache()
 
     # ---- 4. backward kernels against their plain versions ----
     phase("backward kernels vs plain versions (check at batch 2, time at batch 8, bf16)")
@@ -1989,7 +2038,7 @@ def main() -> int:
                 "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:180"),
         "K-C": ("csu_carafe_fwd", "cswin_simam_unet_tpu_torch/csrc/carafe.cu",
                 "cswin_simam_unet_tpu/ops/pallas_carafe.py:176"),
-        "K-H1": ("csu_carafe_head_fwd", "cswin_simam_unet_tpu_torch/csrc/carafe.cu",
+        "K-H1": ("csu_carafe_head_fwd", "cswin_simam_unet_tpu_torch/csrc/carafe_head_fwd.cu",
                  "cswin_simam_unet_tpu/ops/pallas_carafe_head.py:76"),
         "K-H2": ("csu_simam_head_fwd", "cswin_simam_unet_tpu_torch/csrc/simam_head.cu",
                  "cswin_simam_unet_tpu/ops/pallas_simam_head.py:109"),
@@ -2076,8 +2125,11 @@ def main() -> int:
                 launches_mma=launches_mma,
                 **{k: row[k] for k in ("device_ms", "device_ms_drop", "ms_fma_f32",
                                        "ms_fma_f32_drop")})
-        if label in ("K3", "K4", "K3 no gate", "K4 no gate"):
-            entry.update({k: row[k] for k in ("device_ms", "device_ms_2048") if k in row})
+        if label in ("K3", "K4", "K3 no gate", "K4 no gate", "K-H1", "K-H2"):
+            entry.update({k: row[k] for k in ("device_ms", "device_ms_2048", "device_ms_448")
+                          if k in row})
+        if "own16" in row:
+            entry.update(err_over_max_plain=row["own32"], err_over_max_plain_bf16=row["own16"])
         if label == "flash fwd":
             entry.update({k: row[k] for k in ("device_ms_window", "device_ms_flash",
                                               "bands_window_ms", "bands_flash_ms")})

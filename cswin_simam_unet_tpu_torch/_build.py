@@ -43,13 +43,12 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
     # dtype, x, enc, out, B, H, W, C, S, vec, px, stream
     "csu_carafe_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, x, enc, bias, fb, s1, s2, B, H, W, C, S, vec, px, stream
+    # dtype, x, enc, bias, fb, s1, s2, B, H, W, C, S, vec, pass pixels, pc, stream
     "csu_carafe_head_fwd": [_I, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, fb, mu, var, w, out, items, items_per_image, C, F, vec, lanes,
-    # lam, gate, stream
-    "csu_simam_head_fwd": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
-                           _F, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, fb, mu, var, w, out, B, H, W, C, G, F, vec, lanes, lam, gate, pc, stream
+    "csu_simam_head_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _I, _I, _P],
     # dtype, q, k, v, lepe_w, dout, lse, delta, dq, dk, dv, dw_part, ldq, ldk, ldv,
     # ldg, B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, stream
     "csu_stripe_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,

@@ -7,84 +7,169 @@
 //     y_c = round(x_c * sigmoid((x_c - mu_c)^2 / (4 (v_c + lam)) + 0.5))
 //     logits[b, h, w, g*F + f] = sum_c y_c * W[c, f]
 // with the float32 gate, y rounded to the compute dtype as the reference
-// does, and the dot over the C real channels done here in a loop (F <= 8).
+// does, and the dot over the C real channels summed in float32 (F <= 8).
+// Without the gate (GATE false), y = x.
 //
 // What bounds it on the H100: one read of the 268 MB flat map at the 512^2
-// head; the logits are 16x smaller.  Device memory is the bound (about
-// 81 us at 3.35 TB/s).  Design: a group of lanes owns one (pixel, g) item,
-// each lane one 16-byte channel vector, so a warp reads 512 contiguous bytes
-// per load; the gate and the partial dot stay in registers and the group sums
-// its partials with warp shuffles.  No gated map is ever written.
+// head (about 81 us at 3.35 TB/s); the logits are 64x smaller.  Then the
+// SFU: one exp and one reciprocal an element.  Design: K3's shape.  A block
+// owns a chunk of `pc` consecutive pixels of one image (carafe_head.
+// h2_geometry picks pc so that the grid fills the card several times), a
+// group of L lanes each (pixel, g), a lane one 16-byte channel vector (ONE:
+// the channel vectors are exactly L, a power of two up to 32) or a stride
+// of them; a thread walks the chunk U pixels at a time with their U loads
+// issued together.  The channel constants (mu, 4 (v + lam), its rcp_rn) and
+// the thread's rows of W sit in registers for the whole chunk; F is a
+// compile-time bound (1, 2, 4, 8).  The gate is K3's arithmetic bit for bit
+// (div_rn_by and rcp_rn, common.cuh: what / gives without its slow-path
+// branch), so round(x * g) is the gated map that K3 and K4 recompute.  Each
+// (pixel, g) dot is summed over its group with F * log2(L) shuffles, and
+// lane (u*FM + f) mod L of the group writes logit (u, f): each warp writes
+// its groups' logits of a pixel as one contiguous run.
 #include "common.cuh"
 
 namespace csu {
 
-constexpr int kHeadThreads = 256;
 constexpr int kMaxClasses = 8;
+constexpr int kHeadThreads = 256;  // G*L threads of a K-H2 block at most
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool GATE, int FM, bool ONE>
 __global__ void __launch_bounds__(kHeadThreads)
 simam_head_kernel(const T* __restrict__ fb, const float* __restrict__ mu,
                   const float* __restrict__ var, const T* __restrict__ w,
-                  T* __restrict__ out, int64_t items, int64_t items_per_image, int C,
-                  int F, int lanes, float lam, int gate) {
-  const int64_t gt = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t item = gt / lanes;
-  const int l = (int)(gt % lanes);
-  const bool valid = item < items;
-  float acc[kMaxClasses];
+                  T* __restrict__ out, int HW, int C, int G, int F, int L, float lam,
+                  int pc, int chunks) {
+  constexpr int U = FM <= 2 ? 4 : 2;  // pixels whose loads are in flight together
+  const int CV = C / VEC, GC = G * C, GF = G * F;
+  const int g = threadIdx.x / L, l = threadIdx.x - g * L;
+  const int chunk = blockIdx.x % chunks, b = blockIdx.x / chunks;
+  const int64_t p0 = (int64_t)b * HW + (int64_t)chunk * pc;
+  const int n = min(pc, HW - chunk * pc);
+  // the lanes of this warp that exist (a block of G*L threads may end mid-warp)
+  const int wl = min(32, (int)blockDim.x - (int)(threadIdx.x & ~31u));
+  const unsigned mask = wl == 32 ? 0xffffffffu : (1u << wl) - 1u;
+  float mu_c[VEC], den[VEC], rden[VEC], wv[VEC][FM];
+  auto constants = [&](int c) {
 #pragma unroll
-  for (int f = 0; f < kMaxClasses; ++f) acc[f] = 0.f;
-  if (valid) {
-    const int64_t b = item / items_per_image;
-    const T* xr = fb + item * C;
-    const float* mub = mu + b * C;
-    const float* vb = var + b * C;
-    for (int c = l * VEC; c < C; c += lanes * VEC) {
-      float xv[VEC];
-      load_vec<T, VEC>(xr + c, xv);
+    for (int i = 0; i < VEC; ++i) {
+      if constexpr (GATE) {
+        mu_c[i] = mu[(int64_t)b * C + c + i];
+        den[i] = 4.f * (var[(int64_t)b * C + c + i] + lam);
+        rden[i] = rcp_rn(den[i]);
+      }
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        float y = xv[i];
-        if (gate) {
-          const float xc = y - mub[c + i];
-          const float e = xc * xc / (4.f * (vb[c + i] + lam)) + 0.5f;
-          y = round_to<T>(y * (1.f / (1.f + expf(-e))));
+      for (int f = 0; f < FM; ++f) wv[i][f] = f < F ? to_f(w[(int64_t)(c + i) * F + f]) : 0.f;
+    }
+  };
+  if constexpr (ONE) constants(l * VEC);
+  for (int u0 = 0; u0 < n; u0 += U) {
+    float acc[U][FM];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int f = 0; f < FM; ++f) acc[u][f] = 0.f;
+    for (int cv = l; cv < (ONE ? l + 1 : CV); cv += L) {
+      const int c = cv * VEC;
+      float xv[U][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) xv[u][i] = 0.f;
+        if (u0 + u < n) load_vec<T, VEC>(fb + (p0 + u0 + u) * GC + g * C + c, xv[u]);
+      }
+      if constexpr (!ONE) constants(c);
+      // a pixel past the chunk has x = 0 and adds zero to its (unwritten) dot
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float y = xv[u][i];
+          if constexpr (GATE) {
+            const float xc = y - mu_c[i];
+            // K3's gate, bit for bit
+            const float e = div_rn_by(xc * xc, den[i], rden[i]) + 0.5f;
+            y = round_to<T>(y * rcp_rn(1.f + expf(-e)));
+          }
+#pragma unroll
+          for (int f = 0; f < FM; ++f) acc[u][f] = fmaf(y, wv[i][f], acc[u][f]);
         }
-        const T* wr = w + (int64_t)(c + i) * F;
-#pragma unroll
-        for (int f = 0; f < kMaxClasses; ++f)
-          if (f < F) acc[f] = fmaf(y, to_f(wr[f]), acc[f]);
       }
     }
-  }
-  // every lane of the warp takes part: the lanes of one item are adjacent
-  for (int off = 1; off < lanes; off <<= 1) {
+    // the lanes of one group are adjacent and aligned: L divides 32
+    for (int off = 1; off < L; off <<= 1) {
 #pragma unroll
-    for (int f = 0; f < kMaxClasses; ++f)
-      acc[f] += __shfl_xor_sync(0xffffffffu, acc[f], off);
-  }
-  if (valid && l == 0) {
+      for (int u = 0; u < U; ++u)
 #pragma unroll
-    for (int f = 0; f < kMaxClasses; ++f)
-      if (f < F) out[item * F + f] = from_f<T>(acc[f]);
+        for (int f = 0; f < FM; ++f) acc[u][f] += __shfl_xor_sync(mask, acc[u][f], off);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int f = 0; f < FM; ++f)
+        if (f < F && u0 + u < n && ((u * FM + f) & (L - 1)) == l)
+          out[(p0 + u0 + u) * GF + g * F + f] = from_f<T>(acc[u][f]);
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool GATE, int FM, bool ONE>
 static cudaError_t launch_head(const void* fb, const void* mu, const void* var,
-                               const void* w, void* out, int64_t items,
-                               int64_t items_per_image, int C, int F, int lanes,
-                               float lam, int gate, cudaStream_t stream) {
-  if (C % VEC || F < 1 || F > kMaxClasses || lanes < 1 || lanes > 32 ||
-      (lanes & (lanes - 1)))
-    return cudaErrorInvalidValue;
-  const int64_t blocks = (items * lanes + kHeadThreads - 1) / kHeadThreads;
-  simam_head_kernel<T, VEC><<<(unsigned)blocks, kHeadThreads, 0, stream>>>(
+                               const void* w, void* out, int B, int HW, int C, int G, int F,
+                               int L, float lam, int pc, cudaStream_t stream) {
+  const int chunks = (HW + pc - 1) / pc;
+  simam_head_kernel<T, VEC, GATE, FM, ONE><<<(unsigned)(B * chunks), G * L, 0, stream>>>(
       static_cast<const T*>(fb), static_cast<const float*>(mu),
-      static_cast<const float*>(var), static_cast<const T*>(w), static_cast<T*>(out),
-      items, items_per_image, C, F, lanes, lam, gate);
+      static_cast<const float*>(var), static_cast<const T*>(w), static_cast<T*>(out), HW, C,
+      G, F, L, lam, pc, chunks);
   return cudaGetLastError();
+}
+
+// The ONE instantiations for the lane's one channel vector (F bound 1, 2,
+// 4 or 8), the strided one (F bound 8) for every other geometry.
+template <typename T, int VEC, bool GATE>
+static cudaError_t launch_head_f(bool one, const void* fb, const void* mu, const void* var,
+                                 const void* w, void* out, int B, int HW, int C, int G,
+                                 int F, int L, float lam, int pc, cudaStream_t s) {
+  if constexpr (VEC > 1) {
+    if (one && F <= 1)
+      return launch_head<T, VEC, GATE, 1, true>(fb, mu, var, w, out, B, HW, C, G, F, L, lam,
+                                                pc, s);
+    if (one && F <= 2)
+      return launch_head<T, VEC, GATE, 2, true>(fb, mu, var, w, out, B, HW, C, G, F, L, lam,
+                                                pc, s);
+    if (one && F <= 4)
+      return launch_head<T, VEC, GATE, 4, true>(fb, mu, var, w, out, B, HW, C, G, F, L, lam,
+                                                pc, s);
+    if (one)
+      return launch_head<T, VEC, GATE, 8, true>(fb, mu, var, w, out, B, HW, C, G, F, L, lam,
+                                                pc, s);
+  }
+  return launch_head<T, VEC, GATE, 8, false>(fb, mu, var, w, out, B, HW, C, G, F, L, lam, pc,
+                                             s);
+}
+
+template <bool GATE>
+static cudaError_t dispatch_head(int dtype, int vec, const void* fb, const void* mu,
+                                 const void* var, const void* w, void* out, int B, int H,
+                                 int W, int C, int G, int F, int L, float lam, int pc,
+                                 cudaStream_t s) {
+  if (vec < 1 || C % vec || F < 1 || F > kMaxClasses || L < 1 || L > 32 || (L & (L - 1)) ||
+      L > C / vec || G < 1 || G * L > kHeadThreads || pc < 1 || B < 1 || H < 1 || W < 1)
+    return cudaErrorInvalidValue;
+  const int HW = H * W;
+  const bool one = vec > 1 && C / vec == L;
+  if (dtype == kFloat32 && vec == 4)
+    return launch_head_f<float, 4, GATE>(one, fb, mu, var, w, out, B, HW, C, G, F, L, lam, pc,
+                                         s);
+  if (dtype == kFloat32 && vec == 1)
+    return launch_head_f<float, 1, GATE>(one, fb, mu, var, w, out, B, HW, C, G, F, L, lam, pc,
+                                         s);
+  if (dtype == kBFloat16 && vec == 8)
+    return launch_head_f<__nv_bfloat16, 8, GATE>(one, fb, mu, var, w, out, B, HW, C, G, F, L,
+                                                 lam, pc, s);
+  if (dtype == kBFloat16 && vec == 1)
+    return launch_head_f<__nv_bfloat16, 1, GATE>(one, fb, mu, var, w, out, B, HW, C, G, F, L,
+                                                 lam, pc, s);
+  return cudaErrorInvalidValue;
 }
 
 
@@ -369,30 +454,21 @@ static cudaError_t dispatch_head_bwd2(int dtype, int vec, const void* fb, const 
 
 }  // namespace csu
 
-// fb (B, H, W, G*C) as items = B*H*W*G rows of C; mu, var (B, C) float32;
-// w (C, F) in the compute dtype; out (B, H, W, G*F).  `lanes` (a power of two
-// up to 32) lanes share one item.
+// fb (B, H, W, G*C) in the compute dtype; mu, var (B, C) float32 (null
+// without the gate); w (C, F) in the compute dtype; out (B, H, W, G*F).  A
+// block per chunk of pc pixels of one image (blocks = B * ceil(H*W / pc),
+// image-major), G*L threads: L lanes (a power of two up to min(32, C/vec),
+// G*L <= 256) per (pixel, g).
 CSU_EXPORT int csu_simam_head_fwd(int dtype, const void* fb, const void* mu,
-                                  const void* var, const void* w, void* out,
-                                  int64_t items, int64_t items_per_image, int C, int F,
-                                  int vec, int lanes, float lam, int gate,
-                                  void* stream) {
+                                  const void* var, const void* w, void* out, int B, int H,
+                                  int W, int C, int G, int F, int vec, int lanes, float lam,
+                                  int gate, int pc, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == csu::kFloat32 && vec == 4)
-    return (int)csu::launch_head<float, 4>(fb, mu, var, w, out, items, items_per_image,
-                                           C, F, lanes, lam, gate, s);
-  if (dtype == csu::kFloat32 && vec == 1)
-    return (int)csu::launch_head<float, 1>(fb, mu, var, w, out, items, items_per_image,
-                                           C, F, lanes, lam, gate, s);
-  if (dtype == csu::kBFloat16 && vec == 8)
-    return (int)csu::launch_head<__nv_bfloat16, 8>(fb, mu, var, w, out, items,
-                                                   items_per_image, C, F, lanes, lam,
-                                                   gate, s);
-  if (dtype == csu::kBFloat16 && vec == 1)
-    return (int)csu::launch_head<__nv_bfloat16, 1>(fb, mu, var, w, out, items,
-                                                   items_per_image, C, F, lanes, lam,
-                                                   gate, s);
-  return (int)cudaErrorInvalidValue;
+  if (gate)
+    return (int)csu::dispatch_head<true>(dtype, vec, fb, mu, var, w, out, B, H, W, C, G, F,
+                                         lanes, lam, pc, s);
+  return (int)csu::dispatch_head<false>(dtype, vec, fb, nullptr, nullptr, w, out, B, H, W, C,
+                                        G, F, lanes, lam, pc, s);
 }
 
 

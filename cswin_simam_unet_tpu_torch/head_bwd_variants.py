@@ -1,19 +1,26 @@
-"""K3 and K4 against variants of themselves on the card.
+"""The fused head's four kernels, K3 and K4 (backward) and K-H1 and K-H2
+(forward), against variants of themselves on the card.
 
     python -m cswin_simam_unet_tpu_torch.head_bwd_variants [--only NAME ...]
+        [--baseline DIR]
 
 Each variant is a copy of this package under ``build/head_bwd_variants/``
-with one change to K3's or K4's source (or launch geometry), built there
-and timed in a process of its own: the device time of ``head_bwd1`` (K3
-and the sum of its partials) and of ``fused_head_bwd`` (K4 and the sum of
-its db partials), and of each kernel's launch alone, behind a spin kernel,
-at the 512^2 head (batch 8) and the 2048^2 head (batch 1), bf16, one
-class; and each variant's largest error over max|plain| at the 512^2 head
-(batch 1).  The variants say what the design choices are worth: the
-branch-free correctly rounded division and reciprocal against ``/``,
-predicated against branched loads, the share of K4's time that staging
-takes, and other block shapes.  Needs a CUDA device; prints one JSON line
-per variant.
+with one change to a kernel's source (or launch geometry), built there and
+timed in a process of its own, behind a spin kernel: the device time of
+``head_bwd1`` (K3 and the sum of its partials), ``fused_head_bwd`` (K4 and
+the sum of its db partials) and of each of their launches alone, at the
+512^2 head (batch 8) and the 2048^2 head (batch 1), bf16, one class; of
+``carafe_biased_moments`` (K-H1) and ``simam_head_flat`` (K-H2), the
+wrappers' torch glue included, at the same heads and at cswinunet's (448^2,
+batch 2, float32, no SimAM); and each variant's largest error over
+max|plain| at the 512^2 head (batch 1).  The variants say what the design
+choices are worth: the branch-free correctly rounded division and
+reciprocal against ``/``, predicated against branched loads, the share of
+K4's time that staging takes, and other block shapes.  ``--baseline DIR``
+adds the variant ``baseline``, the package of the checkout at DIR (another
+commit's tree, say) timed by the same measurements, so that ``--only
+baseline "as built" "as built" baseline`` compares two trees in turns.
+Needs a CUDA device; prints one JSON line per variant.
 """
 
 from __future__ import annotations
@@ -29,13 +36,16 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 ROOT = PKG.parent / "build" / "head_bwd_variants"
 K3_SRC, K4_SRC, PY = "csrc/simam_head.cu", "csrc/carafe_head_bwd.cu", "ops/carafe_head.py"
+H2_SRC, H1_SRC = K3_SRC, "csrc/carafe_head_fwd.cu"
 
 # name -> [(file in the package, text, replacement)]
 VARIANTS = {
     "as built": [],
     "K3 gate with /": [
-        (K3_SRC, "div_rn_by(xc * xc, den[i], rden[i]) + 0.5f", "xc * xc / den[i] + 0.5f"),
-        (K3_SRC, "rcp_rn(1.f + expf(-e))", "1.f / (1.f + expf(-e))")],
+        (K3_SRC, "as / does\n        const float e = div_rn_by(xc * xc, den[i], rden[i]) + 0.5f",
+         "as / does\n        const float e = xc * xc / den[i] + 0.5f"),
+        (K3_SRC, "const float gt = rcp_rn(1.f + expf(-e))",
+         "const float gt = 1.f / (1.f + expf(-e))")],
     "K4 sigmoid with /": [
         (K4_SRC, "rcp_rn(1.f + expf(-(xc * xc * w4[i] + 0.5f)))",
          "1.f / (1.f + expf(-(xc * xc * w4[i] + 0.5f)))")],
@@ -47,13 +57,36 @@ VARIANTS = {
     "K4 strips of 4 columns": [(PY, "K4_PX = (8, 4, 2, 1)", "K4_PX = (4, 2, 1)")],
     "K4 runs of at most 8 rows": [(PY, "K4_ROWS = (32, 16, 8, 4, 2, 1)",
                                    "K4_ROWS = (8, 4, 2, 1)")],
+    "K-H2 gate with /": [
+        (H2_SRC, "bit for bit\n            const float e = div_rn_by(xc * xc, den[i], rden[i])",
+         "bit for bit\n            const float e = xc * xc / den[i]"),
+        (H2_SRC, "y * rcp_rn(1.f + expf(-e))", "y * (1.f / (1.f + expf(-e)))")],
+    "K-H2 chunks of 32 pixels": [(PY, "H2_PIXELS = K3_PIXELS", "H2_PIXELS = (32,)")],
+    "K-H2 8 pixels in flight": [
+        (H2_SRC, "int U = FM <= 2 ? 4 : 2;  // pixels whose loads are in flight together\n"
+                 "  const int CV = C / VEC, GC = G * C, GF",
+         "int U = FM <= 2 ? 8 : 2;  // pixels whose loads are in flight together\n"
+         "  const int CV = C / VEC, GC = G * C, GF")],
+    "K-H2 at most 85 registers": [
+        (H2_SRC, "__launch_bounds__(kHeadThreads)\nsimam_head_kernel",
+         "__launch_bounds__(kHeadThreads, 3)\nsimam_head_kernel")],
+    "K-H1 taps with /": [(H1_SRC, "round_to<T>(div_rn_by(lg[k], den, rden))",
+                          "round_to<T>(lg[k] / den)")],
+    "K-H1 one pass a block": [(PY, "H1_PASSES = (8, 4, 2, 1)", "H1_PASSES = (1,)")],
+    "K-H1 passes of 32 pixels": [(PY, "H1_PASS = 16 ", "H1_PASS = 32 ")],
+    "K-H1 passes of 8 pixels": [(PY, "H1_PASS = 16 ", "H1_PASS = 8 ")],
+    "K-H2 2 pixels in flight": [
+        (H2_SRC, "int U = FM <= 2 ? 4 : 2;  // pixels whose loads are in flight together\n"
+                 "  const int CV = C / VEC, GC = G * C, GF",
+         "int U = 2;  // pixels whose loads are in flight together\n"
+         "  const int CV = C / VEC, GC = G * C, GF")],
 }
 
 CHILD = r"""
 import json, sys, torch
 sys.path.insert(0, sys.argv[1])
 from cswin_simam_unet_tpu_torch import _build
-from cswin_simam_unet_tpu_torch.ops import carafe_head
+from cswin_simam_unet_tpu_torch.ops import carafe, carafe_head
 from cswin_simam_unet_tpu_torch.ops.simam import LAMBDA, pooled_stats
 
 dev = torch.device("cuda")
@@ -105,6 +138,9 @@ for label, B, r in (("512", 8, 128), ("2048", 1, 512)):
         dy.data_ptr(), wt.data_ptr(), mu.data_ptr(), v.data_ptr(), A.data_ptr(),
         Bq.data_ptr(), dx.data_ptr(), denc.data_ptr(), db.data_ptr(), B, r, r, E, 4, F, 8,
         g4["px"], g4["rows"], LAMBDA))
+    h1_args = (x, enc, randn(E, scale=0.1), 4)
+    out[f"K-H1 {label}"] = device_ms(lambda: carafe_head.carafe_biased_moments(*h1_args))
+    out[f"K-H2 {label}"] = device_ms(lambda: carafe_head.simam_head_flat(fb, mu, v, wt, G))
     if label == "512":  # errors over max|plain| of each output, batch 1
         x1, e1, fb1, dy1 = x[:1], enc[:1], fb[:1], dy[:1]
         f1 = fb1.float()
@@ -118,8 +154,25 @@ for label, B, r in (("512", 8, 128), ("2048", 1, 512)):
                                                    mu1, v1, want[0], want[1], w, 4)
         out["K4 error"] = max(float((a.float() - b).abs().max() / b.abs().max())
                               for a, b in zip(got, ref))
+        b1 = h1_args[2]
+        got = carafe_head.carafe_biased_moments(x1, e1, b1, 4)[0]
+        ref = carafe.carafe_flat(x1.float(), e1.float(), 4) + b1.float().repeat(G)
+        out["K-H1 error"] = float((got.float() - ref).abs().max() / ref.abs().max())
+        got = carafe_head.simam_head_flat(fb1, mu1, v1, wt, G)
+        ref = carafe_head.head_reference(f1, torch.zeros(E, device=dev), wt.float(), G)
+        out["K-H2 error"] = float((got.float() - ref).abs().max() / ref.abs().max())
     del fb, dy, x, enc
     torch.cuda.empty_cache()
+# cswinunet's head: 448^2, batch 2, float32, no SimAM
+r = 112
+x, enc = randn(2, r, r, E, dtype=torch.float32), randn(2, r, r, 9 * G, dtype=torch.float32)
+b = randn(E, scale=0.1, dtype=torch.float32)
+w = randn(E, F, scale=E ** -0.5, dtype=torch.float32)
+fb = carafe_head.carafe_biased_moments(x, enc, b, 4, False)[0]
+out["K-H1 448 f32 no gate"] = device_ms(lambda: carafe_head.carafe_biased_moments(
+    x, enc, b, 4, False))
+out["K-H2 448 f32 no gate"] = device_ms(lambda: carafe_head.simam_head_flat(
+    fb, None, None, w, G, gate=False))
 print("RESULT " + json.dumps(out))
 """
 
@@ -141,11 +194,16 @@ def make_copy(name: str, patches) -> Path:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*", help="variant names to run (default: all)")
+    ap.add_argument("--baseline", type=Path,
+                    help="a checkout whose package runs as the variant 'baseline'")
     args = ap.parse_args()
-    names = args.only or list(VARIANTS)
+    names = args.only or list(VARIANTS) + (["baseline"] if args.baseline else [])
     failed = 0
     for name in names:  # one after the other: each builds and times alone on the card
-        root = make_copy(name, VARIANTS[name])
+        if name == "baseline":
+            root = args.baseline.resolve()
+        else:
+            root = make_copy(name, VARIANTS[name])
         run = subprocess.run([sys.executable, "-c", CHILD, str(root)], capture_output=True,
                              text=True, timeout=900, env={**os.environ, "PYTHONPATH": ""})
         lines = [l for l in run.stdout.splitlines() if l.startswith("RESULT ")]

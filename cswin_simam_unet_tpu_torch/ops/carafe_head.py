@@ -6,8 +6,9 @@ map, the out-conv bias added in the compute dtype, SimAM over the flat map
 with statistics pooled per real channel, and the grouped 1x1 head dot.
 
 Forward:
-* K-H1 (``csrc/carafe.cu``, ``csu_carafe_head_fwd``): reassembly + bias,
-  writing the flat map fb and per-block sums of it and of its square;
+* K-H1 (``csrc/carafe_head_fwd.cu``, ``csu_carafe_head_fwd``): reassembly +
+  bias, writing the flat map fb and per-block sums of it and of its square
+  per real channel;
 * between them, plain torch pools the sums into (mu, v) per real channel
   (as the JAX package does outside its kernel);
 * K-H2 (``csrc/simam_head.cu``, ``csu_simam_head_fwd``): gate + head dot.
@@ -22,8 +23,9 @@ Backward (SimAM on):
   straight into the CARAFE backward -> dx, denc and per-block bias-gradient
   partials.
 
-:func:`k4_geometry` and :func:`k3_geometry` pick the two kernels' blocks
-(mirroring the C side's shared-memory formula and block decode).
+:func:`h1_geometry`, :func:`h2_geometry`, :func:`k4_geometry` and
+:func:`k3_geometry` pick the four kernels' blocks (mirroring the C side's
+shared-memory formulas and block decodes).
 
 Backward without SimAM (``gate=False``):
 * K3 without the gate (``csu_head_bwd1_nogate``, for
@@ -58,7 +60,8 @@ BWD1_NOGATE_KERNEL = "csu_head_bwd1_nogate"
 FUSED_BWD_NOGATE_KERNEL = "csu_carafe_head_bwd_nogate"
 MAX_CLASSES = 8
 
-# Launch geometry of K3 and K4 (csrc/simam_head.cu, csrc/carafe_head_bwd.cu).
+# Launch geometry of K-H1, K-H2, K3 and K4 (csrc/carafe_head_fwd.cu,
+# csrc/simam_head.cu, csrc/carafe_head_bwd.cu).
 H100_SMS = 132
 WAVES = 4                      # the grid fills the card's SMs at least this many times
 SMEM_LIMIT = 227 * 1024        # shared memory one block may use (common.cuh kMaxSmem)
@@ -66,6 +69,12 @@ K4_SMEM_BUDGET = 113 * 1024    # K4 picks the widest strip that keeps two blocks
 K4_PX = (8, 4, 2, 1)           # own columns of a K4 block, a warp each
 K4_ROWS = (32, 16, 8, 4, 2, 1)  # rows of a K4 block's run, the longest that fills the card
 K3_PIXELS = (1024, 512, 256, 128, 64, 32, 16)  # pixels of a K3 block, the same way
+H2_PIXELS = K3_PIXELS          # pixels of a K-H2 block, the same way
+H2_THREADS = 256               # threads of a K-H2 block at most (simam_head.cu)
+H1_THREADS = 256               # threads of a K-H1 block at most (carafe_head_fwd.cu)
+H1_SMEM = 48 * 1024            # shared memory of a K-H1 block at most
+H1_PASS = 16                   # pixels of one K-H1 pass at most (128 threads in bf16)
+H1_PASSES = (8, 4, 2, 1)       # passes of a K-H1 block, the most that fills the card
 
 
 def class_bound(F: int) -> int:
@@ -124,14 +133,62 @@ def k4_block_pixels(geom: dict, H: int, W: int, block: int):
     return b, y0, min(H, y0 + geom["rows"]), x0, min(W, x0 + geom["px"])
 
 
-def k3_geometry(B: int, H: int, W: int, sms: int = H100_SMS) -> dict:
+def k3_geometry(B: int, H: int, W: int, sms: int = H100_SMS,
+                sizes: tuple[int, ...] = K3_PIXELS) -> dict:
     """K3's launch: a block owns ``pixels`` consecutive pixels of one image,
-    the most that still gives WAVES x ``sms`` blocks (the fewest where none
-    does)."""
-    pc = next(p for p in K3_PIXELS if p == K3_PIXELS[-1]
-              or B * -(-(H * W) // p) >= WAVES * sms)
+    the most of ``sizes`` that still gives WAVES x ``sms`` blocks (the
+    fewest where none does).  Block ``i`` is chunk ``i % chunks`` of image
+    ``i // chunks``."""
+    pc = next(p for p in sizes if p == sizes[-1] or B * -(-(H * W) // p) >= WAVES * sms)
     chunks = -(-(H * W) // pc)
     return dict(pixels=pc, chunks=chunks, blocks=B * chunks)
+
+
+def h2_geometry(B: int, H: int, W: int, C: int, G: int, vec: int,
+                sms: int = H100_SMS) -> dict:
+    """K-H2's launch: K3's chunks of pixels (from H2_PIXELS), and G groups
+    of ``lanes`` threads, the largest power of two up to min(32, C/vec,
+    H2_THREADS/G), per (pixel, g); ``one`` where each lane holds exactly one
+    channel vector (its constants in registers).  Raises where G exceeds
+    H2_THREADS."""
+    if G > H2_THREADS:
+        raise ValueError(f"K-H2: G = {G} groups exceed a block of {H2_THREADS} threads")
+    cv = C // vec
+    lanes = 1
+    while lanes * 2 <= min(32, cv, H2_THREADS // G):
+        lanes *= 2
+    return dict(k3_geometry(B, H, W, sms, H2_PIXELS), lanes=lanes, threads=G * lanes,
+                one=vec > 1 and cv == lanes)
+
+
+def h1_smem_bytes(C: int, S: int, pass_pixels: int) -> int:
+    """Shared memory of one K-H1 block (csrc/carafe_head_fwd.cu::h1_smem):
+    two pass buffers of 9*S^2 + 1 floats a pixel, which the block's moment
+    sums (2 x pass_pixels x C floats) reuse."""
+    return 4 * max(2 * pass_pixels * (9 * S * S + 1), 2 * pass_pixels * C)
+
+
+def h1_geometry(B: int, H: int, W: int, C: int, S: int, vec: int,
+                sms: int = H100_SMS) -> dict:
+    """K-H1's launch: a thread owns a (pixel, channel vector) of a pass of
+    ``pass_pixels`` pixels (up to H1_PASS, H1_THREADS threads and the shared
+    memory's H1_SMEM); a block owns ``pixels`` = passes x pass_pixels
+    consecutive pixels of one image, the most passes of H1_PASSES that still
+    give WAVES x ``sms`` blocks.  Block ``i`` is chunk ``i % chunks`` of
+    image ``i // chunks``; its moment sums are row ``i`` of (blocks, C).
+    Raises where a block cannot hold one pixel."""
+    cv = C // vec
+    pp = min(H1_PASS, H1_THREADS // cv)
+    while pp > 0 and h1_smem_bytes(C, S, pp) > H1_SMEM:
+        pp -= 1
+    if pp < 1:
+        raise ValueError(f"a K-H1 block cannot hold a pixel of C={C}, S={S} "
+                         f"(C/{vec} > {H1_THREADS} threads or 9*S^2 taps over shared memory)")
+    passes = next(n for n in H1_PASSES if n == H1_PASSES[-1]
+                  or B * -(-(H * W) // (n * pp)) >= WAVES * sms)
+    chunks = -(-(H * W) // (passes * pp))
+    return dict(pass_pixels=pp, passes=passes, pixels=passes * pp, threads=pp * cv,
+                chunks=chunks, blocks=B * chunks, smem=h1_smem_bytes(C, S, pp))
 
 
 def _sms(device: torch.device) -> int:
@@ -224,8 +281,10 @@ def fused_head_bwd_reference(x, enc, fb, dy, mu, v, A, Bq, w, up_factor: int,
 def carafe_biased_moments(x: torch.Tensor, enc: torch.Tensor, bias: torch.Tensor,
                           up_factor: int, gate: bool = True):
     """K-H1: (fb, s1, s2) with fb the biased flat map (B, H, W, S^2*C) and
-    s1, s2 (B*H, S^2*C) float32 sums of fb and fb^2 over each image row
-    (one block per row; None when ``gate`` is False)."""
+    s1, s2 (B, chunks, C) float32 sums of fb and fb^2 per real channel over
+    each block's chunk of pixels and all S^2 sub-pixels (:func:`h1_geometry`;
+    None when ``gate`` is False): ``s1.sum(1)`` is the (B, C) sum that
+    ``pooled_stats(..., groups=1)`` takes."""
     check_carafe_args(x, enc, up_factor, 3)
     B, H, W, C = x.shape
     S = up_factor
@@ -233,16 +292,16 @@ def carafe_biased_moments(x: torch.Tensor, enc: torch.Tensor, bias: torch.Tensor
     if bias.shape != (C,) or bias.device != x.device:
         raise ValueError(f"bias must be ({C},) on {x.device}")
     fb = torch.empty(B, H, W, S * S * C, dtype=x.dtype, device=x.device)
+    vec = _build.vec_width(x, fb, bias, channels=C)
+    geom = h1_geometry(B, H, W, C, S, vec, _sms(x.device))
     s1 = s2 = None
     if gate:
-        s1 = torch.empty(B * H, S * S * C, dtype=torch.float32, device=x.device)
+        s1 = torch.empty(B, geom["chunks"], C, dtype=torch.float32, device=x.device)
         s2 = torch.empty_like(s1)
-    vec = _build.vec_width(x, fb, bias, channels=C)
-    threads_for(C, S, vec)
     _build.launch(MOMENTS_KERNEL, x.device, _build.dtype_code(x), x.data_ptr(),
                   enc.data_ptr(), bias.data_ptr(), fb.data_ptr(),
                   s1.data_ptr() if gate else None, s2.data_ptr() if gate else None,
-                  B, H, W, C, S, vec, W)
+                  B, H, W, C, S, vec, geom["pass_pixels"], geom["pixels"])
     return fb, s1, s2
 
 
@@ -267,14 +326,11 @@ def simam_head_flat(fb: torch.Tensor, mu: torch.Tensor | None, v: torch.Tensor |
     _build.check_cuda(fb, wt)
     out = torch.empty(B, H, W, G * Fc, dtype=fb.dtype, device=fb.device)
     vec = _build.vec_width(fb, channels=C)
-    lanes = 1
-    while lanes * 2 <= min(32, C // vec):
-        lanes *= 2
-    items = B * H * W * G
+    geom = h2_geometry(B, H, W, C, G, vec, _sms(fb.device))
     _build.launch(HEAD_KERNEL, fb.device, _build.dtype_code(fb), fb.data_ptr(),
                   mu.data_ptr() if gate else None, v.data_ptr() if gate else None,
-                  wt.data_ptr(), out.data_ptr(), items, H * W * G, C, Fc, vec, lanes,
-                  float(lam), int(gate))
+                  wt.data_ptr(), out.data_ptr(), B, H, W, C, G, Fc, vec, geom["lanes"],
+                  float(lam), int(gate), geom["pixels"])
     return out
 
 
@@ -380,9 +436,8 @@ def _forward(x, enc, bias, w, S, lam, gate):
         return head_reference(fb, torch.zeros_like(bias), w, G, lam, gate), fb, mu, v
     fb, s1, s2 = carafe_biased_moments(x, enc, bias, S, gate)
     mu = v = None
-    if gate:
-        mu, v = pooled_stats(s1.reshape(B, -1, s1.shape[-1]).sum(dim=1),
-                             s2.reshape(B, -1, s2.shape[-1]).sum(dim=1), H * W * G, G)
+    if gate:  # K-H1's sums are per real channel already
+        mu, v = pooled_stats(s1.sum(dim=1), s2.sum(dim=1), H * W * G, 1)
     return simam_head_flat(fb, mu, v, w, G, lam, gate), fb, mu, v
 
 

@@ -40,7 +40,12 @@ alone.  The head's backward, K3 and K4 with and without the gate: odd
 channel counts, a single row, W below a strip, 1, 3 and 8 classes, K4 at
 blocks (rows, px) that cross the image every way, each bf16 output also at
 its own scale; two calls bitwise equal; and the branch-free division and
-reciprocal of K3's gate (common.cuh) against / bit for bit.
+reciprocal of K3's gate (common.cuh) against / bit for bit.  The head's
+forward, K-H1 and K-H2: the 512^2 and 448^2 heads, chunks that do not
+divide the image, odd channel counts, 1, 3 and 8 classes, gate on and off,
+each bf16 output also at its own scale; K-H1's per-channel moment sums; two
+calls bitwise equal; and K-H2's gate against K3's bit for bit (one-hot W
+columns against a one-hot dy).
 """
 
 import ctypes
@@ -171,17 +176,126 @@ def test_carafe_simam_head_kernels(dev, dtype, gate, H, W, C, S, F):
 
 
 def test_carafe_head_moments(dev):
+    """K-H1's moments: per-block sums per real channel, (B, chunks, C),
+    pooled with groups=1, against the statistics of the kernel's own map."""
     x = _randn(dev, 2, 8, 8, 16)
     enc = _randn(dev, 2, 8, 8, 144, seed=1)
     fb, s1, s2 = carafe_head.carafe_biased_moments(x, enc, torch.zeros(16, device=dev), 4)
     G = 16
-    mu, v = pooled_stats(s1.reshape(2, -1, G * 16).sum(1), s2.reshape(2, -1, G * 16).sum(1),
-                         8 * 8 * G, G)
+    geom = carafe_head.h1_geometry(2, 8, 8, 16, 4, 4, carafe_head._sms(dev))
+    assert s1.shape == s2.shape == (2, geom["chunks"], 16)
+    mu, v = pooled_stats(s1.sum(1), s2.sum(1), 8 * 8 * G, 1)
     mu_p, v_p = pooled_stats(fb.sum((1, 2)), (fb * fb).sum((1, 2)), 8 * 8 * G, G)
     torch.testing.assert_close(mu, mu_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(v, v_p, rtol=1e-5, atol=1e-6)
     assert carafe_head.carafe_biased_moments(x, enc, torch.zeros(16, device=dev), 4,
                                              gate=False)[1] is None
+
+
+# (H, W, C, S, F) of the head's forward kernels: the 512^2 and 448^2 heads
+# (batch 1), chunks that do not divide the image (45 x 77 = 3465 pixels),
+# odd channel counts (C 24 in bf16: three channel vectors, the strided K-H2
+# path; C 6: scalar slots; C 512: more channel vectors than a warp's lanes,
+# and in bf16 a K-H1 pass of four pixels), S 2 and 4, 1, 3 and 8 classes
+HEAD_FWD_GEOMS = [(128, 128, 64, 4, 1), (112, 112, 64, 4, 3), (45, 77, 64, 4, 8),
+                  (9, 13, 24, 2, 3), (5, 7, 6, 2, 1), (3, 5, 512, 2, 8)]
+
+
+def _head_fwd_inputs(dev, dtype, H, W, C, S, F, B=1):
+    G = S * S
+    return (_randn(dev, B, H, W, C).to(dtype), _randn(dev, B, H, W, 9 * G, seed=1).to(dtype),
+            _randn(dev, C, scale=0.1, seed=2).to(dtype),
+            _randn(dev, C, F, scale=C ** -0.5, seed=3).to(dtype))
+
+
+def _stats(fb, G):
+    f = fb.float()
+    H, W = fb.shape[1:3]
+    return pooled_stats(f.sum((1, 2)), (f * f).sum((1, 2)), H * W * G, G)
+
+
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,S,F", HEAD_FWD_GEOMS)
+def test_head_fwd_kernels(dev, dtype, gate, H, W, C, S, F):
+    """K-H1 (the biased map and its moments) and K-H2 (the logits) against
+    their plain versions, each bf16 output also at its own scale."""
+    G = S * S
+    x, enc, b, w = _head_fwd_inputs(dev, dtype, H, W, C, S, F)
+    _build.reset_launches()
+    fb, s1, s2 = carafe_head.carafe_biased_moments(x, enc, b, S, gate)
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {carafe_head.MOMENTS_KERNEL: 1}
+    want = carafe.carafe_flat(x.float(), enc.float(), S) + b.float().repeat(G)
+    assert fb.dtype == dtype and fb.shape == want.shape
+    _check_both(fb, want, dtype)
+    mu, v = _stats(fb, G)
+    if gate:
+        got = pooled_stats(s1.sum(1), s2.sum(1), H * W * G, 1)
+        for a, r in zip(got, (mu, v)):
+            assert float(((a - r).abs() / (1.0 + r.abs())).max()) <= 1e-4
+    else:
+        assert s1 is None and s2 is None
+    _build.reset_launches()
+    out = carafe_head.simam_head_flat(fb, mu, v, w, G, gate=gate)
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {carafe_head.HEAD_KERNEL: 1}
+    want = carafe_head.head_reference(fb.float(), torch.zeros(C, device=dev), w.float(), G,
+                                      gate=gate)
+    assert out.dtype == dtype and out.shape == (1, H, W, G * F)
+    _check_both(out, want, dtype)
+
+
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_fwd_kernels_deterministic(dev, dtype, gate):
+    """Two calls of K-H1 and of K-H2 give bitwise equal outputs (the moments
+    summed in a fixed order, no atomics), over ragged chunks."""
+    H, W, C, S, F = 45, 77, 64, 4, 3
+    x, enc, b, w = _head_fwd_inputs(dev, dtype, H, W, C, S, F, B=2)
+    first = carafe_head.carafe_biased_moments(x, enc, b, S, gate)
+    second = carafe_head.carafe_biased_moments(x, enc, b, S, gate)
+    for a, r in zip(first, second):
+        assert (a is None and r is None) or torch.equal(a, r)
+    mu, v = _stats(first[0], S * S)
+    assert torch.equal(carafe_head.simam_head_flat(first[0], mu, v, w, S * S, gate=gate),
+                       carafe_head.simam_head_flat(first[0], mu, v, w, S * S, gate=gate))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,G", [(16, 16), (24, 4), (6, 4)])
+def test_head_fwd_gate_is_the_backward_gate(dev, dtype, C, G):
+    """K-H2's gate is K3's, bit for bit: K-H2 with one-hot W columns gives
+    round(x g) of every pixel at those channels; K3 with a one-hot dy at
+    (pixel, g) gives dW[:, 0] = round(x g) at that pixel's channels.  Both
+    sums add only zeros to the one term, so they must agree exactly."""
+    H, W = 7, 9
+    fb = _randn(dev, 2, H, W, G * C, seed=5).to(dtype)
+    mu, v = _stats(fb, G)
+    gated = torch.empty(2, H, W, G, C, dtype=dtype, device=dev)
+    for c0 in range(0, C, 8):
+        cols = list(range(c0, min(C, c0 + 8)))
+        w = torch.zeros(C, len(cols), device=dev)
+        w[cols, range(len(cols))] = 1.0
+        out = carafe_head.simam_head_flat(fb, mu, v, w, G)
+        gated[..., cols] = out.reshape(2, H, W, G, len(cols))
+    for b, y, x, g in ((0, 0, 0, 0), (1, 3, 4, G - 1), (1, H - 1, W - 1, G // 2)):
+        dy = torch.zeros(2, H, W, G, device=dev, dtype=dtype)
+        dy[b, y, x, g] = 1.0
+        _, _, dW = carafe_head.head_bwd1(fb, dy.reshape(2, H, W, G), mu, v,
+                                         torch.zeros(C, 1, device=dev), G)
+        assert torch.equal(dW[:, 0], gated[b, y, x, g].float()), (b, y, x, g)
+
+
+def test_head_fwd_kernels_reject(dev):
+    """Geometries a block cannot hold raise; nothing falls back."""
+    fb = torch.zeros(1, 2, 2, 512 * 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K-H2"):
+        carafe_head.simam_head_flat(fb, None, None, torch.zeros(8, 1, device=dev), 512,
+                                    gate=False)
+    x = torch.zeros(1, 2, 2, 4096, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K-H1"):
+        carafe_head.carafe_biased_moments(x, torch.zeros(1, 2, 2, 36, device=dev,
+                                                         dtype=torch.bfloat16),
+                                          torch.zeros(4096, device=dev), 2)
 
 
 @pytest.mark.parametrize("use_simam", [True, False])
