@@ -20,7 +20,11 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    and the bf16 one on the tensor-core body (``_build.BODY_LAUNCHES``), and
    timed at rate 0.3 beside rate 0 (library: SDPA with ``dropout_p``), with
    its device time, the CUDA-core body's time in float32 on the same inputs
-   and the SFU/ALU floor of its exps and hashes;
+   and the SFU/ALU floor of its exps and hashes.  K-C (and K-C' in phase 4)
+   at each of the three decoder CARAFEs, each output also against its own
+   max|plain|, and timed on the device behind a spin kernel at the 512^2
+   (batch 8), 2048^2 (batch 1) and ``cswinunet`` (448^2, batch 2, float32)
+   decoders;
 4. each backward kernel (K-A', K-C', K3, K4, and K3 and K4 without the gate)
    the same way, at the training step's shapes, every output of the kernel
    checked; K-A' with dropout as K-A; the two kernels without the gate at
@@ -1301,38 +1305,67 @@ def main() -> int:
     ka["keep_rate"] = keep_rate
     del zeros, out
 
-    # K-C at the three decoder CARAFEs
-    kc = dict(ms=0.0, plain_ms=0.0, err32=0.0, err16=0.0, bytes=0.0, flops=0.0)
+    # K-C at the three decoder CARAFEs, each output also at its own scale
+    kc = dict(ms=0.0, plain_ms=0.0, device_ms=0.0, err32=0.0, err16=0.0, own32=0.0,
+              own16=0.0, bytes=0.0, flops=0.0)
     ups = [m for n, m in model.named_modules()
            if isinstance(m, CARAFE) and n != "upsample1"]
-    for i, mod in enumerate(ups):
-        C = mod.out.weight.shape[0]
-        reso = IMG // 4 // 2 ** (len(ups) - i)
-        S = mod.up_factor
 
+    def decoder_carafes(img):
+        """(reso, C, S) of the three decoder CARAFEs of a model at img^2."""
+        return [(img // 4 // 2 ** (len(ups) - i), mod.out.weight.shape[0], mod.up_factor)
+                for i, mod in enumerate(ups)]
+
+    for reso, C, S in decoder_carafes(IMG):
         def make(B, dtype, reso=reso, C=C, S=S):
             return randn(B, reso, reso, C, dtype=dtype), randn(B, reso, reso, 9 * S * S,
                                                                 dtype=dtype)
 
-        e32, e16 = check_pair(f"K-C x ({reso},{reso},{C}) S {S}", torch,
-                              lambda x, e, S=S: carafe_kernels.carafe_flat(x, e, S),
-                              lambda x, e, S=S: carafe.carafe_flat(x, e, S), make)
+        e32, e16, rel32, rel16 = check_pair(
+            f"K-C x ({reso},{reso},{C}) S {S}", torch,
+            lambda x, e, S=S: carafe_kernels.carafe_flat(x, e, S),
+            lambda x, e, S=S: carafe.carafe_flat(x, e, S), make, own=True)
         x, e = make(TIME_BATCH, torch.bfloat16)
         ms = time_ms(torch, lambda: carafe_kernels.carafe_flat(x, e, S))
+        dms = device_ms(torch, lambda: carafe_kernels.carafe_flat(x, e, S))
         plain = time_ms(torch, lambda: carafe.carafe_flat(x, e, S), iters=3)
         nbytes = (x.numel() + e.numel() + x.numel() * S * S) * 2
         flops = 2 * 9 * x.numel() * S * S
         b_ms, _ = bound_ms(nbytes, flops, "bfloat16")
-        log(f"    x1/forward: kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.4f} ms")
-        kc["ms"] += ms
-        kc["plain_ms"] += plain
-        kc["bytes"] += nbytes
-        kc["flops"] += flops
-        kc["err32"] = max(kc["err32"], e32)
-        kc["err16"] = max(kc["err16"], e16)
+        log(f"    x1/forward: kernel {ms:.4f} ms (device {dms:.4f})  plain {plain:.4f} ms  "
+            f"bound {b_ms:.4f} ms")
+        for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", plain),
+                         ("bytes", nbytes), ("flops", flops)):
+            kc[key] += val
+        for key, val in (("err32", e32), ("err16", e16), ("own32", rel32), ("own16", rel16)):
+            kc[key] = max(kc[key], val)
     kc["bound_ms"], kc["bound_by"] = bound_ms(kc["bytes"], kc["flops"], "bfloat16")
     kc["library_ms"] = None
     table["K-C"] = kc
+
+    def carafe_device_ms(label, fn, img, B, dtype):
+        """Device ms of one call of fn(x, enc, dout, S) at each decoder CARAFE
+        of a model at img^2, batch B, summed over the three (the byte bound
+        is logged beside it)."""
+        total, nbytes = 0.0, 0.0
+        for reso, C, S in decoder_carafes(img):
+            x = randn(B, reso, reso, C, dtype=dtype)
+            e = randn(B, reso, reso, 9 * S * S, dtype=dtype)
+            d = randn(B, reso, reso, S * S * C, dtype=dtype)
+            total += device_ms(torch, lambda: fn(x, e, d, S))
+            fwd = (x.numel() + e.numel() + d.numel()) * x.element_size()
+            nbytes += fwd if label == "K-C" else fwd + (x.numel() + e.numel()) * x.element_size()
+            del x, e, d
+        log(f"    {label}, the three decoder CARAFEs at {img}^2 (batch {B}, {dtype}): device "
+            f"{total:.4f} ms (bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f})")
+        return total
+
+    # at the 2048^2 path (batch 1, bf16) and cswinunet's (448^2, batch 2, float32)
+    for label, B, img, dtype in (("2048", 1, IMG2048, torch.bfloat16),
+                                 ("448", TRAIN_CONFIGS["cswinunet"].batch_size, IMG448,
+                                  torch.float32)):
+        kc[f"device_ms_{label}"] = carafe_device_ms(
+            "K-C", lambda x, e, d, S: carafe_kernels.carafe_flat(x, e, S), img, B, dtype)
 
     # K-H1 and K-H2 at the final head: x (B,128,128,64), S 4, one class
     r0, E, S = IMG // 4, model.output.weight.shape[1], 4
@@ -1608,13 +1641,10 @@ def main() -> int:
                  ("rel32_drop", "rel16_drop"))
     table["K-A'"] = kab
 
-    # K-C' at the three decoder CARAFEs
-    kcb = dict(ms=0.0, plain_ms=0.0, err32=0.0, err16=0.0, abs32=0.0, bytes=0.0, flops=0.0)
-    for i, mod in enumerate(ups):
-        C = mod.out.weight.shape[0]
-        reso = IMG // 4 // 2 ** (len(ups) - i)
-        S = mod.up_factor
-
+    # K-C' at the three decoder CARAFEs, dx and denc also at their own scale
+    kcb = dict(ms=0.0, plain_ms=0.0, device_ms=0.0, err32=0.0, err16=0.0, abs32=0.0,
+               bytes=0.0, flops=0.0)
+    for reso, C, S in decoder_carafes(IMG):
         def make(B, dtype, reso=reso, C=C, S=S):
             return (randn(B, reso, reso, C, dtype=dtype),
                     randn(B, reso, reso, 9 * S * S, dtype=dtype),
@@ -1626,19 +1656,26 @@ def main() -> int:
             lambda x, e, d, S=S: carafe.carafe_bwd_reference(x, e, d, S), make, own=(0, 1))
         x, e, d = make(TIME_BATCH, torch.bfloat16)
         ms = time_ms(torch, lambda: carafe_kernels.carafe_flat_bwd(x, e, d, S))
+        dms = device_ms(torch, lambda: carafe_kernels.carafe_flat_bwd(x, e, d, S))
         plain = time_ms(torch, lambda: carafe.carafe_bwd_reference(x, e, d, S), iters=3)
         nbytes = (2 * x.numel() + 2 * e.numel() + d.numel()) * 2
         flops = 6 * 9 * d.numel()
         b_ms, _ = bound_ms(nbytes, flops, "bfloat16")
-        log(f"    x1/step: kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.4f} ms")
-        for key, val in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes),
-                         ("flops", flops)):
+        log(f"    x1/step: kernel {ms:.4f} ms (device {dms:.4f})  plain {plain:.4f} ms  "
+            f"bound {b_ms:.4f} ms")
+        for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", plain),
+                         ("bytes", nbytes), ("flops", flops)):
             kcb[key] += val
         kcb["err32"] = max(kcb["err32"], e32)
         kcb["err16"] = max(kcb["err16"], e16)
         kcb["abs32"] = max(kcb["abs32"], a32)
     kcb["bound_ms"], kcb["bound_by"] = bound_ms(kcb["bytes"], kcb["flops"], "bfloat16")
     kcb["library_ms"] = None
+    for label, B, img, dtype in (("2048", 1, IMG2048, torch.bfloat16),
+                                 ("448", TRAIN_CONFIGS["cswinunet"].batch_size, IMG448,
+                                  torch.float32)):
+        kcb[f"device_ms_{label}"] = carafe_device_ms(
+            "K-C'", carafe_kernels.carafe_flat_bwd, img, B, dtype)
     table["K-C'"] = kcb
 
     # K3 and K4 at the final head: fb (B,128,128,1024), S 4, one class
@@ -2036,7 +2073,7 @@ def main() -> int:
     sources = {
         "K-A": ("csu_stripe_attention_fwd", "cswin_simam_unet_tpu_torch/csrc/stripe_attention.cu",
                 "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:180"),
-        "K-C": ("csu_carafe_fwd", "cswin_simam_unet_tpu_torch/csrc/carafe.cu",
+        "K-C": ("csu_carafe_fwd", "cswin_simam_unet_tpu_torch/csrc/carafe_head_fwd.cu",
                 "cswin_simam_unet_tpu/ops/pallas_carafe.py:176"),
         "K-H1": ("csu_carafe_head_fwd", "cswin_simam_unet_tpu_torch/csrc/carafe_head_fwd.cu",
                  "cswin_simam_unet_tpu/ops/pallas_carafe_head.py:76"),
@@ -2045,7 +2082,7 @@ def main() -> int:
         "K-A'": ("csu_stripe_attention_bwd",
                  "cswin_simam_unet_tpu_torch/csrc/stripe_attention_bwd.cu",
                  "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:219"),
-        "K-C'": ("csu_carafe_bwd", "cswin_simam_unet_tpu_torch/csrc/carafe.cu",
+        "K-C'": ("csu_carafe_bwd", "cswin_simam_unet_tpu_torch/csrc/carafe_head_bwd.cu",
                  "cswin_simam_unet_tpu/ops/pallas_carafe.py:196"),
         "K3": ("csu_head_bwd1", "cswin_simam_unet_tpu_torch/csrc/simam_head.cu",
                "cswin_simam_unet_tpu/ops/pallas_simam_head.py:124"),
@@ -2125,7 +2162,7 @@ def main() -> int:
                 launches_mma=launches_mma,
                 **{k: row[k] for k in ("device_ms", "device_ms_drop", "ms_fma_f32",
                                        "ms_fma_f32_drop")})
-        if label in ("K3", "K4", "K3 no gate", "K4 no gate", "K-H1", "K-H2"):
+        if label in ("K3", "K4", "K3 no gate", "K4 no gate", "K-H1", "K-H2", "K-C", "K-C'"):
             entry.update({k: row[k] for k in ("device_ms", "device_ms_2048", "device_ms_448")
                           if k in row})
         if "own16" in row:

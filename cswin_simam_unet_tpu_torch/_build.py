@@ -41,8 +41,8 @@ _SIGNATURES = {
     # B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, stream
     "csu_stripe_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
                                  _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
-    # dtype, x, enc, out, B, H, W, C, S, vec, px, stream
-    "csu_carafe_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, enc, out, B, H, W, C, S, vec, pass pixels, pc, stream
+    "csu_carafe_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, enc, bias, fb, s1, s2, B, H, W, C, S, vec, pass pixels, pc, stream
     "csu_carafe_head_fwd": [_I, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -53,8 +53,8 @@ _SIGNATURES = {
     # ldg, B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, stream
     "csu_stripe_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
                                  _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
-    # dtype, x, enc, dacc, dx, denc, B, H, W, C, S, vec, px, stream
-    "csu_carafe_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, enc, dacc, dx, denc, B, H, W, C, S, vec, px, rows, stream
+    "csu_carafe_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, fb, dy, mu, var, w, part, B, H, W, C, G, F, vec, lam, pc, stream
     "csu_head_bwd1": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # dtype, x, enc, fb, dy, w, mu, var, A, Bq, dx, denc, db_part, B, H, W, C,

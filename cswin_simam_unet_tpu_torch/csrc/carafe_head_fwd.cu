@@ -1,8 +1,9 @@
 // K-H1: the fused head's forward first pass: CARAFE 4x reassembly, the
-// out-conv bias, and the moments of the biased map.
+// out-conv bias, and the moments of the biased map; and, on the same body
+// without the bias and the moments, K-C: the decoder's CARAFE reassembly.
 //
-// Replaces cswin_simam_unet_tpu/ops/pallas_carafe_head.py::_fwd_moments_kernel
-// (pallas_call at :124).  For each pixel of x (B, H, W, C) and sub-pixel s
+// K-H1 replaces cswin_simam_unet_tpu/ops/pallas_carafe_head.py::
+// _fwd_moments_kernel (pallas_call at :124).  For each pixel of x (B, H, W, C) and sub-pixel s
 // of the S x S up-sampling, with enc (B, H, W, 9*S^2) the kernel logits:
 //     p_k(pix, s) = round(softmax_k(enc[pix, k*S^2 + s]))
 //     fb[pix, s*C + c] = round(round(sum_k p_k * x[pix + off_k, c]) + bias_c)
@@ -10,6 +11,12 @@
 // layout; and (STATS) float32 per-block sums of fb and fb^2 per real channel
 // (over the block's pixels and every sub-pixel), from which the caller
 // pools SimAM's per-channel mean and variance.
+//
+// K-C (BIAS and STATS false) replaces cswin_simam_unet_tpu/ops/
+// pallas_carafe.py::_fwd_kernel (pallas_call at :320):
+//     out[pix, s*C + c] = round(sum_k p_k * x[pix + off_k, c])
+// with the same p_k, rounded once from the float32 sum.  Its three
+// launches a decoder forward write 25 MB at 512^2 (batch 8, bf16).
 //
 // What bounds it on the H100: device memory, mostly the output write: at the
 // 512^2 head x (8,128,128,64) and enc (8,128,128,144) are 55 MB read against
@@ -47,12 +54,13 @@ static size_t h1_smem(int C, int S, int pp) {
   return 4 * (ring > sums ? ring : sums);
 }
 
-template <typename T, int VEC, bool STATS>
+template <typename T, int VEC, bool BIAS, bool STATS>
 __global__ void __launch_bounds__(kH1Threads, 2)
 carafe_head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ enc,
                        const T* __restrict__ bias, T* __restrict__ fb,
                        float* __restrict__ s1, float* __restrict__ s2, int H, int W, int C,
                        int S, int pp, int pc, int chunks) {
+  static_assert(BIAS || !STATS, "the moments are those of the biased map");
   extern __shared__ __align__(16) float smem[];
   const int S2 = S * S, K9 = 9 * S2, CV = C / VEC, HW = H * W, NT = pp * CV;
   const int PS = h1_pixel_floats(S);
@@ -62,7 +70,7 @@ carafe_head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ enc,
   const int64_t img0 = (int64_t)b * HW;  // first pixel of this image
 
   float bv[VEC], a1[VEC], a2[VEC];
-  load_vec<T, VEC>(bias + c, bv);
+  if constexpr (BIAS) load_vec<T, VEC>(bias + c, bv);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) a1[i] = a2[i] = 0.f;
 
@@ -120,13 +128,15 @@ carafe_head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ enc,
 #pragma unroll
           for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, xv[k][i], acc[i]);
         }
+        if constexpr (BIAS) {
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const float f = round_to<T>(round_to<T>(acc[i]) + bv[i]);
-          acc[i] = f;
-          if constexpr (STATS) {
-            a1[i] += f;
-            a2[i] = fmaf(f, f, a2[i]);
+          for (int i = 0; i < VEC; ++i) {
+            const float f = round_to<T>(round_to<T>(acc[i]) + bv[i]);
+            acc[i] = f;
+            if constexpr (STATS) {
+              a1[i] += f;
+              a2[i] = fmaf(f, f, a2[i]);
+            }
           }
         }
         store_vec<T, VEC>(o + s * C, acc);
@@ -156,12 +166,12 @@ carafe_head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ enc,
   }
 }
 
-template <typename T, int VEC, bool STATS>
+template <typename T, int VEC, bool BIAS, bool STATS>
 static cudaError_t launch_carafe_head_fwd(const void* x, const void* enc, const void* bias,
                                           void* fb, void* s1, void* s2, int B, int H, int W,
                                           int C, int S, int pp, int pc, cudaStream_t stream) {
   const int chunks = (H * W + pc - 1) / pc;
-  carafe_head_fwd_kernel<T, VEC, STATS>
+  carafe_head_fwd_kernel<T, VEC, BIAS, STATS>
       <<<(unsigned)(B * chunks), pp * (C / VEC), h1_smem(C, S, pp), stream>>>(
           static_cast<const T*>(x), static_cast<const T*>(enc), static_cast<const T*>(bias),
           static_cast<T*>(fb), static_cast<float*>(s1), static_cast<float*>(s2), H, W, C, S,
@@ -169,7 +179,7 @@ static cudaError_t launch_carafe_head_fwd(const void* x, const void* enc, const 
   return cudaGetLastError();
 }
 
-template <bool STATS>
+template <bool BIAS, bool STATS>
 static cudaError_t dispatch_carafe_head_fwd(int dtype, int vec, const void* x, const void* enc,
                                             const void* bias, void* fb, void* s1, void* s2,
                                             int B, int H, int W, int C, int S, int pp, int pc,
@@ -178,17 +188,17 @@ static cudaError_t dispatch_carafe_head_fwd(int dtype, int vec, const void* x, c
       pp * (C / vec) > kH1Threads || h1_smem(C, S, pp) > kH1Smem)
     return cudaErrorInvalidValue;
   if (dtype == kFloat32 && vec == 4)
-    return launch_carafe_head_fwd<float, 4, STATS>(x, enc, bias, fb, s1, s2, B, H, W, C, S,
-                                                   pp, pc, s);
+    return launch_carafe_head_fwd<float, 4, BIAS, STATS>(x, enc, bias, fb, s1, s2, B, H, W,
+                                                    C, S, pp, pc, s);
   if (dtype == kFloat32 && vec == 1)
-    return launch_carafe_head_fwd<float, 1, STATS>(x, enc, bias, fb, s1, s2, B, H, W, C, S,
-                                                   pp, pc, s);
+    return launch_carafe_head_fwd<float, 1, BIAS, STATS>(x, enc, bias, fb, s1, s2, B, H, W,
+                                                    C, S, pp, pc, s);
   if (dtype == kBFloat16 && vec == 8)
-    return launch_carafe_head_fwd<__nv_bfloat16, 8, STATS>(x, enc, bias, fb, s1, s2, B, H, W,
-                                                           C, S, pp, pc, s);
+    return launch_carafe_head_fwd<__nv_bfloat16, 8, BIAS, STATS>(x, enc, bias, fb, s1, s2,
+                                                                  B, H, W, C, S, pp, pc, s);
   if (dtype == kBFloat16 && vec == 1)
-    return launch_carafe_head_fwd<__nv_bfloat16, 1, STATS>(x, enc, bias, fb, s1, s2, B, H, W,
-                                                           C, S, pp, pc, s);
+    return launch_carafe_head_fwd<__nv_bfloat16, 1, BIAS, STATS>(x, enc, bias, fb, s1, s2,
+                                                                  B, H, W, C, S, pp, pc, s);
   return cudaErrorInvalidValue;
 }
 
@@ -208,8 +218,20 @@ CSU_EXPORT int csu_carafe_head_fwd(int dtype, const void* x, const void* enc,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((s1 == nullptr) != (s2 == nullptr)) return (int)cudaErrorInvalidValue;
   if (s1 != nullptr)
-    return (int)csu::dispatch_carafe_head_fwd<true>(dtype, vec, x, enc, bias, fb, s1, s2, B,
-                                                    H, W, C, S, pp, pc, s);
-  return (int)csu::dispatch_carafe_head_fwd<false>(dtype, vec, x, enc, bias, fb, nullptr,
-                                                   nullptr, B, H, W, C, S, pp, pc, s);
+    return (int)csu::dispatch_carafe_head_fwd<true, true>(dtype, vec, x, enc, bias, fb, s1, s2,
+                                                          B, H, W, C, S, pp, pc, s);
+  return (int)csu::dispatch_carafe_head_fwd<true, false>(dtype, vec, x, enc, bias, fb, nullptr,
+                                                         nullptr, B, H, W, C, S, pp, pc, s);
+}
+
+// K-C, the decoder's CARAFE: K-H1's body without the bias and the moments.
+// x (B, H, W, C), enc (B, H, W, 9*S*S), out (B, H, W, S*S*C), all contiguous
+// in the compute dtype; vec, pp and pc as csu_carafe_head_fwd takes them
+// (carafe_head.h1_geometry picks them).
+CSU_EXPORT int csu_carafe_fwd(int dtype, const void* x, const void* enc, void* out, int B,
+                              int H, int W, int C, int S, int vec, int pp, int pc,
+                              void* stream) {
+  return (int)csu::dispatch_carafe_head_fwd<false, false>(
+      dtype, vec, x, enc, nullptr, out, nullptr, nullptr, B, H, W, C, S, pp, pc,
+      static_cast<cudaStream_t>(stream));
 }

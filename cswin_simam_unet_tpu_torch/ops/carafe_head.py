@@ -25,7 +25,10 @@ Backward (SimAM on):
 
 :func:`h1_geometry`, :func:`h2_geometry`, :func:`k4_geometry` and
 :func:`k3_geometry` pick the four kernels' blocks (mirroring the C side's
-shared-memory formulas and block decodes).
+shared-memory formulas and block decodes).  The decoder's CARAFE kernels
+run on two of these bodies (``ops/carafe_kernels.py``): K-C on K-H1's
+without the bias and the moments, K-C' on K4's with dacc loaded
+(``k4_geometry(..., copy=True)``).
 
 Backward without SimAM (``gate=False``):
 * K3 without the gate (``csu_head_bwd1_nogate``, for
@@ -48,7 +51,6 @@ import torch
 
 from .. import _build
 from . import carafe
-from .carafe_kernels import check_carafe_args, threads_for
 from .simam import LAMBDA, pooled_stats
 from .windows import pixel_unshuffle
 
@@ -68,6 +70,7 @@ SMEM_LIMIT = 227 * 1024        # shared memory one block may use (common.cuh kMa
 K4_SMEM_BUDGET = 113 * 1024    # K4 picks the widest strip that keeps two blocks an SM
 K4_PX = (8, 4, 2, 1)           # own columns of a K4 block, a warp each
 K4_ROWS = (32, 16, 8, 4, 2, 1)  # rows of a K4 block's run, the longest that fills the card
+KC_PX, KC_WAVES = K4_PX, WAVES  # the same for K-C' (K4's body, copy=True)
 K3_PIXELS = (1024, 512, 256, 128, 64, 32, 16)  # pixels of a K3 block, the same way
 H2_PIXELS = K3_PIXELS          # pixels of a K-H2 block, the same way
 H2_THREADS = 256               # threads of a K-H2 block at most (simam_head.cu)
@@ -77,15 +80,37 @@ H1_PASS = 16                   # pixels of one K-H1 pass at most (128 threads in
 H1_PASSES = (8, 4, 2, 1)       # passes of a K-H1 block, the most that fills the card
 
 
+def check_carafe_args(x: torch.Tensor, enc: torch.Tensor, up_factor: int,
+                      ksize: int) -> None:
+    if ksize != 3:
+        raise ValueError(f"the CARAFE kernels take ksize 3, got {ksize}")
+    B, H, W, C = x.shape
+    if enc.shape != (B, H, W, 9 * up_factor * up_factor):
+        raise ValueError(f"enc must be {(B, H, W, 9 * up_factor ** 2)}, "
+                         f"got {tuple(enc.shape)}")
+    _build.check_cuda(x, enc)
+
+
+def threads_for(C: int, S: int, vec: int) -> int:
+    """One thread per (sub-pixel, channel vector) of a pixel: the most that
+    K4 and K-C' take (S^2*C/vec <= 1024)."""
+    threads = S * S * (C // vec)
+    if threads > 1024:
+        raise ValueError(f"S^2*C/{vec} = {threads} threads exceed one block")
+    return threads
+
+
 def class_bound(F: int) -> int:
     """The compile-time class bound the kernels take for F classes."""
     return next(fm for fm in (1, 2, 4, 8) if F <= fm)
 
 
-def k4_smem_bytes(C: int, S: int, vec: int, elem: int, px: int, F: int, gate: bool) -> int:
+def k4_smem_bytes(C: int, S: int, vec: int, elem: int, px: int, F: int, gate: bool,
+                  copy: bool = False) -> int:
     """Shared memory of one K4 block (csrc/carafe_head_bwd.cu::head_bwd_smem):
     the 3-row ring of dacc and p, the channel constants, W, and the db sums
-    when a thread stages several vector slots."""
+    when a thread stages several vector slots; with ``copy`` (K-C', the
+    policy CopyDacc) the ring and x of its rows."""
     def align16(n):
         return (n + 15) & ~15
     S2 = S * S
@@ -93,32 +118,37 @@ def k4_smem_bytes(C: int, S: int, vec: int, elem: int, px: int, F: int, gate: bo
     nvec = SC // vec
     single = nvec <= NT
     ring = align16(3 * PW * (SC + 9 * S2) * elem)
+    if copy:
+        return ring + align16(3 * PW * C * elem)
     scratch = (NT // nvec) * SC * 4 if single else 0
     return (max(ring, scratch) + (16 * C if gate else 0) + align16(4 * class_bound(F) * C)
             + (0 if single else 4 * SC))
 
 
 def k4_geometry(B: int, H: int, W: int, C: int, S: int, vec: int, elem: int, F: int,
-                gate: bool, sms: int = H100_SMS, tile: tuple[int, int] | None = None) -> dict:
+                gate: bool, sms: int = H100_SMS, tile: tuple[int, int] | None = None,
+                copy: bool = False) -> dict:
     """K4's launch: a block owns ``px`` columns (a warp each, 32*px threads)
     and a run of ``rows`` rows of one image.  px is the widest (up to W)
     whose shared memory keeps two blocks an SM; rows the longest run that
     still gives WAVES x ``sms`` blocks (1 where none does).  ``tile`` =
-    (rows, px) overrides both.  Raises where a block cannot fit."""
+    (rows, px) overrides both; ``copy`` sizes the block for K-C' (F and
+    gate unused).  Raises where a block cannot fit."""
     threads_for(C, S, vec)
     if tile is not None:
         rows, px = tile
         if not (1 <= rows and 1 <= px <= K4_PX[0]):
             raise ValueError(f"K4 tile {tile}: rows >= 1 and 1 <= px <= {K4_PX[0]}")
     else:
-        px = next(p for p in K4_PX if p == 1 or (
-            p <= W and k4_smem_bytes(C, S, vec, elem, p, F, gate) <= K4_SMEM_BUDGET))
-    smem = k4_smem_bytes(C, S, vec, elem, px, F, gate)
+        px = next(p for p in (KC_PX if copy else K4_PX) if p == 1 or (
+            p <= W and k4_smem_bytes(C, S, vec, elem, p, F, gate, copy) <= K4_SMEM_BUDGET))
+    smem = k4_smem_bytes(C, S, vec, elem, px, F, gate, copy)
     if smem > SMEM_LIMIT:
         raise ValueError(f"a K4 block of C={C}, S={S} takes {smem} bytes of shared memory")
     strips = -(-W // px)
     if tile is None:
-        rows = next(r for r in K4_ROWS if r == 1 or B * -(-H // r) * strips >= WAVES * sms)
+        waves = KC_WAVES if copy else WAVES
+        rows = next(r for r in K4_ROWS if r == 1 or B * -(-H // r) * strips >= waves * sms)
     runs = -(-H // rows)
     return dict(px=px, rows=rows, strips=strips, runs=runs, blocks=B * runs * strips,
                 threads=32 * px, smem=smem)

@@ -4,9 +4,16 @@ pre-pixel-shuffle layout.
 Counterpart of ``cswin_simam_unet_tpu/ops/pallas_carafe.py::
 carafe_flat_pallas`` / ``carafe_reassemble_pallas`` and their custom VJP.
 :func:`carafe_flat` is a ``torch.autograd.Function``: on CUDA tensors its
-forward launches K-C and its backward K-C' (``csrc/carafe.cu``); on CPU
-tensors both take the plain versions in
-:mod:`cswin_simam_unet_tpu_torch.ops.carafe`.
+forward launches K-C and its backward K-C'; on CPU tensors both take the
+plain versions in :mod:`cswin_simam_unet_tpu_torch.ops.carafe`.
+
+The two kernels run on the fused head's bodies: K-C (``csu_carafe_fwd``)
+on K-H1's (``csrc/carafe_head_fwd.cu``) without the bias and the moments,
+in K-H1's blocks (``carafe_head.h1_geometry``); K-C' (``csu_carafe_bwd``)
+on K4's (``csrc/carafe_head_bwd.cu``) with the cotangent and x copied into
+its ring as they are, in K4's blocks sized for that ring
+(``carafe_head.k4_geometry(..., copy=True)``).  A shape whose block cannot
+fit raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -15,48 +22,18 @@ import torch
 
 from .. import _build
 from . import carafe
+from .carafe_head import _sms, check_carafe_args, h1_geometry, k4_geometry
 from .windows import pixel_shuffle
 
 KERNEL = "csu_carafe_fwd"
 BWD_KERNEL = "csu_carafe_bwd"
-PIXELS_PER_BLOCK = 16
-BWD_SMEM_BUDGET = 100 * 1024  # two backward blocks per SM
 
 
-def check_carafe_args(x: torch.Tensor, enc: torch.Tensor, up_factor: int,
-                      ksize: int) -> None:
-    if ksize != 3:
-        raise ValueError(f"the CARAFE kernels take ksize 3, got {ksize}")
-    B, H, W, C = x.shape
-    if enc.shape != (B, H, W, 9 * up_factor * up_factor):
-        raise ValueError(f"enc must be {(B, H, W, 9 * up_factor ** 2)}, "
-                         f"got {tuple(enc.shape)}")
-    _build.check_cuda(x, enc)
-
-
-def threads_for(C: int, S: int, vec: int) -> int:
-    """Threads of a CARAFE block: one per (sub-pixel, channel vector)."""
-    threads = S * S * (C // vec)
-    if threads > 1024:
-        raise ValueError(f"S^2*C/{vec} = {threads} threads exceed one block")
-    return threads
-
-
-def bwd_smem_bytes(C: int, S: int, vec: int, elem: int, px: int) -> int:
-    """Shared memory of one backward block (csrc/carafe.cu::carafe_bwd_smem)."""
-    S2, PW = S * S, px + 2
-    nt = S2 * (C // vec)
-    nfloat = (3 * PW * 9 * S2 + 9 * nt + nt * vec + 9 * S2 + 3) & ~3
-    return 4 * nfloat + elem * 3 * PW * S2 * C
-
-
-def bwd_pixels_per_block(C: int, S: int, vec: int, elem: int, W: int) -> int:
-    """Pixels of a row per backward block: the most (up to 16 and W) whose
-    staged rows fit the shared-memory budget."""
-    for px in (16, 8, 4, 2, 1):
-        if px <= max(W, 1) and bwd_smem_bytes(C, S, vec, elem, px) <= BWD_SMEM_BUDGET:
-            return px
-    raise ValueError(f"a CARAFE backward block of C={C}, S={S} does not fit shared memory")
+def bwd_geometry(B: int, H: int, W: int, C: int, S: int, vec: int, elem: int,
+                 sms: int) -> dict:
+    """The launch of K-C': K4's blocks, shared memory for the ring of dacc,
+    p and x."""
+    return k4_geometry(B, H, W, C, S, vec, elem, 1, False, sms, copy=True)
 
 
 def carafe_flat_fwd(x: torch.Tensor, enc: torch.Tensor, up_factor: int) -> torch.Tensor:
@@ -67,9 +44,9 @@ def carafe_flat_fwd(x: torch.Tensor, enc: torch.Tensor, up_factor: int) -> torch
     S = up_factor
     out = torch.empty(B, H, W, S * S * C, dtype=x.dtype, device=x.device)
     vec = _build.vec_width(x, out, channels=C)
-    threads_for(C, S, vec)
+    geom = h1_geometry(B, H, W, C, S, vec, _sms(x.device))
     _build.launch(KERNEL, x.device, _build.dtype_code(x), x.data_ptr(), enc.data_ptr(),
-                  out.data_ptr(), B, H, W, C, S, vec, PIXELS_PER_BLOCK)
+                  out.data_ptr(), B, H, W, C, S, vec, geom["pass_pixels"], geom["pixels"])
     return out
 
 
@@ -89,10 +66,10 @@ def carafe_flat_bwd(x: torch.Tensor, enc: torch.Tensor, dout: torch.Tensor,
     dx = torch.empty_like(x)
     denc = torch.empty_like(enc)
     vec = _build.vec_width(x, dout, dx, channels=C)
-    threads_for(C, S, vec)
-    px = bwd_pixels_per_block(C, S, vec, x.element_size(), W)
+    geom = bwd_geometry(B, H, W, C, S, vec, x.element_size(), _sms(x.device))
     _build.launch(BWD_KERNEL, x.device, _build.dtype_code(x), x.data_ptr(), enc.data_ptr(),
-                  dout.data_ptr(), dx.data_ptr(), denc.data_ptr(), B, H, W, C, S, vec, px)
+                  dout.data_ptr(), dx.data_ptr(), denc.data_ptr(), B, H, W, C, S, vec,
+                  geom["px"], geom["rows"])
     return dx, denc
 
 

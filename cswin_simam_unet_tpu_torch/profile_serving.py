@@ -36,7 +36,14 @@ import torch
 
 def _group(name: str) -> str:
     if "csu::" in name:
-        return "port kernels (" + name.split("csu::")[1].split("<")[0] + ")"
+        kernel = name.split("csu::")[1].split("<")[0]
+        # K-C' and K-C run on K4's and K-H1's kernels: told apart by their
+        # template arguments (the CopyDacc policy; no bias, no moments)
+        if "CopyDacc" in name:
+            kernel += ", K-C'"
+        elif kernel == "carafe_head_fwd_kernel" and ", false, false>" in name:
+            kernel += ", K-C"
+        return "port kernels (" + kernel + ")"
     low = name.lower()
     if "memcpy" in low or "memset" in low:
         return "copies between host and device, memsets"

@@ -142,19 +142,105 @@ def test_stripe_attention_kernel_rejects(dev):
                                           H=8, W=8, hsp=8, wsp=1, num_heads=1)
 
 
+# (B, H, W, C, S) of the decoder's CARAFE kernels, K-C and K-C': small maps,
+# the flagship's three decoder CARAFEs at batch 1 (64^2 C 64, 32^2 C 128,
+# 16^2 C 256), S 4 at C 64 (the head path above 8 classes), a ragged 45 x 77
+# map (W not a multiple of the 8-column strips of K-C', chunks that do not
+# divide it), a single row, W = 1, C 6 (scalar slots) and C 24 (three bf16
+# channel vectors)
+CARAFE_GEOMS = [(2, 8, 8, 16, 2), (2, 6, 10, 8, 4), (2, 5, 7, 6, 2), (1, 64, 64, 64, 2),
+                (1, 32, 32, 128, 2), (1, 16, 16, 256, 2), (1, 64, 64, 64, 4),
+                (1, 45, 77, 64, 2), (2, 1, 37, 16, 2), (2, 9, 1, 16, 4), (2, 7, 9, 6, 4),
+                (2, 9, 13, 24, 2)]
+
+
+def _carafe_inputs(dev, dtype, B, H, W, C, S):
+    return (_randn(dev, B, H, W, C).to(dtype), _randn(dev, B, H, W, 9 * S * S, seed=1).to(dtype),
+            _randn(dev, B, H, W, S * S * C, seed=2).to(dtype))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,W,C,S", [(8, 8, 16, 2), (6, 10, 8, 4), (5, 7, 6, 2)])
-def test_carafe_kernel(dev, dtype, H, W, C, S):
-    x = _randn(dev, 2, H, W, C).to(dtype)
-    enc = _randn(dev, 2, H, W, 9 * S * S, seed=1).to(dtype)
+@pytest.mark.parametrize("B,H,W,C,S", CARAFE_GEOMS)
+def test_carafe_kernel(dev, dtype, B, H, W, C, S):
+    """K-C against the plain version, each bf16 output also at its own scale."""
+    x, enc, _ = _carafe_inputs(dev, dtype, B, H, W, C, S)
+    _build.reset_launches()
     got = carafe_kernels.carafe_flat(x, enc, S)
-    _check(got, carafe.carafe_flat(x.float(), enc.float(), S), dtype)
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {carafe_kernels.KERNEL: 1}
+    assert got.dtype == dtype
+    _check_both(got, carafe.carafe_flat(x.float(), enc.float(), S), dtype)
 
 
 def test_carafe_kernel_rejects_strided(dev):
     x = torch.zeros(1, 4, 8, 8, device=dev)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         carafe_kernels.carafe_flat(x, torch.zeros(1, 4, 4, 36, device=dev), 2)
+
+
+def test_carafe_kernels_reject_what_cannot_fit(dev):
+    """K-C's block (K-H1's) needs a thread per channel vector of a pixel, and
+    K-C' (on K4's body) takes at most 1024 (sub-pixel, channel vector) slots
+    a pixel.  Both raise; nothing falls back."""
+    x = torch.zeros(1, 2, 2, 4096, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K-H1"):
+        carafe_kernels.carafe_flat(x, torch.zeros(1, 2, 2, 9, device=dev,
+                                                  dtype=torch.bfloat16), 1)
+    enc = torch.zeros(1, 2, 2, 36, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="threads"):
+        carafe_kernels.carafe_flat_bwd(x, enc, torch.zeros(1, 2, 2, 4 * 4096, device=dev,
+                                                           dtype=torch.bfloat16), 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_carafe_kernels_deterministic(dev, dtype):
+    """Two calls of K-C and of K-C' give bitwise equal outputs (no atomics),
+    over ragged chunks, runs and strips."""
+    x, enc, dout = _carafe_inputs(dev, dtype, 2, 45, 77, 64, 2)
+    assert torch.equal(carafe_kernels.carafe_flat(x, enc, 2),
+                       carafe_kernels.carafe_flat(x, enc, 2))
+    for a, b in zip(carafe_kernels.carafe_flat_bwd(x, enc, dout, 2),
+                    carafe_kernels.carafe_flat_bwd(x, enc, dout, 2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", range(9))
+def test_carafe_kernels_one_hot_taps(dev, dtype, k):
+    """Tap k's logit 30 above the others at every pixel and sub-pixel: p_k
+    rounds to 1 and the other taps weigh e^-30, so out is x shifted by
+    offset k alone (zero past the border), dx the cotangent gathered from
+    that neighbour alone, and denc the other taps' p (dp - dp_k): K-C and
+    K-C' against the plain versions, each output at its own scale too."""
+    B, H, W, C, S = 2, 9, 13, 16, 2
+    x, _, dout = _carafe_inputs(dev, dtype, B, H, W, C, S)
+    enc = torch.full((B, H, W, 9, S * S), -30.0, device=dev)
+    enc[..., k, :] = 0.0
+    enc = enc.reshape(B, H, W, 9 * S * S).to(dtype)
+    out = carafe_kernels.carafe_flat(x, enc, S)
+    dy, dx = k // 3 - 1, k % 3 - 1
+    shifted = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))[
+        :, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+    _check(out.reshape(B, H, W, S * S, C), shifted[..., None, :].expand(-1, -1, -1, S * S, -1),
+           dtype)
+    want = carafe.carafe_flat(x.float(), enc.float(), S)
+    _check_both(out, want, dtype)
+    _check_own(out, want, dtype)
+    got = carafe_kernels.carafe_flat_bwd(x, enc, dout, S)
+    want = carafe.carafe_bwd_reference(x.float(), enc.float(), dout.float(), S)
+    for a, b in zip(got, want):
+        _check_both(a, b, dtype)
+        _check_own(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,S", [(2, 45, 77, 64, 2), (1, 16, 16, 256, 2),
+                                       (2, 7, 9, 6, 4)])
+def test_carafe_kernel_is_head_fwd_without_bias(dev, dtype, B, H, W, C, S):
+    """K-C is K-H1's body without the bias: it equals K-H1 with a zero bias
+    bit for bit (one rounding of the same float32 sum, then + 0)."""
+    x, enc, _ = _carafe_inputs(dev, dtype, B, H, W, C, S)
+    fb = carafe_head.carafe_biased_moments(x, enc, torch.zeros(C, device=dev), S, gate=False)[0]
+    assert torch.equal(carafe_kernels.carafe_flat(x, enc, S), fb)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -364,19 +450,17 @@ def test_stripe_attention_bwd_kernel_rejects(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,W,C,S", [(8, 8, 16, 2), (6, 10, 8, 4), (5, 7, 6, 2),
-                                     (4, 20, 64, 2)])
-def test_carafe_bwd_kernel(dev, dtype, H, W, C, S):
-    x = _randn(dev, 2, H, W, C).to(dtype)
-    enc = _randn(dev, 2, H, W, 9 * S * S, seed=1).to(dtype)
-    dout = _randn(dev, 2, H, W, S * S * C, seed=2).to(dtype)
+@pytest.mark.parametrize("B,H,W,C,S", CARAFE_GEOMS + [(2, 4, 20, 64, 2)])
+def test_carafe_bwd_kernel(dev, dtype, B, H, W, C, S):
+    """K-C' against the plain version, each bf16 output also at its own scale."""
+    x, enc, dout = _carafe_inputs(dev, dtype, B, H, W, C, S)
     _build.reset_launches()
     got = carafe_kernels.carafe_flat_bwd(x, enc, dout, S)
-    assert _build.LAUNCHES[carafe_kernels.BWD_KERNEL] == 1
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {carafe_kernels.BWD_KERNEL: 1}
     want = carafe.carafe_bwd_reference(x.float(), enc.float(), dout.float(), S)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == dtype
-        _check(a, b, dtype)
+        _check_both(a, b, dtype)
 
 
 def test_carafe_bwd_kernel_rejects(dev):

@@ -18,11 +18,24 @@ import pytest
 import torch
 
 from cswin_simam_unet_tpu_torch.configs import CONFIGS, TRAIN_CONFIGS
-from cswin_simam_unet_tpu_torch.ops import carafe_head, carafe_kernels
+from cswin_simam_unet_tpu_torch.ops import carafe_head
 from cswin_simam_unet_tpu_torch.ops.simam import pooled_stats
 
 MIN_BLOCKS = 4 * 132
 DTYPES = {"float32": (4, 4), "bfloat16": (8, 2)}  # (vec, element bytes)
+
+
+def old_bwd_pixels_per_block(C, S, vec, elem, W):
+    """The pixels of a row that the first K-C' launch gave a block (the most,
+    up to 16 and W, whose staged rows fit its 100 KB budget); raises where
+    none fits.  K4 and K-C' once shared that launch."""
+    S2, nt = S * S, S * S * (C // vec)
+    for px in (16, 8, 4, 2, 1):
+        pw = px + 2
+        nfloat = (3 * pw * 9 * S2 + 9 * nt + nt * vec + 9 * S2 + 3) & ~3
+        if px <= max(W, 1) and 4 * nfloat + elem * 3 * pw * S2 * C <= 100 * 1024:
+            return px
+    raise ValueError(f"a CARAFE backward block of C={C}, S={S} does not fit shared memory")
 
 
 def _head(name):
@@ -178,7 +191,7 @@ def test_k4_takes_every_geometry_the_old_wrapper_took(S, dtype):
         if S * S * C // vec > 1024:
             break
         try:
-            carafe_kernels.bwd_pixels_per_block(C, S, vec, elem, 512)
+            old_bwd_pixels_per_block(C, S, vec, elem, 512)
         except ValueError:
             continue
         for gate in (True, False):
