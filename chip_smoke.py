@@ -752,13 +752,18 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
     """Phase 4c: the last six kernel bodies (K-LN, K-LN', K5 with and
     without the gate, K-V1, K-V1') against their plain versions at the
     shapes their entry points take in the flagship (bf16, batch 8) and in
-    ``cswinunet`` (float32, batch 2), and at one odd shape each; their
-    times at the flagship's shapes; then the three entry points driven
-    forward and backward with the launch counts reset before and read after
-    each (FusedLayerNorm(use_kernel=True) at every LayerNorm shape of both
+    ``cswinunet`` (float32, batch 2), and at one odd shape each (K-V1 and
+    every output of K-V1' also against its own max|plain|, K-V1''s masked
+    keys with dk = dv = 0 exactly, and the body each launch took: bf16 at
+    head dims 16-64 the tensor-core ones, float32 the CUDA-core ones); their
+    times at the flagship's shapes (K-V1 and K-V1' on the device beside
+    SDPA's device time); then the three entry points driven forward and
+    backward with the launch counts reset before and read after each
+    (FusedLayerNorm(use_kernel=True) at every LayerNorm shape of both
     configs; CARAFE(flat_output, flat_raw) into FusedSimAMHead at 1 and 4
     classes with the gate on and off, and at 16 classes through the unfused
-    chain; stripe_attention_v1 at every window geometry of both configs);
+    chain; stripe_attention_v1 at every window geometry of both configs,
+    with its body launches);
     FusedSimAMHead with kernels on against off; and one batch-8 serving
     forward of CSWin-SimAM-UNet with 16 classes at 512^2, whose head takes
     the unfused chain.  Returns the six kernel-table entries and a summary."""
@@ -885,20 +890,42 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
         def make(B, dtype, Np=Np, D=D, grad=False):
             return [randn(B * 8, Np, D, scale=0.5, dtype=dtype) for _ in range(4 if grad else 3)]
 
+        def v1_bwd(q, k, v, do, s=scale, nv=nv):
+            dq, dk, dv = wa.kernel_bwd(q, k, v, wa.kernel_fwd(q, k, v, s, nv)[1], do, s, nv)
+            require(float(dk[:, nv:].abs().sum()) == 0.0 and float(dv[:, nv:].abs().sum()) == 0.0,
+                    f"K-V1' (G, {Np}, {D}), n_valid {nv}: masked keys with dk or dv != 0")
+            return dq, dk, dv
+
         name = f"(G, {Np}, {D}), n_valid {nv}"
-        fold("K-V1", check_pair(
+        _build.reset_launches()
+        *errs, own32, own16 = check_pair(
             "K-V1 " + name, torch, lambda q, k, v, s=scale, nv=nv: wa.kernel_fwd(q, k, v, s, nv)[0],
-            lambda q, k, v, s=scale, nv=nv: wa.window_attention_reference(q, k, v, s, nv), make))
-        fold("K-V1'", check_outputs(
-            "K-V1' " + name, torch,
-            lambda q, k, v, do, s=scale, nv=nv: wa.kernel_bwd(
-                q, k, v, wa.kernel_fwd(q, k, v, s, nv)[1], do, s, nv),
-            lambda q, k, v, do, s=scale, nv=nv: wa.window_attention_bwd_reference(
-                q, k, v, do, s, nv),
-            lambda B, dtype, make=make: make(B, dtype, grad=True)))
+            lambda q, k, v, s=scale, nv=nv: wa.window_attention_reference(q, k, v, s, nv), make,
+            own=True)
+        fold("K-V1", errs)
+        rows["K-V1"]["own16"] = max(rows["K-V1"].get("own16", 0.0), own16)
+        # every output of K-V1' also against its own max|plain| (dq, dk, dv
+        # are far below 1 at these inputs; the max(1, .) floor alone passed
+        # a dq at 0.9x in the other attention kernels)
+        fold("K-V1'", check_outputs("K-V1' " + name, torch, v1_bwd,
+                                    lambda q, k, v, do, s=scale, nv=nv:
+                                    wa.window_attention_bwd_reference(q, k, v, do, s, nv),
+                                    lambda B, dtype, make=make: make(B, dtype, grad=True),
+                                    own=(0, 1, 2)))
+        # each check ran K-V1 twice and K-V1' once in float32, and again in bf16
+        bodies = {n: c for n, c in _build.BODY_LAUNCHES.items() if c}
+        want = ({f"{wa.FWD_KERNEL}:fma": 2, f"{wa.BWD_KERNEL}:fma": 1,
+                 f"{wa.FWD_KERNEL}:mma": 2, f"{wa.BWD_KERNEL}:mma": 1}
+                if D in wa.MMA_HEAD_DIMS else {f"{wa.FWD_KERNEL}:fma": 4, f"{wa.BWD_KERNEL}:fma": 2})
+        require(bodies == want, f"K-V1 {name}: body launches {bodies} != {want}: float32 takes "
+                "the CUDA-core bodies, bf16 at head dims 16-64 the tensor-core ones")
+        log(f"    K-V1 / K-V1' {name}: bodies {bodies}; bf16 K-V1' body "
+            f"{wa.design(torch.bfloat16, D, Np)}")
     for geom, count in sorted(geoms512.items()):  # the flagship's 50 branches, bf16
         Gn, Np, nv, D = v1_shape(TIME_BATCH, *geom)
         scale = D ** -0.5
+        for key in ("K-V1", "K-V1'"):  # K-V1''s body at each flagship window
+            rows[key].setdefault("design", {})[f"{Np}x{D}"] = wa.design(torch.bfloat16, D, Np)
         q, k, v, do = (randn(Gn, Np, D, scale=0.5, dtype=torch.bfloat16) for _ in range(4))
         _, lse = wa.kernel_fwd(q, k, v, scale, nv)
         mask = (torch.arange(Np, device=dev) < nv).view(1, 1, 1, Np)
@@ -997,6 +1024,15 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
               f"{B}, {dtype}", launches_of(torch, _build, lambda: res.setdefault(
                   "err", run_v1(geoms, B, dtype))),
               {wa.FWD_KERNEL: len(geoms), wa.BWD_KERNEL: len(geoms)})
+        # bf16 at head dim 32: the tensor-core bodies; float32: the CUDA-core ones
+        body = "mma" if dtype == torch.bfloat16 else "fma"
+        bodies = {n: c for n, c in _build.BODY_LAUNCHES.items() if c}
+        log(f"  stripe_attention_v1, {label}: body launches {bodies}")
+        require(bodies == {f"{wa.FWD_KERNEL}:{body}": len(geoms),
+                           f"{wa.BWD_KERNEL}:{body}": len(geoms)},
+                f"stripe_attention_v1 {label}: body launches {bodies}")
+        for key in ("K-V1", "K-V1'"):
+            rows[key][f"launches_{body}"] = len(geoms)
         if dtype == torch.float32:
             log(f"  stripe_attention_v1 vs the plain stripe attention, float32: max abs err "
                 f"{res['err']:.3e} (tol {TOL_F32:g})")
@@ -2215,6 +2251,13 @@ def main() -> int:
         }
         entry.update({k: v for k, v in row.items() if k.endswith("_flagship_step")
                       or k == "layernorms_per_flagship_step"})
+        if label in ("K-V1", "K-V1'"):  # bf16 at head dims 16-64 on the tensor cores
+            entry.update(body="mma.sync m16n8k16 bf16 (csrc/" + (
+                "attention_fwd_mma.cuh)" if label == "K-V1" else "window_attention.cu)"),
+                launches_mma=row["launches_mma"], launches_fma_cswinunet=row["launches_fma"],
+                bwd_design_flagship=row["design"])
+            if "own16" in row:
+                entry["err_over_max_plain_bf16"] = row["own16"]
         kernels.append(entry)
     log("remaining kernels: " + json.dumps(rest_summary))
     log("training: " + json.dumps({k: {m: v for m, v in r.items()

@@ -108,13 +108,14 @@ FLASH_MODES = ("window", "flash")
 LAUNCHES = {key: 0 for name in _SIGNATURES for key in (
     [f"{name}:{mode}" for mode in FLASH_MODES] if name in FLASH_ENTRIES else [name])}
 
-# The attention entries (K-A, K-A' and the flash family's three) launch one
-# of two bodies, which the C entry picks by dtype and head dim
-# (csu_attention_body): "mma", the bf16 tensor-core body, or "fma", the
+# The attention entries (K-A, K-A', the flash family's three, K-V1 and
+# K-V1') launch one of two bodies, which the C entry picks by dtype and head
+# dim (csu_attention_body): "mma", the bf16 tensor-core body, or "fma", the
 # CUDA-core body.  Each launch also counts under "<entry>:<body>" (K-A,
-# K-A') or "<entry>:<mode>:<body>" (the flash family) here, apart from
-# LAUNCHES, whose keys stay one per entry and mode.
-BODY_ENTRIES = ("csu_stripe_attention_fwd", "csu_stripe_attention_bwd", *FLASH_ENTRIES)
+# K-A', K-V1, K-V1') or "<entry>:<mode>:<body>" (the flash family) here,
+# apart from LAUNCHES, whose keys stay one per entry and mode.
+BODY_ENTRIES = ("csu_stripe_attention_fwd", "csu_stripe_attention_bwd", *FLASH_ENTRIES,
+                "csu_window_attention_fwd", "csu_window_attention_bwd")
 BODIES = ("mma", "fma")
 BODY_LAUNCHES = {f"{key}:{body}": 0 for key in LAUNCHES
                  if key.split(":")[0] in BODY_ENTRIES for body in BODIES}
@@ -211,6 +212,8 @@ def library() -> ctypes.CDLL:
             lib.csu_error_string.restype = ctypes.c_char_p
             lib.csu_attention_body.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.csu_attention_body.restype = ctypes.c_int
+            lib.csu_window_attention_design.argtypes = [ctypes.c_int] * 3
+            lib.csu_window_attention_design.restype = ctypes.c_int
             _lib = lib
     return _lib
 

@@ -1,9 +1,10 @@
-// The bf16 tensor-core forward body shared by the two attention forwards:
-// K-A (stripe_attention.cu: the whole window, probabilities normalised
-// before their rounding) and the flash forward (flash_attention_fwd.cu: the
-// tiled K-A in window mode and the flash path, online softmax), at head
-// dims 16, 32 and 64.  float32 and head dim 8 keep the CUDA-core bodies of
-// those files.
+// The bf16 tensor-core forward body shared by the attention forwards: K-A
+// (stripe_attention.cu: the whole window, probabilities normalised before
+// their rounding), the flash forward (flash_attention_fwd.cu: the tiled K-A
+// in window mode and the flash path, online softmax) and K-V1
+// (window_attention.cu: online, a group of rows as its window, the keys cut
+// at n_valid by the KEYS flag), at head dims 16, 32 and 64.  float32 and
+// head dim 8 keep the CUDA-core bodies of those files.
 //
 // A block takes 64 query rows of one window and head, 16 per warp, whose
 // round(q * scale) stay in registers as mma A fragments (the dq body's
@@ -49,8 +50,10 @@ __host__ __device__ constexpr size_t fwd_smem(int kv_tiles) {
 
 // out rows ldo apart; lse (windows, N, heads) float32 or null; lepe_w (C, 9)
 // float32 taps or null; grid (windows, heads, ceil(N / 64)), kThreads
-// threads, fwd_smem<D>(WHOLE ? ceil(N / 64) : 2) bytes at smem.
-template <int D, bool DROP, bool WHOLE>
+// threads, fwd_smem<D>(WHOLE ? ceil(NK / 64) : 2) bytes at smem.  The
+// queries are the window's N tokens; the keys too, or with KEYS the first
+// NK = a.nkeys of them (v1, window_attention.cu), the rest masked.
+template <int D, bool DROP, bool WHOLE, bool KEYS = false>
 __device__ __forceinline__ void attention_fwd(const bf16* __restrict__ q,
                                               const bf16* __restrict__ k,
                                               const bf16* __restrict__ v,
@@ -60,7 +63,7 @@ __device__ __forceinline__ void attention_fwd(const bf16* __restrict__ q,
                                               unsigned char* smem) {
   using TL = Tile<D>;
   constexpr int KS = D / 16, NT = D / 8, LD = TL::LD, CHUNKS = kTile / 16;
-  const int N = a.hsp * a.wsp, ntiles = (N + kTile - 1) / kTile;
+  const int N = a.hsp * a.wsp, NK = KEYS ? a.nkeys : N, ntiles = (NK + kTile - 1) / kTile;
   bf16* Qt = reinterpret_cast<bf16*>(smem);
   bf16* Kt = Qt + TL::ELEMS;                              // WHOLE: ntiles tiles, else 2 stages
   bf16* Vt = Kt + (WHOLE ? ntiles : 2) * TL::ELEMS;
@@ -72,8 +75,8 @@ __device__ __forceinline__ void attention_fwd(const bf16* __restrict__ q,
 
   load_tile<D>(Qt, q, a.ldq, tok, i0, N, c0);
   for (int kt = 0; kt < (WHOLE ? ntiles : 1); ++kt) {
-    load_tile<D>(Kt + kt * TL::ELEMS, k, a.ldk, tok, kt * kTile, N, c0);
-    load_tile<D>(Vt + kt * TL::ELEMS, v, a.ldv, tok, kt * kTile, N, c0);
+    load_tile<D>(Kt + kt * TL::ELEMS, k, a.ldk, tok, kt * kTile, NK, c0);
+    load_tile<D>(Vt + kt * TL::ELEMS, v, a.ldv, tok, kt * kTile, NK, c0);
   }
   cp_async_commit();
 
@@ -103,13 +106,13 @@ __device__ __forceinline__ void attention_fwd(const bf16* __restrict__ q,
   float m[2] = {-INFINITY, -INFINITY}, nm[2] = {0.f, 0.f}, l[2] = {0.f, 0.f};
 
   // S = Qs K^T of the 64 keys at j0 (tile Ks): s[n-tile][C element], n-tile
-  // 2 kc + nt holding keys j0 + 16 kc + 8 nt + 2t (+1); -inf past N
+  // 2 kc + nt holding keys j0 + 16 kc + 8 nt + 2t (+1); -inf past NK
   auto score = [&](const bf16* Ks, int j0, float (&s)[2 * CHUNKS][4]) {
 #pragma unroll
     for (int kc = 0; kc < CHUNKS; ++kc) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[2 * kc][e] = s[2 * kc + 1][e] = 0.f;
-      if (j0 + kc * 16 < N) {
+      if (j0 + kc * 16 < NK) {
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
           uint32_t b[4];
@@ -118,12 +121,12 @@ __device__ __forceinline__ void attention_fwd(const bf16* __restrict__ q,
           mma::mma(s[2 * kc + 1], qa[ks], b[2], b[3]);
         }
       }
-      if (j0 + kc * 16 + 16 > N) {  // the keys past N (zero-filled)
+      if (j0 + kc * 16 + 16 > NK) {  // the keys past NK (zero-filled)
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (j0 + kc * 16 + nt * 8 + 2 * t + (e & 1) >= N) s[2 * kc + nt][e] = -INFINITY;
+            if (j0 + kc * 16 + nt * 8 + 2 * t + (e & 1) >= NK) s[2 * kc + nt][e] = -INFINITY;
       }
     }
   };
@@ -141,7 +144,7 @@ __device__ __forceinline__ void attention_fwd(const bf16* __restrict__ q,
     for (int r = 0; r < 2; ++r) {  // the four lanes of a row: one max
       mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
       mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float mn = fmaxf(m[r], mt[r]);  // finite: key j0 < N is live
+      const float mn = fmaxf(m[r], mt[r]);  // finite: key j0 < NK is live
       alpha[r] = exp2_sfu((m[r] - mn) * kLog2e);
       m[r] = mn;
       nm[r] = -mn * kLog2e;
@@ -167,7 +170,7 @@ __device__ __forceinline__ void attention_fwd(const bf16* __restrict__ q,
 
   // acc += round(drop(p)) V over the 64 keys at j0 (tile Vs)
   auto pv = [&](const bf16* Vs, int j0, float (&s)[2 * CHUNKS][4]) {
-    const KeepTile keep(a.drop, wh, a.mask_tile, j0, N);
+    const KeepTile keep(a.drop, wh, a.mask_tile, j0, NK);
     uint32_t kbase[2] = {0u, 0u}, kcnt[2] = {0u, 0u}, kstep = 1;
     if constexpr (DROP) {
       keep_hoist(keep, fixed[0], true, kbase[0], kcnt[0], kstep);
@@ -175,7 +178,7 @@ __device__ __forceinline__ void attention_fwd(const bf16* __restrict__ q,
     }
 #pragma unroll
     for (int kc = 0; kc < CHUNKS; ++kc) {
-      if (j0 + kc * 16 >= N) break;
+      if (j0 + kc * 16 >= NK) break;
       if constexpr (DROP) {
         const uint32_t bits = keep_bits(keep, fixed, kbase, kcnt, kstep, true, kc * 16, t);
 #pragma unroll
@@ -230,8 +233,8 @@ __device__ __forceinline__ void attention_fwd(const bf16* __restrict__ q,
     for (int kt = 0; kt < ntiles; ++kt) {
       const int stage = kt & 1, j0 = kt * kTile;
       if (kt + 1 < ntiles) {
-        load_tile<D>(Kt + (stage ^ 1) * TL::ELEMS, k, a.ldk, tok, j0 + kTile, N, c0);
-        load_tile<D>(Vt + (stage ^ 1) * TL::ELEMS, v, a.ldv, tok, j0 + kTile, N, c0);
+        load_tile<D>(Kt + (stage ^ 1) * TL::ELEMS, k, a.ldk, tok, j0 + kTile, NK, c0);
+        load_tile<D>(Vt + (stage ^ 1) * TL::ELEMS, v, a.ldv, tok, j0 + kTile, NK, c0);
       }
       cp_async_commit();  // empty at the last tile, so that wait<1> covers this one
       cp_async_wait<1>();

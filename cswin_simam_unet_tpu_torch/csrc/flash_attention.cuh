@@ -56,6 +56,9 @@ struct FlashArgs {
   float scale;
   AttnDrop drop;
   int64_t ldq, ldk, ldv, ldg;  // row strides of q, k, v and dO
+  // keys [0, nkeys) attended, in the tensor-core bodies instantiated with
+  // KEYS (v1's n_valid, window_attention.cu); the others attend all N
+  int nkeys = 0;
 };
 
 // Columns of a row that one thread owns, and threads per row.

@@ -173,7 +173,7 @@ __host__ __device__ constexpr size_t flash_dkv_mma_smem() {
   return 6 * mma::Tile<D>::ELEMS * sizeof(__nv_bfloat16) + 4 * mma::kTile * sizeof(float);
 }
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool KEYS>
 __global__ void __launch_bounds__(mma::kThreads)
 flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ lepe_w,
@@ -190,16 +190,30 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   float* Ls = reinterpret_cast<float*>(Gt + 2 * TL::ELEMS);  // L, two stages
   float* Ds = Ls + 2 * kTile;                                // delta, two stages
 
-  const int N = a.hsp * a.wsp;
+  // queries [0, N); keys [0, NK), NK = N but with KEYS (v1's n_valid)
+  const int N = a.hsp * a.wsp, NK = KEYS ? a.nkeys : N;
   const int win = blockIdx.x, head = blockIdx.y, j0 = blockIdx.z * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const WindowRows tok(a, win);
   const int c0 = head * D;
   const int64_t stat0 = (int64_t)win * N * a.heads + head;
+  const int ldd = a.heads * D;
+  if constexpr (KEYS) {
+    if (j0 >= NK) {  // masked keys only: dk = dv = 0, 16 bytes a store
+      for (int idx = threadIdx.x; idx < kRows * D / 8; idx += kThreads) {
+        const int n = j0 + idx / (D / 8);
+        if (n >= N) break;
+        const int64_t off = tok(n) * ldd + c0 + idx % (D / 8) * 8;
+        *reinterpret_cast<uint4*>(dk + off) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(dv + off) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      return;
+    }
+  }
 
   // the block's k and v rows, through the first stage, into A fragments
-  load_tile<D>(Qu, k, a.ldk, tok, j0, N, c0);
-  load_tile<D>(Gt, v, a.ldv, tok, j0, N, c0);
+  load_tile<D>(Qu, k, a.ldk, tok, j0, NK, c0);
+  load_tile<D>(Gt, v, a.ldv, tok, j0, NK, c0);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -275,6 +289,13 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
           for (int e = 0; e < 4; ++e)
             if (i0 + qc * 16 + nt * 8 + 2 * t + (e & 1) >= N) s[nt][e] = -INFINITY;
       }
+      if constexpr (KEYS) {  // the block's keys past NK (zero-filled): p = 0, so dk = dv = 0
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (key[e >> 1] >= NK) s[nt][e] = -INFINITY;
+      }
       uint32_t bits = 0xffu;
       if constexpr (DROP) bits = keep_bits(keep, fixed, kbase, kcnt, kstep, false, qc * 16, t);
 #pragma unroll
@@ -315,7 +336,6 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     __syncthreads();
   }
 
-  const int ldd = a.heads * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= N) continue;
@@ -448,20 +468,20 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool KEYS>
 static cudaError_t launch_flash_dkv_mma(const void* q, const void* k, const void* v,
                                         const void* lepe_w, const void* dout, const void* lse,
                                         const void* delta, void* dk, void* dv, void* dw_part,
                                         int B, const FlashArgs& a, cudaStream_t stream) {
   constexpr size_t smem = flash_dkv_mma_smem<D>();
   static std::atomic<int> opted[kMaxDevices];
-  const cudaError_t e = opt_in_smem(flash_dkv_mma_kernel<D, DROP>, smem, opted);
+  const cudaError_t e = opt_in_smem(flash_dkv_mma_kernel<D, DROP, KEYS>, smem, opted);
   if (e != cudaSuccess) return e;
   const int N = a.hsp * a.wsp;
   const dim3 grid((unsigned)(B * (a.H / a.hsp) * (a.W / a.wsp)), (unsigned)a.heads,
                   (unsigned)((N + mma::kRows - 1) / mma::kRows));
   using bf = __nv_bfloat16;
-  flash_dkv_mma_kernel<D, DROP><<<grid, mma::kThreads, smem, stream>>>(
+  flash_dkv_mma_kernel<D, DROP, KEYS><<<grid, mma::kThreads, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
       static_cast<const float*>(lepe_w), static_cast<const bf*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf*>(dk),
@@ -475,11 +495,14 @@ cudaError_t dispatch_flash_dkv_mma(int head_dim, const void* q, const void* k, c
                                    const FlashArgs& a, cudaStream_t stream) {
 #define CSU_FLASH_DKV_MMA(DIM)                                                               \
   if (head_dim == DIM)                                                                       \
-    return a.drop.threshold                                                                  \
-               ? launch_flash_dkv_mma<DIM, true>(q, k, v, lepe_w, dout, lse, delta, dk, dv,  \
-                                                 dw_part, B, a, stream)                      \
-               : launch_flash_dkv_mma<DIM, false>(q, k, v, lepe_w, dout, lse, delta, dk, dv, \
-                                                  dw_part, B, a, stream);
+    return a.nkeys ? launch_flash_dkv_mma<DIM, false, true>(q, k, v, lepe_w, dout, lse,      \
+                                                            delta, dk, dv, dw_part, B, a,    \
+                                                            stream)                          \
+           : a.drop.threshold                                                                \
+               ? launch_flash_dkv_mma<DIM, true, false>(q, k, v, lepe_w, dout, lse, delta,   \
+                                                        dk, dv, dw_part, B, a, stream)       \
+               : launch_flash_dkv_mma<DIM, false, false>(q, k, v, lepe_w, dout, lse, delta,  \
+                                                         dk, dv, dw_part, B, a, stream);
   CSU_FLASH_DKV_MMA(16) CSU_FLASH_DKV_MMA(32) CSU_FLASH_DKV_MMA(64)
 #undef CSU_FLASH_DKV_MMA
   return cudaErrorInvalidValue;

@@ -163,7 +163,7 @@ size_t flash_dq_mma_smem(int N, bool keep_words) {
   return tiles + (keep_words ? (size_t)ntiles * mma::kThreads * sizeof(uint32_t) : 0);
 }
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool KEYS>
 __global__ void __launch_bounds__(mma::kThreads)
 flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -179,7 +179,8 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   bf16* Vt = Kt + 2 * TL::ELEMS;  // two stages
   uint32_t* keep_words = reinterpret_cast<uint32_t*>(Vt + 2 * TL::ELEMS);  // (ntiles, kThreads)
 
-  const int N = a.hsp * a.wsp;
+  // queries [0, N); keys [0, NK), NK = N but with KEYS (v1's n_valid)
+  const int N = a.hsp * a.wsp, NK = KEYS ? a.nkeys : N;
   const int win = blockIdx.x, head = blockIdx.y, i0 = blockIdx.z * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const WindowRows tok(a, win);
@@ -187,8 +188,8 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 
   load_tile<D>(Qt, q, a.ldq, tok, i0, N, c0);
   load_tile<D>(Gt, dout, a.ldg, tok, i0, N, c0);
-  load_tile<D>(Kt, k, a.ldk, tok, 0, N, c0);
-  load_tile<D>(Vt, v, a.ldv, tok, 0, N, c0);
+  load_tile<D>(Kt, k, a.ldk, tok, 0, NK, c0);
+  load_tile<D>(Vt, v, a.ldv, tok, 0, NK, c0);
   cp_async_commit();
 
   // the thread's two rows of the warp's 16: i0 + 16 warp + lane / 4 (+ 8)
@@ -223,7 +224,7 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
   for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  const int ntiles = (N + kTile - 1) / kTile;
+  const int ntiles = (NK + kTile - 1) / kTile;
   // pass 0 (window mode only): delta; pass 1: dq
   for (int pass = delta_given ? 1 : 0; pass < 2; ++pass) {
     if (pass == 1 && !delta_given) {
@@ -234,22 +235,22 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         if (t == 0 && row[r] < N) delta[stat[r]] = dl[r];
       }
       // the key stream again from tile 0 (the last __syncthreads freed both stages)
-      load_tile<D>(Kt, k, a.ldk, tok, 0, N, c0);
-      load_tile<D>(Vt, v, a.ldv, tok, 0, N, c0);
+      load_tile<D>(Kt, k, a.ldk, tok, 0, NK, c0);
+      load_tile<D>(Vt, v, a.ldv, tok, 0, NK, c0);
       cp_async_commit();
     }
     for (int kt = 0; kt < ntiles; ++kt) {
       const int stage = kt & 1, j0 = kt * kTile;
       if (kt + 1 < ntiles) {
-        load_tile<D>(Kt + (stage ^ 1) * TL::ELEMS, k, a.ldk, tok, j0 + kTile, N, c0);
-        load_tile<D>(Vt + (stage ^ 1) * TL::ELEMS, v, a.ldv, tok, j0 + kTile, N, c0);
+        load_tile<D>(Kt + (stage ^ 1) * TL::ELEMS, k, a.ldk, tok, j0 + kTile, NK, c0);
+        load_tile<D>(Vt + (stage ^ 1) * TL::ELEMS, v, a.ldv, tok, j0 + kTile, NK, c0);
       }
       cp_async_commit();  // empty at the last tile, so that wait<1> covers this one
       cp_async_wait<1>();
       __syncthreads();
       const bf16* Ks = Kt + stage * TL::ELEMS;
       const bf16* Vs = Vt + stage * TL::ELEMS;
-      const KeepTile keep(a.drop, wh, a.mask_tile, j0, N);
+      const KeepTile keep(a.drop, wh, a.mask_tile, j0, NK);
       uint32_t kbase[2] = {0u, 0u}, kcnt[2] = {0u, 0u}, kstep = 1;
       // the ds sweep after a delta sweep reads the bits that sweep hashed
       const bool reread = DROP && pass == 1 && !delta_given;
@@ -260,7 +261,7 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       }
 #pragma unroll
       for (int kc = 0; kc < kTile / 16; ++kc) {
-        if (j0 + kc * 16 >= N) break;
+        if (j0 + kc * 16 >= NK) break;
         float s[2][4] = {}, dp[2][4] = {};
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
@@ -272,12 +273,12 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
           mma::mma(dp[0], ga[ks], b[0], b[1]);
           mma::mma(dp[1], ga[ks], b[2], b[3]);
         }
-        if (j0 + kc * 16 + 16 > N) {  // the keys past N (zero-filled): p = exp2(-inf) = 0
+        if (j0 + kc * 16 + 16 > NK) {  // the keys past NK (zero-filled): p = exp2(-inf) = 0
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              if (j0 + kc * 16 + nt * 8 + 2 * t + (e & 1) >= N) s[nt][e] = -INFINITY;
+              if (j0 + kc * 16 + nt * 8 + 2 * t + (e & 1) >= NK) s[nt][e] = -INFINITY;
         }
         uint32_t bits = 0xffu;
         if constexpr (DROP) {
@@ -331,7 +332,7 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
-template <int D, bool DROP>
+template <int D, bool DROP, bool KEYS>
 static cudaError_t launch_flash_dq_mma(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, void* delta,
                                        int delta_given, void* dq, int B, const FlashArgs& a,
@@ -339,12 +340,12 @@ static cudaError_t launch_flash_dq_mma(const void* q, const void* k, const void*
   const int N = a.hsp * a.wsp;
   const size_t smem = flash_dq_mma_smem<D>(N, DROP && !delta_given);
   static std::atomic<int> opted[kMaxDevices];
-  const cudaError_t e = opt_in_smem(flash_dq_mma_kernel<D, DROP>, smem, opted);
+  const cudaError_t e = opt_in_smem(flash_dq_mma_kernel<D, DROP, KEYS>, smem, opted);
   if (e != cudaSuccess) return e;
   const dim3 grid((unsigned)(B * (a.H / a.hsp) * (a.W / a.wsp)), (unsigned)a.heads,
                   (unsigned)((N + mma::kRows - 1) / mma::kRows));
   using bf = __nv_bfloat16;
-  flash_dq_mma_kernel<D, DROP><<<grid, mma::kThreads, smem, stream>>>(
+  flash_dq_mma_kernel<D, DROP, KEYS><<<grid, mma::kThreads, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
       static_cast<const bf*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(delta), delta_given, static_cast<bf*>(dq), a);
@@ -355,13 +356,15 @@ cudaError_t dispatch_flash_dq_mma(int head_dim, const void* q, const void* k, co
                                   const void* dout, const void* lse, void* delta,
                                   int delta_given, void* dq, int B, const FlashArgs& a,
                                   cudaStream_t stream) {
-#define CSU_FLASH_DQ_MMA(DIM)                                                               \
-  if (head_dim == DIM)                                                                      \
-    return a.drop.threshold                                                                 \
-               ? launch_flash_dq_mma<DIM, true>(q, k, v, dout, lse, delta, delta_given, dq, \
-                                                B, a, stream)                               \
-               : launch_flash_dq_mma<DIM, false>(q, k, v, dout, lse, delta, delta_given,    \
-                                                 dq, B, a, stream);
+#define CSU_FLASH_DQ_MMA(DIM)                                                                \
+  if (head_dim == DIM)                                                                       \
+    return a.nkeys ? launch_flash_dq_mma<DIM, false, true>(q, k, v, dout, lse, delta,        \
+                                                           delta_given, dq, B, a, stream)    \
+           : a.drop.threshold                                                                \
+               ? launch_flash_dq_mma<DIM, true, false>(q, k, v, dout, lse, delta, delta_given, \
+                                                       dq, B, a, stream)                     \
+               : launch_flash_dq_mma<DIM, false, false>(q, k, v, dout, lse, delta,           \
+                                                        delta_given, dq, B, a, stream);
   CSU_FLASH_DQ_MMA(16) CSU_FLASH_DQ_MMA(32) CSU_FLASH_DQ_MMA(64)
 #undef CSU_FLASH_DQ_MMA
   return cudaErrorInvalidValue;

@@ -244,8 +244,10 @@ __device__ __forceinline__ uint32_t keep_bits(const KeepTile& k, const KeepFixed
 }  // namespace mma
 
 // The tensor-core dq and dk/dv bodies (flash_attention_dq.cu and
-// flash_attention_dkv.cu), launched by the flash family's entries and, in
-// window mode at mask tile N, by K-A' (stripe_attention_bwd.cu).
+// flash_attention_dkv.cu), launched by the flash family's entries, in
+// window mode at mask tile N by K-A' (stripe_attention_bwd.cu) and, with a
+// key count a.nkeys > 0 (no dropout, no LePE), by K-V1' for the windows its
+// own body cannot hold (window_attention.cu).
 cudaError_t dispatch_flash_dq_mma(int head_dim, const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, void* delta,
                                   int delta_given, void* dq, int B, const FlashArgs& a,

@@ -259,8 +259,9 @@ print("RESULT " + json.dumps(out))
 """
 
 
-def make_copy(name: str, patches) -> Path:
-    root = ROOT / name.replace(" ", "_").replace("/", "div").replace("(", "").replace(")", "")
+def make_copy(name: str, patches, root: Path = ROOT) -> Path:
+    """A copy of this package under ``root`` with ``patches`` applied."""
+    root = root / name.replace(" ", "_").replace("/", "div").replace("(", "").replace(")", "")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(PKG, root / PKG.name,
                     ignore=shutil.ignore_patterns("__pycache__", "build"))
@@ -273,16 +274,17 @@ def make_copy(name: str, patches) -> Path:
     return root
 
 
-def run_fault(name: str) -> dict:
-    """The CARAFE card tests and the smoke in a copy with fault ``name``."""
-    root = make_copy(name, FAULTS[name])
+def run_fault(name: str, patches, select: str, root: Path = ROOT) -> dict:
+    """The card tests ``-k select`` and the smoke in a copy with fault
+    ``name`` (``patches``)."""
+    root = make_copy(name, patches, root)
     shutil.copytree(PKG.parent / "tests", root / "tests", dirs_exist_ok=True,
                     ignore=shutil.ignore_patterns("__pycache__"))
     for f in ("chip_smoke.py", "pyproject.toml"):
         shutil.copy(PKG.parent / f, root / f)
     env = {**os.environ, "PYTHONPATH": ""}
     tests = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_port_cuda.py", "-q",
-                            "-p", "no:cacheprovider", "--noconftest", "-k", "carafe or tiny_model"],
+                            "-p", "no:cacheprovider", "--noconftest", "-k", select],
                            cwd=root, capture_output=True, text=True, timeout=900, env=env)
     smoke = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root, capture_output=True,
                            text=True, timeout=1200, env=env)
@@ -294,34 +296,38 @@ def run_fault(name: str) -> dict:
             "smoke_error": ([l for l in smoke.stderr.splitlines() if "Error" in l] or [""])[-1]}
 
 
-def main() -> int:
+def main(variants=VARIANTS, faults=FAULTS, child=CHILD, root: Path = ROOT,
+         select: str = "carafe or tiny_model") -> int:
+    """The command line: time ``variants`` (or plant ``faults`` and run the
+    card tests ``-k select`` and the smoke), each copy under ``root``, each
+    timed by the script ``child``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*", help="variant names to run (default: all)")
     ap.add_argument("--baseline", type=Path,
                     help="a checkout whose package runs as the variant 'baseline'")
     ap.add_argument("--faults", action="store_true",
-                    help="plant FAULTS instead; fails unless every one is caught")
+                    help="plant the faults instead; fails unless every one is caught")
     args = ap.parse_args()
     if args.faults:
         missed = 0
-        for name in FAULTS:
-            out = run_fault(name)
+        for name, patches in faults.items():
+            out = run_fault(name, patches, select, root)
             missed += not out["failed"] or out["smoke_rc"] == 0
             print(json.dumps(out), flush=True)
         return 1 if missed else 0
-    names = args.only or list(VARIANTS) + (["baseline"] if args.baseline else [])
+    names = args.only or list(variants) + (["baseline"] if args.baseline else [])
     failed = 0
     for name in names:  # one after the other: each builds and times alone on the card
         if name == "baseline":
-            root = args.baseline.resolve()
+            copy = args.baseline.resolve()
         else:
-            root = make_copy(name, VARIANTS[name])
-        run = subprocess.run([sys.executable, "-c", CHILD, str(root)], capture_output=True,
+            copy = make_copy(name, variants[name], root)
+        run = subprocess.run([sys.executable, "-c", child, str(copy)], capture_output=True,
                              text=True, timeout=900, env={**os.environ, "PYTHONPATH": ""})
         lines = [l for l in run.stdout.splitlines() if l.startswith("RESULT ")]
         if run.returncode or not lines:
             failed += 1
-            print(json.dumps({"variant": name, "failed": run.stderr[-2000:]}), flush=True)
+            print(json.dumps({"variant": name, "failed": run.stderr[-3000:]}), flush=True)
             continue
         print(json.dumps({"variant": name, **json.loads(lines[0][7:])}), flush=True)
     return 1 if failed else 0

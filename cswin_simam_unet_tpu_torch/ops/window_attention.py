@@ -4,16 +4,30 @@ forward and backward, and the v1 stripe-attention entry.
 Counterpart of ``cswin_simam_unet_tpu/ops/pallas_attention.py``:
 :func:`window_attention` is softmax attention over (G, Np, D) window groups
 whose keys at or past ``n_valid`` are masked (token padding), with no LePE
-and no dropout, at v1's rounding points: q, k, v and the cotangent widened
-to float32, q * scale not rounded, the probabilities kept in float32 for
-p.v, one rounding of each output (``pallas_attention.py:52-107``).  It is a
+and no dropout (``pallas_attention.py:52-107``).  It is a
 ``torch.autograd.Function``: on CUDA tensors its forward launches K-V1
-(``csrc/window_attention.cu``, ``csu_window_attention_fwd``), which also
-keeps each row's log-sum-exp, and its backward K-V1'
-(``csu_window_attention_bwd``: a dq sweep, then dk/dv); on CPU tensors both
-take the plain versions, :func:`window_attention_reference` and
-:func:`window_attention_bwd_reference`.  Windows of more than 2048 tokens
-raise, as the TPU kernel's N x N score block in VMEM goes no further.
+(``csrc/window_attention.cu``, ``csu_window_attention_fwd``, replacing
+``_fwd_kernel``), which also keeps each row's log-sum-exp, and its backward
+K-V1' (``csu_window_attention_bwd``, replacing ``_bwd_kernel``); on CPU
+tensors both take the plain versions, :func:`window_attention_reference`
+and :func:`window_attention_bwd_reference`, at v1's rounding points (q, k,
+v and the cotangent widened to float32, q * scale not rounded, the
+probabilities kept in float32, one rounding of each output).  Windows of
+more than 2048 tokens raise, as the TPU kernel's N x N score block in VMEM
+goes no further.
+
+On the H100 each score costs an exp on the SFU and, on the CUDA cores, more
+float32 FMAs than one SDPA call takes in all, so bf16 at head dims 16, 32
+and 64 runs on the tensor cores (``mma.sync``; the launch counts
+``_build.BODY_LAUNCHES["<entry>:mma"]``) and float32 and head dim 8 on the
+CUDA cores (``":fma"``), as K-A picks.  The C entry picks K-V1''s body
+(:func:`design`): a window whose q, k, v, dO and ds^T fit one block's
+shared memory (at most 256 tokens at head dims 16 and 32, 208 at 64) takes
+the whole-window body, one launch with everything in shared memory; longer
+windows take the flash family's tiled dq and dk/dv bodies with the key
+count.  In bf16 round(q * scale), p and ds become bf16 mma operands, where
+v1 keeps them in float32 (``ROADMAP.md``, Queue C).  :func:`launch_geometry`
+mirrors the blocks each kernel launches.
 
 :func:`stripe_attention_v1` is the drop-in ``stripe_attention_pallas``:
 windows padded to a multiple of 16 tokens, the LePE added outside the
@@ -30,7 +44,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .attention import lepe_depthwise, stripe_attention, window_heads
-from .flash_attention import HEAD_DIMS
+from .flash_attention import HEAD_DIMS, kernel_body, rows_aligned
 from .windows import img2windows, tokens_to_nhwc, windows2img
 
 FWD_KERNEL = "csu_window_attention_fwd"
@@ -38,6 +52,54 @@ BWD_KERNEL = "csu_window_attention_bwd"
 MAX_TOKENS = 2048
 PAD = 16  # tokens are padded to a multiple of the bf16 sublane tile
 MASKED = -1e30
+MMA_HEAD_DIMS = (16, 32, 64)  # bf16 at these head dims: the tensor-core bodies
+WHOLE_MAX_ROWS = 256          # csrc/window_attention.cu kV1WholeMaxRows
+MAX_SMEM = 227 * 1024         # csrc/common.cuh kMaxSmem
+MMA_ROWS, MMA_THREADS = 64, 128     # a tensor-core block's own rows, threads
+FMA_THREADS = 128                   # csrc/flash_attention.cuh kFlashThreads
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def whole_smem(D: int, Np: int, n_valid: int) -> int:
+    """Shared memory of the whole-window K-V1' block (``v1_whole_smem``):
+    round(q * scale), k, v and dO in rows of D + 8 bf16, L and delta in
+    float32, ds^T in rows of round16(Np) + 8 bf16."""
+    Npad = _round16(Np)
+    return 4 * Npad * (D + 8) * 2 + 2 * Npad * 4 + _round16(n_valid) * (Npad + 8) * 2
+
+
+def design(dtype: torch.dtype, D: int, Np: int) -> str:
+    """K-V1''s body for (dtype, head dim, Np), as the C entry picks it
+    (``csu_window_attention_design``): "fma" (the CUDA-core bodies: float32
+    and head dim 8), "whole" (bf16, the block holds the window) or "tiled"
+    (bf16, the flash family's dq and dk/dv bodies).  K-V1 runs the
+    tensor-core forward wherever this is not "fma"."""
+    if dtype != torch.bfloat16 or D not in MMA_HEAD_DIMS:
+        return "fma"
+    fits = _round16(Np) <= WHOLE_MAX_ROWS and whole_smem(D, Np, Np) <= MAX_SMEM
+    return "whole" if fits else "tiled"
+
+
+def launch_geometry(dtype: torch.dtype, G: int, Np: int, n_valid: int, D: int) -> dict:
+    """The launches of K-V1 ("fwd") and K-V1' ("bwd": one or two kernels) at
+    one shape, each as (grid, threads, dynamic shared-memory bytes), as the
+    C side configures them."""
+    body = design(dtype, D, Np)
+    if body == "fma":  # a thread a row, two lanes a row at head dim 64
+        rows = FMA_THREADS // (2 if D > 32 else 1)
+        blk = ((G, -(-Np // rows), 1), FMA_THREADS, 0)
+        return dict(body=body, fwd=blk, bwd=[blk, blk])
+    tiles = ((G, 1, -(-Np // MMA_ROWS)), MMA_THREADS)
+    tile_bytes = MMA_ROWS * (D + 8) * 2
+    fwd = (*tiles, 5 * tile_bytes)  # the query tile, two stages of k and v
+    if body == "whole":
+        bwd = [((G, 1, 1), 2 * _round16(Np), whole_smem(D, Np, n_valid))]
+    else:  # dq: q, dO, two stages of k and v; dk/dv: two stages of q, q * scale, dO, L, delta
+        bwd = [(*tiles, 6 * tile_bytes), (*tiles, 6 * tile_bytes + 4 * MMA_ROWS * 4)]
+    return dict(body=body, fwd=fwd, bwd=bwd)
 
 
 def _scores(q, k, scale, n_valid):
@@ -81,14 +143,15 @@ def _check(q, k, v, n_valid) -> None:
 
 
 def _kernel_args(q, *rest):
-    """Contiguous copies (where needed) of q and the tensors of its shape,
-    checked for one CUDA device and dtype; the head dim checked."""
+    """Contiguous, 16-byte aligned copies (where needed) of q and the
+    tensors of its shape, checked for one CUDA device and dtype; the head dim
+    checked."""
     D = q.shape[-1]
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     ts = [t.contiguous() for t in (q, *rest)]
     _build.check_cuda(*ts)
-    return ts
+    return [rows_aligned(t) for t in ts]
 
 
 def kernel_fwd(q, k, v, scale: float, n_valid: int):
@@ -100,13 +163,13 @@ def kernel_fwd(q, k, v, scale: float, n_valid: int):
     lse = torch.empty(G, Np, dtype=torch.float32, device=q.device)
     _build.launch(FWD_KERNEL, q.device, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), lse.data_ptr(), G, Np, D, n_valid,
-                  float(scale))
+                  float(scale), body=kernel_body(q, D))
     return out, lse
 
 
 def kernel_bwd(q, k, v, lse, dout, scale: float, n_valid: int):
     """K-V1' on CUDA tensors: (dq, dk, dv) like q, from the forward's
-    log-sum-exp ``lse``."""
+    log-sum-exp ``lse`` (the body of :func:`design`)."""
     _check(q, k, v, n_valid)
     q, k, v, dout = _kernel_args(q, k, v, dout)
     G, Np, D = q.shape
@@ -117,7 +180,7 @@ def kernel_bwd(q, k, v, lse, dout, scale: float, n_valid: int):
     _build.launch(BWD_KERNEL, q.device, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), dout.data_ptr(), lse.contiguous().data_ptr(),
                   delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), G, Np, D,
-                  n_valid, float(scale))
+                  n_valid, float(scale), body=kernel_body(q, D))
     return dq, dk, dv
 
 

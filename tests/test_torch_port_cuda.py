@@ -45,7 +45,13 @@ forward, K-H1 and K-H2: the 512^2 and 448^2 heads, chunks that do not
 divide the image, odd channel counts, 1, 3 and 8 classes, gate on and off,
 each bf16 output also at its own scale; K-H1's per-channel moment sums; two
 calls bitwise equal; and K-H2's gate against K3's bit for bit (one-hot W
-columns against a one-hot dy).
+columns against a one-hot dy).  K-V1 and K-V1' in bf16 at head dims 16, 32
+and 64 on the tensor cores (the whole-window K-V1' up to 256 tokens, the
+tiled bodies above): the flagship's windows, cswinunet's padded ones, 512
+and 2048 tokens, a single attended key, G 1, 3 and 5, every output also at
+its own scale and the body each launch took; the wrapper's choice of body
+against the C entry's; two runs bitwise equal; and a key whose logit is 30
+above the rest.
 """
 
 import ctypes
@@ -1581,11 +1587,36 @@ def test_simam_head_function(dev, dtype, gate, F):
         _check_scaled(t.grad, r.grad, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,Np,n_valid,D", [(6, 16, 16, 8), (4, 112, 98, 16),
-                                            (3, 208, 196, 32), (2, 256, 256, 64),
-                                            (1, 2048, 2041, 32)])
+def _v1_cases():
+    """(dtype, G, Np, n_valid, D) of the v1 kernel checks: the first cases in
+    float32 and bf16; then bf16 at head dims 16, 32 and 64 (the tensor-core
+    bodies) at the flagship's windows, cswinunet's padded ones, a window
+    past the whole-window body's limit, the longest window and a single
+    attended key, G 1, 3 and 5; then float32 and head dim 8 (the CUDA-core
+    bodies) at the flagship's window."""
+    cases = [(dtype, *c) for dtype in (torch.float32, torch.bfloat16)
+             for c in [(6, 16, 16, 8), (4, 112, 98, 16), (3, 208, 196, 32), (2, 256, 256, 64),
+                       (1, 2048, 2041, 32)]]
+    windows = [(128, 128), (256, 256), (112, 98), (208, 196), (512, 500), (2048, 2041),
+               (64, 1)]
+    cases += [(torch.bfloat16, (1, 3, 5)[i % 3], Np, n_valid, D)
+              for i, ((Np, n_valid), D) in enumerate(
+                  (w, D) for D in (16, 32, 64) for w in windows)]
+    cases += [(torch.float32, 3, 256, 256, 32), (torch.float32, 5, 112, 98, 64),
+              (torch.bfloat16, 3, 128, 128, 8)]
+    return cases
+
+
+def _v1_body(dtype, D):
+    return "mma" if dtype == torch.bfloat16 and D in (16, 32, 64) else "fma"
+
+
+@pytest.mark.parametrize("dtype,G,Np,n_valid,D", _v1_cases())
 def test_window_attention_kernels(dev, dtype, G, Np, n_valid, D):
+    """K-V1 and K-V1' against the plain versions: out, dq, dk and dv each
+    also against its own max|plain| (they sit far below 1), masked keys
+    with dk = dv = 0 exactly, padded query rows (nonzero dO there) with
+    their dq, and the body each launch took."""
     q, k, v, do = (_randn(dev, G, Np, D, scale=0.5, seed=s).to(dtype) for s in range(4))
     scale = D ** -0.5
     _build.reset_launches()
@@ -1593,14 +1624,81 @@ def test_window_attention_kernels(dev, dtype, G, Np, n_valid, D):
     got = window_attention.kernel_bwd(q, k, v, lse, do, scale, n_valid)
     assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
         window_attention.FWD_KERNEL: 1, window_attention.BWD_KERNEL: 1}
+    body = _v1_body(dtype, D)
+    assert {n: c for n, c in _build.BODY_LAUNCHES.items() if c} == {
+        f"{window_attention.FWD_KERNEL}:{body}": 1, f"{window_attention.BWD_KERNEL}:{body}": 1}
     qf, kf, vf = q.float(), k.float(), v.float()
-    _check(out, window_attention.window_attention_reference(qf, kf, vf, scale, n_valid), dtype)
+    want_out = window_attention.window_attention_reference(qf, kf, vf, scale, n_valid)
+    _check(out, want_out, dtype)
+    _check_own(out, want_out, dtype)
     want = window_attention.window_attention_bwd_reference(qf, kf, vf, do.float(), scale,
                                                            n_valid)
+    def own_or_zero(a, r):
+        if float(r.abs().max()) > 0.0:
+            _check_own(a, r, dtype)
+        else:  # n_valid 1: p is one-hot, so ds, dq and dk are 0
+            assert float(a.float().abs().max()) <= 1e-4
+
     for a, r in zip(got, want):
         _check_scaled(a, r, dtype)
+        own_or_zero(a, r)
     assert float(got[1][:, n_valid:].abs().sum()) == 0.0  # masked keys: dk = dv = 0
     assert float(got[2][:, n_valid:].abs().sum()) == 0.0
+    if n_valid < Np:  # the padded query rows, whose dO is not zero
+        own_or_zero(got[0][:, n_valid:], want[0][:, n_valid:])
+
+
+def test_window_attention_design_matches_the_c_entry(dev):
+    """The wrapper's mirror of K-V1''s body choice and the C entry's."""
+    lib = _build.library()
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (8, 16, 32, 64):
+            for Np in (1, 16, 100, 112, 128, 208, 224, 240, 256, 272, 512, 2048):
+                code = lib.csu_window_attention_design(_build.DTYPE_CODES[dtype], D, Np)
+                assert ("fma", "tiled", "whole")[code] == window_attention.design(dtype, D, Np)
+
+
+@pytest.mark.parametrize("dtype,Np,n_valid,D", [
+    (torch.bfloat16, 256, 256, 32),   # the whole-window body
+    (torch.bfloat16, 208, 196, 64),
+    (torch.bfloat16, 512, 500, 32),   # the tiled bodies
+    (torch.float32, 112, 98, 16)])    # the CUDA-core bodies
+def test_window_attention_kernels_deterministic(dev, dtype, Np, n_valid, D):
+    """Two runs of K-V1 and K-V1' on the same inputs are bit-equal."""
+    q, k, v, do = (_randn(dev, 5, Np, D, scale=0.5, seed=s).to(dtype) for s in range(4))
+    runs = []
+    for _ in range(2):
+        out, lse = window_attention.kernel_fwd(q, k, v, 0.3, n_valid)
+        runs.append((out, lse, *window_attention.kernel_bwd(q, k, v, lse, do, 0.3, n_valid)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,Np,n_valid,D", [
+    (torch.bfloat16, 112, 98, 32), (torch.bfloat16, 512, 500, 16),
+    (torch.float32, 128, 128, 32)])
+def test_window_attention_one_hot_key(dev, dtype, Np, n_valid, D):
+    """Key j scores 30 above every other: each output row is v_j, dv lands
+    on key j alone (the sum of dO), and dq, dk are as the plain version's
+    (near 0)."""
+    j, G = 37, 3
+    q, k = (_randn(dev, G, Np, D, scale=0.05, seed=s) for s in (0, 1))
+    v, do = (_randn(dev, G, Np, D, scale=0.5, seed=s) for s in (2, 3))
+    scale = D ** -0.5
+    q[..., 0] = 1.0
+    k[..., 0] = 0.0
+    k[:, j, 0] = 30.0 / scale
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    out, lse = window_attention.kernel_fwd(q, k, v, scale, n_valid)
+    dq, dk, dv = window_attention.kernel_bwd(q, k, v, lse, do, scale, n_valid)
+    _check(out, v[:, j:j + 1].float().expand(G, Np, D), dtype)
+    _check(dv[:, j], do.float().sum(1), dtype)
+    others = torch.arange(Np, device=dev) != j
+    assert float(dv[:, others].float().abs().max()) < 1e-6
+    want = window_attention.window_attention_bwd_reference(
+        q.float(), k.float(), v.float(), do.float(), scale, n_valid)
+    for a, r in zip((dq, dk, dv), want):
+        _check_scaled(a, r, dtype)
 
 
 def test_window_attention_kernel_rejects(dev):
