@@ -232,22 +232,25 @@ def k4_bytes(x, e, fb, dy, E, F_cls) -> float:
 
 
 def head_floor_text(torch, numel, pixels, G, kernel) -> str:
-    """The SFU and ALU floors of K3, K4, K-H1 or K-H2 over a flat head map of
-    ``numel`` elements (computed from assumed rates, not measured) on the
-    SFU (SFU_PER_CLOCK a clock per SM) and in float32 operations (128 a clock
-    per SM), at the card's maximum SM clock.  K3 and K-H2: one sigmoid per
-    element (exp2 and a reciprocal), about 12 operations an element (K-H2 14,
-    with the dot); K4: the same plus the 9*G tap exps and reciprocals of
-    each of ``pixels`` pixels, and the SimAM VJP, about 16, plus dp and dx,
-    9 FMAs each; K-H1: 9 exps and a reciprocal per (pixel, sub-pixel), and
-    about 15 operations an element (9 FMAs, two roundings, the bias, the
-    moments)."""
+    """The SFU and ALU floors of K3, K4, K-H1, K-H2 or K5 over a flat head
+    map of ``numel`` elements (computed from assumed rates, not measured) on
+    the SFU (SFU_PER_CLOCK a clock per SM) and in float32 operations (128 a
+    clock per SM), at the card's maximum SM clock.  K3 and K-H2: one sigmoid
+    per element (exp2 and a reciprocal), about 12 operations an element
+    (K-H2 14, with the dot); K4: the same plus the 9*G tap exps and
+    reciprocals of each of ``pixels`` pixels, and the SimAM VJP, about 16,
+    plus dp and dx, 9 FMAs each; K-H1: 9 exps and a reciprocal per (pixel,
+    sub-pixel), and about 15 operations an element (9 FMAs, two roundings,
+    the bias, the moments); K5 at one class (bf16): the sigmoid, and 36
+    instructions an element, K5 without the gate no SFU work and 6, as its
+    SASS' main loop issues them (1147 and 188 per 32 elements), at 128 an
+    SM and clock."""
     sms, mhz = sm_clock(torch)
     hz = mhz * 1e6
     sfu_ops = {"K3": 2 * numel, "K-H2": 2 * numel, "K4": 2 * numel + 2 * 9 * G * pixels,
-               "K-H1": 10 * G * pixels}[kernel]
+               "K-H1": 10 * G * pixels, "K5": 2 * numel, "K5 no gate": 0}[kernel]
     alu_ops = {"K3": 12 * numel, "K-H2": 14 * numel, "K4": (16 + 18) * numel,
-               "K-H1": 15 * numel}[kernel]
+               "K-H1": 15 * numel, "K5": 36 * numel, "K5 no gate": 6 * numel}[kernel]
     sfu = sfu_ops / (sms * SFU_PER_CLOCK * hz) * 1e3
     alu = alu_ops / (sms * 128 * hz) * 1e3
     return (f"{kernel} SFU floor {sfu:.4f} ms, ALU floor {alu:.4f} ms (computed from assumed "
@@ -289,13 +292,15 @@ def check_pair(name, torch, kernel_fn, plain_fn, make, batch=2, own=False):
     return err32, err16, *rel
 
 
-def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2, own=()):
+def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2, own=(), ratios=None):
     """Backward kernel vs plain at float32 and at bf16, every output; the
     error of each output is taken relative to max(1, max|plain|) of it.
     The outputs listed in ``own`` (indices) are also held in bf16 to
     TOL_BF16 times their own max|plain|, with no floor at 1; every output's
     max|plain| and bf16 error over it are logged.  Returns the largest
-    scaled errors (float32, bf16) and the largest absolute one in float32."""
+    scaled errors (float32, bf16) and the largest absolute one in float32;
+    ``ratios`` (a dict), where given, keeps the largest bf16 error over its
+    own max|plain| of the ``own`` outputs under "own16"."""
     errs, abs32, tops = [], 0.0, []
     for dtype, tol in ((torch.float32, TOL_BWD_F32), (torch.bfloat16, TOL_BF16)):
         args = make(batch, dtype)
@@ -310,6 +315,8 @@ def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2, own=()):
                 abs32 = max(abs32, err)
             else:
                 tops.append(f"{top:.3g} ({err / max(top, 1e-30):.2e})")
+                if ratios is not None and i in own:
+                    ratios["own16"] = max(ratios.get("own16", 0.0), err / max(top, 1e-30))
                 require(i not in own or err <= TOL_BF16 * top,
                         f"{name}: bf16 output {i} error {err} > {TOL_BF16} x max|plain| {top}")
             worst = max(worst, err / max(1.0, top))
@@ -755,9 +762,13 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
     ``cswinunet`` (float32, batch 2), and at one odd shape each (K-V1 and
     every output of K-V1' also against its own max|plain|, K-V1''s masked
     keys with dk = dv = 0 exactly, and the body each launch took: bf16 at
-    head dims 16-64 the tensor-core ones, float32 the CUDA-core ones); their
-    times at the flagship's shapes (K-V1 and K-V1' on the device beside
-    SDPA's device time); then the three entry points driven forward and
+    head dims 16-64 the tensor-core ones, float32 the CUDA-core ones; K5's
+    dx and db also against their own max|plain|, at a 7 x 9 map, and with
+    dy = 0 and A, B of order 100, where dx is the two pooled terms alone);
+    their times at the flagship's shapes (K-V1 and K-V1' on the device
+    beside SDPA's device time; K5 and K5 without the gate also on the device
+    at the 2048^2 head and at cswinunet's float32 one, with their SFU and ALU
+    floors); then the three entry points driven forward and
     backward with the launch counts reset before and read after each
     (FusedLayerNorm(use_kernel=True) at every LayerNorm shape of both
     configs; CARAFE(flat_output, flat_raw) into FusedSimAMHead at 1 and 4
@@ -847,7 +858,9 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
     # -- K5 and K5 without the gate: the flagship head's flat map --
     G = 16
 
-    def make_k5(H, W, C, Fc, gate):
+    def make_k5(H, W, C, Fc, gate, pooled_only=False):
+        """K5's inputs; with ``pooled_only`` dy = 0 and A, B of order 100,
+        so that dx is the two pooled terms alone (about 1/N of dx else)."""
         def make(B, dtype):
             fb = randn(B, H, W, G * C, dtype=dtype)
             dy = randn(B, H, W, G * Fc, dtype=dtype)
@@ -855,27 +868,64 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
             f = fb.float()
             mu, v = pooled_stats(f.sum((1, 2)), (f * f).sum((1, 2)), H * W * G, G)
             A = Bq = torch.zeros_like(mu)  # unused without the gate
-            if gate:
+            if pooled_only:
+                dy.zero_()
+                A, Bq = randn(B, C, scale=100.0), randn(B, C, scale=100.0)
+            elif gate:
                 A, Bq, _ = carafe_head.head_bwd1_reference(f, dy.float(), mu, v, w, G)
             return fb, dy, mu, v, A, Bq, w
         return make
 
+    def k5_bytes(fb, dy, gate):
+        """Bytes K5 must move: dx written, dy read, W; with the gate fb read
+        and the (B, C) float32 mu, v, A, B."""
+        n = fb.numel()
+        return ((2 * n if gate else n) * fb.element_size() + dy.numel() * dy.element_size()
+                + E * 4 + (4 * fb.shape[0] * E * 4 if gate else 0))
+
     for gate in (True, False):
         key = "K5" if gate else "K5 no gate"
-        for H, W, C, Fc in ((r512, r512, E, 1), (r512, r512, E, 4), (20, 36, 48, 3)):
+        # the flagship's map at 1 and 4 classes, and 7 x 9 pixels at 5 classes
+        # (a map that fills neither a chunk nor U pixels), each output also at
+        # its own max|plain|
+        for H, W, C, Fc in ((r512, r512, E, 1), (r512, r512, E, 4), (20, 36, 48, 3),
+                            (7, 9, E, 5)):
             fold(key, check_outputs(
                 f"{key} fb ({H},{W},{G * C}) F {Fc}", torch,
                 lambda *a, gate=gate: simam_head.head_bwd2(*a, G, gate=gate),
                 lambda *a, gate=gate: carafe_head.head_bwd2_reference(*a, G, gate=gate),
-                make_k5(H, W, C, Fc, gate)))
+                make_k5(H, W, C, Fc, gate), own=(0, 1), ratios=rows[key]))
+        if gate:  # the pooled terms alone: dy = 0, A and B of order 100
+            fold(key, check_outputs(
+                f"{key} fb ({r512},{r512},{G * E}) F 1, dy = 0, |A|, |B| ~ 100", torch,
+                lambda *a: simam_head.head_bwd2(*a, G),
+                lambda *a: carafe_head.head_bwd2_reference(*a, G),
+                make_k5(r512, r512, E, 1, True, pooled_only=True), own=(0, 1),
+                ratios=rows[key]))
         args = make_k5(r512, r512, E, 1, gate)(TIME_BATCH, torch.bfloat16)
         n = args[0].numel()
         add_time(key, (lambda: simam_head.head_bwd2(*args, G, gate=gate),
                        lambda: carafe_head.head_bwd2_reference(*args, G, gate=gate), None),
-                 (2 * n if gate else n) * 2 + args[1].numel() * 2 + E * 4
-                 + (4 * TIME_BATCH * E * 4 if gate else 0),
+                 k5_bytes(args[0], args[1], gate),
                  (24 if gate else 3) * n, (TIME_BATCH, r512, r512, G * E))
+        rows[key]["floors"] = head_floor_text(torch, n, n // (G * E), G, key)
+        log(f"    {key}: {rows[key]['floors']}")
         del args
+        # device time at the 2048^2 head (batch 1, bf16) and at cswinunet's
+        # (448^2, batch 2, float32)
+        for label, B, r, dtype in (("2048", 1, IMG2048 // 4, torch.bfloat16),
+                                   ("448", B448, r448, torch.float32)):
+            args = make_k5(r, r, E, 1, False)(B, dtype)
+            if gate:  # stand-in A and B: K5's time does not depend on them
+                args = (*args[:4], randn(B, E), randn(B, E), args[6])
+            dms = device_ms(torch, lambda: simam_head.head_bwd2(*args, G, gate=gate))
+            b_ms, _ = bound_ms(k5_bytes(args[0], args[1], gate), 0, "bfloat16")
+            rows[key][f"device_ms_{label}"] = dms
+            rows[key][f"bound_ms_{label}"] = b_ms
+            log(f"    {key} at the {label}^2 head, batch {B}, {dtype}: device {dms:.4f} ms, "
+                f"bound {b_ms:.4f} ms")
+            del args
+            torch.cuda.empty_cache()
 
     # -- K-V1, K-V1': every window geometry, as (G, Np, D) groups --
     def v1_shape(B, reso, Cb, heads, hsp, wsp):
@@ -2251,6 +2301,10 @@ def main() -> int:
         }
         entry.update({k: v for k, v in row.items() if k.endswith("_flagship_step")
                       or k == "layernorms_per_flagship_step"})
+        if label in ("K5", "K5 no gate"):
+            entry.update({k: row[k] for k in ("device_ms_2048", "bound_ms_2048",
+                                              "device_ms_448", "bound_ms_448", "floors")},
+                         err_over_max_plain_bf16=row["own16"])
         if label in ("K-V1", "K-V1'"):  # bf16 at head dims 16-64 on the tensor cores
             entry.update(body="mma.sync m16n8k16 bf16 (csrc/" + (
                 "attention_fwd_mma.cuh)" if label == "K-V1" else "window_attention.cu)"),

@@ -79,11 +79,12 @@ _SIGNATURES = {
     # dtype, x, enc, dy, w, dx, denc, db_part, B, H, W, C, S, F, vec, px, rows, stream
     "csu_carafe_head_bwd_nogate": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _P],
-    # dtype, fb, dy, mu, var, A, Bq, w, dx, db_part, B, H, W, C, G, F, vec, lam, stream
+    # dtype, fb, dy, mu, var, A, Bq, w, dx, db_part, B, H, W, C, G, F, vec, lam, pc,
+    # stream
     "csu_head_bwd2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _F, _P],
-    # dtype, dy, w, dx, db_part, B, H, W, C, G, F, vec, stream
-    "csu_head_bwd2_nogate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                      _F, _I, _P],
+    # dtype, dy, w, dx, db_part, B, H, W, C, G, F, vec, pc, stream
+    "csu_head_bwd2_nogate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, g, b, y, M, C, eps, stream
     "csu_layernorm_fwd": [_I, _P, _P, _P, _P, _L, _I, _F, _P],
     # dtype, x, g, dy, dx, dg_part, db_part, M, C, eps, stream

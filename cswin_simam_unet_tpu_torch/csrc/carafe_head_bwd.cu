@@ -6,8 +6,9 @@
 // (pallas_call at :283, through _fused_bwd_call), both branches.  Per pixel,
 // sub-pixel s and channel c of the biased flat map fb (B, H, W, S*S*C):
 //     dg   = sum_f dy[s*F + f] * W[c, f]
-//     dacc = the closed-form SimAM VJP of dg at fb (common.cuh, simam_vjp),
-//            with mu, var and K3's pooled A, B; without the gate dacc = dg
+//     dacc = the closed-form SimAM VJP of dg at fb, with mu, var and K3's
+//            pooled A, B, in _fused_bwd_kernel's formula (w4 = 1/(4(v+lam)),
+//            the energy xc^2 * w4); without the gate dacc = dg
 //     db   = the float32 sum of dacc over the pixels, before dacc is
 //            rounded through the compute dtype (where the JAX chain stored it)
 // and then the CARAFE backward of the rounded dacc (zero outside the image),

@@ -23,9 +23,12 @@
 // the 268 MB of fb written (about 96 us at 3.35 TB/s).  Design: a block owns
 // a chunk of `pc` consecutive pixels of one image (carafe_head.h1_geometry
 // picks it so that the grid fills the card several times) and walks it P
-// pixels a pass.  Each pass, (a) a thread that owns a (pixel, 16-byte
-// channel vector) issues the loads of its 9 neighbour vectors, once per
-// (pixel, channel vector) and not once per sub-pixel; (b) meanwhile the
+// pixels a pass (where a pixel has more channel vectors than a block has
+// threads, P = 1 and blockIdx.y splits them into slices: K-C, and K-H1
+// without the moments, so no C refuses a block).  Each pass, (a) a thread
+// that owns a (pixel, 16-byte channel vector) issues the loads of its 9
+// neighbour vectors, once per (pixel, channel vector) and not once per
+// sub-pixel; (b) meanwhile the
 // block computes the pass's P*S^2 tap softmaxes, one (pixel, sub-pixel) a
 // thread, each once, into a ring of two pass buffers in shared memory (one
 // barrier a pass); (c) the owner loops over the S^2 sub-pixels: nine FMAs a
@@ -48,10 +51,19 @@ constexpr size_t kH1Smem = 48 * 1024;
 __host__ __device__ inline int h1_pixel_floats(int S) { return 9 * S * S + 1; }
 
 // Shared memory of one block (bytes): the two pass buffers, which the
-// moment sums reuse; carafe_head.h1_smem_bytes mirrors it.
-static size_t h1_smem(int C, int S, int pp) {
+// moment sums (STATS) reuse; carafe_head.h1_smem_bytes mirrors it.
+static size_t h1_smem(int C, int S, int pp, bool stats) {
   const size_t ring = 2 * (size_t)pp * h1_pixel_floats(S), sums = 2 * (size_t)pp * C;
-  return 4 * (ring > sums ? ring : sums);
+  return 4 * (stats && sums > ring ? sums : ring);
+}
+
+// The channel vectors of a pixel that one block covers: all CV where a pass
+// of pp pixels fits kH1Threads, else (pp = 1) even slices of at most
+// kH1Threads, one a blockIdx.y; carafe_head.h1_geometry mirrors it.
+__host__ __device__ inline int h1_slice(int CV, int pp) {
+  if (pp * CV <= kH1Threads) return CV;
+  const int slices = (CV + kH1Threads - 1) / kH1Threads;
+  return (CV + slices - 1) / slices;
 }
 
 template <typename T, int VEC, bool BIAS, bool STATS>
@@ -62,15 +74,21 @@ carafe_head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ enc,
                        int S, int pp, int pc, int chunks) {
   static_assert(BIAS || !STATS, "the moments are those of the biased map");
   extern __shared__ __align__(16) float smem[];
-  const int S2 = S * S, K9 = 9 * S2, CV = C / VEC, HW = H * W, NT = pp * CV;
+  const int S2 = S * S, K9 = 9 * S2, CV = C / VEC, HW = H * W;
+  // the block's slice of the vectors: all of them with the moments
+  const int CVB = STATS ? CV : h1_slice(CV, pp), NT = pp * CVB;
   const int PS = h1_pixel_floats(S);
-  const int tid = threadIdx.x, pl = tid / CV, cv = tid - pl * CV, c = cv * VEC;
+  const int tid = threadIdx.x, pl = tid / CVB;
+  const int cv = (STATS ? 0 : blockIdx.y * CVB) + tid - pl * CVB, c = cv * VEC;
+  const bool real = STATS || cv < CV;  // the last slice may hold fewer vectors
   const int chunk = blockIdx.x % chunks, b = blockIdx.x / chunks;
   const int q0 = chunk * pc, q1 = min(HW, q0 + pc);
   const int64_t img0 = (int64_t)b * HW;  // first pixel of this image
 
   float bv[VEC], a1[VEC], a2[VEC];
-  if constexpr (BIAS) load_vec<T, VEC>(bias + c, bv);
+  if constexpr (BIAS) {
+    if (real) load_vec<T, VEC>(bias + c, bv);
+  }
 #pragma unroll
   for (int i = 0; i < VEC; ++i) a1[i] = a2[i] = 0.f;
 
@@ -78,7 +96,7 @@ carafe_head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ enc,
   for (int qp = q0; qp < q1; qp += pp, ring ^= 1) {
     // (a) this thread's 9 neighbour vectors; zero outside the image
     const int q = qp + pl;
-    const bool own = q < q1;
+    const bool own = q < q1 && real;
     const int y = q / W, xx = q - y * W;
     float xv[9][VEC];
 #pragma unroll
@@ -170,9 +188,10 @@ template <typename T, int VEC, bool BIAS, bool STATS>
 static cudaError_t launch_carafe_head_fwd(const void* x, const void* enc, const void* bias,
                                           void* fb, void* s1, void* s2, int B, int H, int W,
                                           int C, int S, int pp, int pc, cudaStream_t stream) {
-  const int chunks = (H * W + pc - 1) / pc;
+  const int chunks = (H * W + pc - 1) / pc, CV = C / VEC, CVB = h1_slice(CV, pp);
   carafe_head_fwd_kernel<T, VEC, BIAS, STATS>
-      <<<(unsigned)(B * chunks), pp * (C / VEC), h1_smem(C, S, pp), stream>>>(
+      <<<dim3((unsigned)(B * chunks), (CV + CVB - 1) / CVB), pp * CVB,
+         h1_smem(C, S, pp, STATS), stream>>>(
           static_cast<const T*>(x), static_cast<const T*>(enc), static_cast<const T*>(bias),
           static_cast<T*>(fb), static_cast<float*>(s1), static_cast<float*>(s2), H, W, C, S,
           pp, pc, chunks);
@@ -184,8 +203,11 @@ static cudaError_t dispatch_carafe_head_fwd(int dtype, int vec, const void* x, c
                                             const void* bias, void* fb, void* s1, void* s2,
                                             int B, int H, int W, int C, int S, int pp, int pc,
                                             cudaStream_t s) {
-  if (vec < 1 || C % vec || S < 1 || pp < 1 || pc < 1 || B < 1 || H < 1 || W < 1 ||
-      pp * (C / vec) > kH1Threads || h1_smem(C, S, pp) > kH1Smem)
+  if (vec < 1 || C % vec || S < 1 || pp < 1 || pc < 1 || B < 1 || H < 1 || W < 1)
+    return cudaErrorInvalidValue;
+  const int CV = C / vec, CVB = h1_slice(CV, pp);
+  // the moments are summed per block over all C: STATS takes no slices
+  if (pp * CVB > kH1Threads || (STATS && CVB != CV) || h1_smem(C, S, pp, STATS) > kH1Smem)
     return cudaErrorInvalidValue;
   if (dtype == kFloat32 && vec == 4)
     return launch_carafe_head_fwd<float, 4, BIAS, STATS>(x, enc, bias, fb, s1, s2, B, H, W,
@@ -207,10 +229,11 @@ static cudaError_t dispatch_carafe_head_fwd(int dtype, int vec, const void* x, c
 // x (B, H, W, C), enc (B, H, W, 9*S*S), bias (C,), fb (B, H, W, S*S*C), all
 // contiguous in the compute dtype; vec is the channel vector width (16 bytes
 // of the dtype, or 1).  A block per chunk of pc pixels of one image (blocks
-// = B * ceil(H*W / pc), image-major), walked pp pixels a pass by pp*C/vec
-// threads.  s1 and s2 (blocks, C) float32 receive each block's sums of fb
-// and of fb^2 per real channel; both null when the caller needs no
-// statistics.
+// = B * ceil(H*W / pc), image-major), walked pp pixels a pass by pp *
+// h1_slice(C/vec, pp) threads, a blockIdx.y a slice of the channel vectors
+// (one slice where pp*C/vec <= 256, always with the moments).  s1 and s2
+// (blocks, C) float32 receive each block's sums of fb and of fb^2 per real
+// channel; both null when the caller needs no statistics.
 CSU_EXPORT int csu_carafe_head_fwd(int dtype, const void* x, const void* enc,
                                    const void* bias, void* fb, void* s1, void* s2, int B,
                                    int H, int W, int C, int S, int vec, int pp, int pc,

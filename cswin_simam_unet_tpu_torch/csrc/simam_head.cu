@@ -15,7 +15,8 @@
 // SFU: one exp and one reciprocal an element.  Design: K3's shape.  A block
 // owns a chunk of `pc` consecutive pixels of one image (carafe_head.
 // h2_geometry picks pc so that the grid fills the card several times), a
-// group of L lanes each (pixel, g), a lane one 16-byte channel vector (ONE:
+// group of L lanes each (pixel, g) (more groups than a block holds: slices
+// of them over blockIdx.y), a lane one 16-byte channel vector (ONE:
 // the channel vectors are exactly L, a power of two up to 32) or a stride
 // of them; a thread walks the chunk U pixels at a time with their U loads
 // issued together.  The channel constants (mu, 4 (v + lam), its rcp_rn) and
@@ -31,7 +32,21 @@
 namespace csu {
 
 constexpr int kMaxClasses = 8;
-constexpr int kHeadThreads = 256;  // G*L threads of a K-H2 block at most
+constexpr int kHeadThreads = 256;  // threads of a K-H2 block at most
+
+// K3 and K5 give a thread each (g, channel vector) slot of a pixel; where a
+// pixel has more than kSlotThreads slots, blockIdx.y splits them into
+// `splits` even slices of `threads` (the last may hold fewer), in the
+// kernels' SPLIT instantiation (F bound 8); an unsplit pixel takes the
+// instantiations without the slice index.  carafe_head.slot_split mirrors it.
+constexpr int kSlotThreads = 256;
+struct SlotSplit {
+  int threads, splits;
+};
+static SlotSplit slot_split(int slots) {
+  const int splits = (slots + kSlotThreads - 1) / kSlotThreads;
+  return {(slots + splits - 1) / splits, splits};
+}
 
 template <typename T, int VEC, bool GATE, int FM, bool ONE>
 __global__ void __launch_bounds__(kHeadThreads)
@@ -41,7 +56,8 @@ simam_head_kernel(const T* __restrict__ fb, const float* __restrict__ mu,
                   int pc, int chunks) {
   constexpr int U = FM <= 2 ? 4 : 2;  // pixels whose loads are in flight together
   const int CV = C / VEC, GC = G * C, GF = G * F;
-  const int g = threadIdx.x / L, l = threadIdx.x - g * L;
+  const int gl = threadIdx.x / L, l = threadIdx.x - gl * L;
+  const int g = blockIdx.y * (blockDim.x / L) + gl;  // a slice of the G groups
   const int chunk = blockIdx.x % chunks, b = blockIdx.x / chunks;
   const int64_t p0 = (int64_t)b * HW + (int64_t)chunk * pc;
   const int n = min(pc, HW - chunk * pc);
@@ -111,12 +127,24 @@ simam_head_kernel(const T* __restrict__ fb, const float* __restrict__ mu,
   }
 }
 
+// The groups of a K-H2 block: all G where G*L threads fit kHeadThreads, else
+// the largest divisor of G that does (blockIdx.y walks the G / gpb slices,
+// so a warp's groups are all real); carafe_head.h2_geometry mirrors it.
+static int head_groups(int G, int L) {
+  if (G * L <= kHeadThreads) return G;
+  int gpb = kHeadThreads / L;
+  while (G % gpb) --gpb;
+  return gpb;
+}
+
 template <typename T, int VEC, bool GATE, int FM, bool ONE>
 static cudaError_t launch_head(const void* fb, const void* mu, const void* var,
                                const void* w, void* out, int B, int HW, int C, int G, int F,
                                int L, float lam, int pc, cudaStream_t stream) {
   const int chunks = (HW + pc - 1) / pc;
-  simam_head_kernel<T, VEC, GATE, FM, ONE><<<(unsigned)(B * chunks), G * L, 0, stream>>>(
+  const int gpb = head_groups(G, L);
+  simam_head_kernel<T, VEC, GATE, FM, ONE>
+      <<<dim3((unsigned)(B * chunks), G / gpb), gpb * L, 0, stream>>>(
       static_cast<const T*>(fb), static_cast<const float*>(mu),
       static_cast<const float*>(var), static_cast<const T*>(w), static_cast<T*>(out), HW, C,
       G, F, L, lam, pc, chunks);
@@ -153,7 +181,8 @@ static cudaError_t dispatch_head(int dtype, int vec, const void* fb, const void*
                                  int W, int C, int G, int F, int L, float lam, int pc,
                                  cudaStream_t s) {
   if (vec < 1 || C % vec || F < 1 || F > kMaxClasses || L < 1 || L > 32 || (L & (L - 1)) ||
-      L > C / vec || G < 1 || G * L > kHeadThreads || pc < 1 || B < 1 || H < 1 || W < 1)
+      L > C / vec || G < 1 || G / head_groups(G, L) > 65535 || pc < 1 || B < 1 || H < 1 ||
+      W < 1)
     return cudaErrorInvalidValue;
   const int HW = H * W;
   const bool one = vec > 1 && C / vec == L;
@@ -193,9 +222,10 @@ static cudaError_t dispatch_head(int dtype, int vec, const void* fb, const void*
 // pixels of one image (the wrapper picks pc so that the grid fills the card
 // several times, 2048^2 included), each thread one (g, 16-byte channel
 // vector) slot of a pixel, so each pixel's G*C values are one coalesced
-// block-wide load; a thread walks the chunk U pixels at a time with their U
-// loads issued together, keeps its A, B and dW sums in registers and writes
-// them once: no atomics and a fixed summation order.  F is a compile-time
+// block-wide load (a pixel of more than kSlotThreads slots is split over
+// blockIdx.y, so no G*C refuses a block); a thread walks the chunk U pixels
+// at a time with their U loads issued together, keeps its A, B and dW sums
+// in registers and writes them once: no atomics and a fixed summation order.  F is a compile-time
 // bound (1, 2, 4, 8), so one class costs two FMAs an element for dg and dW,
 // not sixteen.  The gate is K-H2's arithmetic, so round(x * g) rounds as in
 // the forward; its two divisions are rcp_rn and div_rn_by (common.cuh), which
@@ -206,7 +236,7 @@ static cudaError_t dispatch_head(int dtype, int vec, const void* fb, const void*
 // _bwd1_nogate_kernel (launched at pallas_carafe_head.py:382, the fused head
 // without SimAM): dW[c, f] = sum over the map of fb * dy[g*F + f], the same
 // per-chunk float32 partials in the same order, and no A, B, mu, var or W.
-template <typename T, int VEC, bool GATE, int FM>
+template <typename T, int VEC, bool GATE, int FM, bool SPLIT>
 __global__ void head_bwd1_kernel(const T* __restrict__ fb, const T* __restrict__ dy,
                                  const float* __restrict__ mu,
                                  const float* __restrict__ var, const T* __restrict__ w,
@@ -214,7 +244,17 @@ __global__ void head_bwd1_kernel(const T* __restrict__ fb, const T* __restrict__
                                  float lam, int pc, int chunks) {
   constexpr int U = FM <= 2 ? 4 : 2;  // pixels whose loads are in flight together
   const int CV = C / VEC, GC = G * C;
-  const int g = threadIdx.x / CV, cv = threadIdx.x - g * CV, c = cv * VEC;
+  int g, cv;
+  if constexpr (SPLIT) {
+    const int slot = blockIdx.y * blockDim.x + threadIdx.x;
+    if (slot >= G * CV) return;  // the last slice of a split pixel
+    g = slot / CV;
+    cv = slot - g * CV;
+  } else {
+    g = threadIdx.x / CV;
+    cv = threadIdx.x - g * CV;
+  }
+  const int c = cv * VEC;
   const int chunk = blockIdx.x % chunks, b = blockIdx.x / chunks;
   const int64_t p0 = (int64_t)b * HW + (int64_t)chunk * pc;
   const int n = min(pc, HW - chunk * pc);
@@ -288,13 +328,15 @@ __global__ void head_bwd1_kernel(const T* __restrict__ fb, const T* __restrict__
   }
 }
 
-template <typename T, int VEC, bool GATE, int FM>
+template <typename T, int VEC, bool GATE, int FM, bool SPLIT>
 static cudaError_t launch_head_bwd1(const void* fb, const void* dy, const void* mu,
                                     const void* var, const void* w, void* part, int B, int HW,
                                     int C, int G, int F, float lam, int pc,
                                     cudaStream_t stream) {
   const int chunks = (HW + pc - 1) / pc;
-  head_bwd1_kernel<T, VEC, GATE, FM><<<(unsigned)(B * chunks), G * (C / VEC), 0, stream>>>(
+  const SlotSplit sp = slot_split(G * (C / VEC));
+  head_bwd1_kernel<T, VEC, GATE, FM, SPLIT>
+      <<<dim3((unsigned)(B * chunks), sp.splits), sp.threads, 0, stream>>>(
       static_cast<const T*>(fb), static_cast<const T*>(dy), static_cast<const float*>(mu),
       static_cast<const float*>(var), static_cast<const T*>(w), static_cast<float*>(part),
       HW, C, G, F, lam, pc, chunks);
@@ -306,17 +348,20 @@ static cudaError_t launch_head_bwd1_f(const void* fb, const void* dy, const void
                                       const void* var, const void* w, void* part, int B,
                                       int HW, int C, int G, int F, float lam, int pc,
                                       cudaStream_t s) {
+  if (slot_split(G * (C / VEC)).splits > 1)  // a wide pixel: one instantiation, F <= 8
+    return launch_head_bwd1<T, VEC, GATE, 8, true>(fb, dy, mu, var, w, part, B, HW, C, G, F,
+                                                   lam, pc, s);
   if (F <= 1)
-    return launch_head_bwd1<T, VEC, GATE, 1>(fb, dy, mu, var, w, part, B, HW, C, G, F, lam,
-                                             pc, s);
+    return launch_head_bwd1<T, VEC, GATE, 1, false>(fb, dy, mu, var, w, part, B, HW, C, G, F,
+                                                    lam, pc, s);
   if (F <= 2)
-    return launch_head_bwd1<T, VEC, GATE, 2>(fb, dy, mu, var, w, part, B, HW, C, G, F, lam,
-                                             pc, s);
+    return launch_head_bwd1<T, VEC, GATE, 2, false>(fb, dy, mu, var, w, part, B, HW, C, G, F,
+                                                    lam, pc, s);
   if (F <= 4)
-    return launch_head_bwd1<T, VEC, GATE, 4>(fb, dy, mu, var, w, part, B, HW, C, G, F, lam,
-                                             pc, s);
-  return launch_head_bwd1<T, VEC, GATE, 8>(fb, dy, mu, var, w, part, B, HW, C, G, F, lam, pc,
-                                           s);
+    return launch_head_bwd1<T, VEC, GATE, 4, false>(fb, dy, mu, var, w, part, B, HW, C, G, F,
+                                                    lam, pc, s);
+  return launch_head_bwd1<T, VEC, GATE, 8, false>(fb, dy, mu, var, w, part, B, HW, C, G, F,
+                                                  lam, pc, s);
 }
 
 template <bool GATE>
@@ -324,8 +369,8 @@ static cudaError_t dispatch_head_bwd1(int dtype, int vec, const void* fb, const 
                                       const void* mu, const void* var, const void* w,
                                       void* part, int B, int H, int W, int C, int G, int F,
                                       float lam, int pc, cudaStream_t s) {
-  if (vec < 1 || C % vec || F < 1 || F > kMaxClasses || pc < 1 || B < 1 || H < 1 || W < 1 ||
-      G * (C / vec) > 1024)
+  if (vec < 1 || C % vec || F < 1 || F > kMaxClasses || G < 1 || pc < 1 || B < 1 || H < 1 ||
+      W < 1 || slot_split(G * (C / vec)).splits > 65535)
     return cudaErrorInvalidValue;
   const int HW = H * W;
   if (dtype == kFloat32 && vec == 4)
@@ -350,84 +395,155 @@ static cudaError_t dispatch_head_bwd1(int dtype, int vec, const void* fb, const 
 // Replaces ops/pallas_simam_head.py::_bwd2_kernel (pallas_call at :334) and,
 // with GATE false, _bwd2_nogate_kernel (:364): the second pass of
 // simam_head's backward, after K3 has given the pooled A, B (and dW).  For
-// each lane l = g*C + c of the biased flat map fb (B, H, W, G*C), with
-// dg = sum_f dy[g*F + f] * W[c, f] recomputed per pixel (F <= 8 terms):
-//     dx[l] = simam_vjp(dg, x, mu_c, ...)   (common.cuh; GATE false: dx = dg)
-//     db[l] += dx[l]  in float32, before dx is rounded to the compute dtype
-// summed over the pixels of one image row per block; the caller sums the rows
-// and the G slots of each channel into db (C,) (pallas_simam_head.py:376-377).
+// each lane l = g*C + c of the biased flat map fb (B, H, W, G*C), with the
+// N = H*W*G values each channel's statistics pool over and n = max(N-1, 1),
+// in float32, in this order (_bwd2_kernel's, pallas_simam_head.py:150-166,
+// and _gate_terms' at :79), each step rounded, but a*b + c in one FMA:
+//     dg = sum_f dy[g*F + f] * W[c, f]                     (f ascending, FMAs)
+//     w4 = 1 / (4 (v_c + lam))                             (rcp_rn, exact)
+//     xc = x - mu_c
+//     e  = xc^2 / (4 (v_c + lam)) + 0.5                    (div_rn_by, exact)
+//     g  = 1 / (1 + exp(-e))                               (rcp_rn)
+//     t  = (dg * x) * (g * (1 - g))
+//     ca = (2 w4 / N) * A_c,  cb = (8 (w4 w4) / n) * B_c   (once per block)
+//     dx = ((dg*g + ((2 w4) * t) * xc) - ca) - cb*xc       (two FMAs)
+//     db[l] += dx  in float32, before dx is rounded to the compute dtype
+// Without the gate dx = dg: fb, mu, v, A and B are not read.  The gate is
+// K3's and K-H2's bit for bit; the caller sums the (blocks, G*C) db rows and
+// the G slots of each channel into db (C,) (pallas_simam_head.py:376-377).
 //
 // What bounds it on the H100: device memory, a read of the 268 MB flat map
 // and a write of dx at the 512^2 head (about 160 us at 3.35 TB/s; without
-// the gate only dx is written).  Design: K3's, one block per image row and
-// one thread per (g, 16-byte channel vector) slot of a pixel, so each
-// pixel's G*C values are one coalesced block-wide load and store; the
-// channel's constants and its W row sit in registers, db in a register sum
-// that is written once: no atomics and a fixed summation order.
-template <typename T, int VEC, bool GATE>
+// the gate only the write of dx, about 80 us).  Design: K3's.  A block owns
+// a chunk of `pc` consecutive pixels of one image (carafe_head.k5_geometry
+// picks pc so that the grid fills the card several times), each thread one
+// (g, 16-byte channel vector) slot of a pixel, so each pixel's G*C values
+// are one coalesced block-wide load and store; where the G*C/VEC slots of a
+// pixel exceed kSlotThreads they are split over blockIdx.y.  A thread walks
+// its chunk U pixels at a time with their fb and dy loads issued together
+// before any arithmetic; its channel constants, its FM rows of W (F is a
+// compile-time bound, 1, 2, 4 or 8) and its db sums sit in registers, and the
+// sums are written once per block: no atomics, a fixed summation order.
+template <typename T, int VEC, bool GATE, int FM, bool SPLIT>
 __global__ void head_bwd2_kernel(const T* __restrict__ fb, const T* __restrict__ dy,
                                  const float* __restrict__ mu, const float* __restrict__ var,
                                  const float* __restrict__ A, const float* __restrict__ Bq,
                                  const T* __restrict__ w, T* __restrict__ dx,
-                                 float* __restrict__ db_part, int H, int W, int C, int G,
-                                 int F, float lam, float inv_count, float inv_count_m1) {
+                                 float* __restrict__ db_part, int HW, int C, int G, int F,
+                                 float lam, float count, float count_m1, int pc, int chunks) {
+  constexpr int U = FM <= 2 ? 4 : 2;  // pixels whose loads are in flight together
   const int CV = C / VEC, GC = G * C;
-  const int g = threadIdx.x / CV, cv = threadIdx.x - g * CV, c = cv * VEC;
-  const int row = blockIdx.x, b = row / H;  // row = b*H + y
-  float mu_c[VEC], w4[VEC], a_c[VEC], b_c[VEC], wv[VEC][kMaxClasses], db[VEC];
+  int g, c;
+  if constexpr (SPLIT) {
+    const int slot = blockIdx.y * blockDim.x + threadIdx.x;
+    if (slot >= G * CV) return;  // the last slice of a split pixel
+    g = slot / CV;
+    c = (slot - g * CV) * VEC;
+  } else {
+    g = threadIdx.x / CV;
+    c = (threadIdx.x - g * CV) * VEC;
+  }
+  const int chunk = blockIdx.x % chunks, b = blockIdx.x / chunks;
+  const int64_t p0 = (int64_t)b * HW + (int64_t)chunk * pc;
+  const int n = min(pc, HW - chunk * pc);
+  float mu_c[VEC], den[VEC], w4[VEC], ca[VEC], cb[VEC], wv[VEC][FM], db[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    const int64_t bc = (int64_t)b * C + c + i;
-    mu_c[i] = GATE ? mu[bc] : 0.f;
-    w4[i] = GATE ? 1.f / (4.f * (var[bc] + lam)) : 0.f;
-    a_c[i] = GATE ? A[bc] : 0.f;
-    b_c[i] = GATE ? Bq[bc] : 0.f;
+    if constexpr (GATE) {
+      const int64_t bc = (int64_t)b * C + c + i;
+      mu_c[i] = mu[bc];
+      den[i] = 4.f * (var[bc] + lam);
+      w4[i] = rcp_rn(den[i]);
+      ca[i] = (2.f * w4[i] / count) * A[bc];
+      cb[i] = (8.f * (w4[i] * w4[i]) / count_m1) * Bq[bc];
+    }
     db[i] = 0.f;
 #pragma unroll
-    for (int f = 0; f < kMaxClasses; ++f)
-      wv[i][f] = f < F ? to_f(w[(int64_t)(c + i) * F + f]) : 0.f;
+    for (int f = 0; f < FM; ++f) wv[i][f] = f < F ? to_f(w[(int64_t)(c + i) * F + f]) : 0.f;
   }
-  for (int xx = 0; xx < W; ++xx) {
-    const int64_t pix = (int64_t)row * W + xx;
-    float dyv[kMaxClasses], xv[VEC], out[VEC];
+  for (int u0 = 0; u0 < n; u0 += U) {
+    float xv[U][VEC], dyv[U][FM];
 #pragma unroll
-    for (int f = 0; f < kMaxClasses; ++f)
-      dyv[f] = f < F ? to_f(dy[pix * G * F + g * F + f]) : 0.f;
-    if constexpr (GATE) load_vec<T, VEC>(fb + pix * GC + g * C + c, xv);
+    for (int u = 0; u < U; ++u) {
+      const int64_t pix = p0 + u0 + u;
+      const bool in = u0 + u < n;
+      if constexpr (GATE) {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      float dg = 0.f;
+        for (int i = 0; i < VEC; ++i) xv[u][i] = 0.f;
+        if (in) load_vec<T, VEC>(fb + pix * GC + g * C + c, xv[u]);
+      }
 #pragma unroll
-      for (int f = 0; f < kMaxClasses; ++f) dg = fmaf(dyv[f], wv[i][f], dg);
-      if constexpr (GATE)
-        dg = simam_vjp(dg, xv[i], mu_c[i], w4[i], a_c[i], b_c[i], inv_count, inv_count_m1);
-      out[i] = dg;
-      db[i] += dg;
+      for (int f = 0; f < FM; ++f)
+        dyv[u][f] = in && f < F ? to_f(dy[(pix * G + g) * F + f]) : 0.f;
     }
-    store_vec<T, VEC>(dx + pix * GC + g * C + c, out);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u0 + u >= n) break;  // n is the block's: no divergence
+      float out[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        float dg = 0.f;
+#pragma unroll
+        for (int f = 0; f < FM; ++f) dg = fmaf(dyv[u][f], wv[i][f], dg);
+        if constexpr (GATE) {
+          const float xf = xv[u][i], xc = xf - mu_c[i];
+          // K3's gate, bit for bit: div_rn_by and rcp_rn round as / does
+          const float e = div_rn_by(xc * xc, den[i], w4[i]) + 0.5f;
+          const float gv = rcp_rn(1.f + expf(-e));
+          const float t = dg * xf * (gv * (1.f - gv));
+          // ((dg*g + ((2 w4) t) xc) - ca) - cb*xc, each a*b + c one FMA
+          dg = fmaf(-cb[i], xc, fmaf(dg, gv, 2.f * w4[i] * t * xc) - ca[i]);
+        }
+        out[i] = dg;
+        db[i] += dg;
+      }
+      store_vec_cs<T, VEC>(dx + (p0 + u0 + u) * GC + g * C + c, out);
+    }
   }
-  float* dbp = db_part + (int64_t)row * GC + g * C + c;
+  float* dbp = db_part + (int64_t)blockIdx.x * GC + g * C + c;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) dbp[i] = db[i];
 }
 
-template <typename T, int VEC, bool GATE>
+template <typename T, int VEC, bool GATE, int FM, bool SPLIT>
 static cudaError_t launch_head_bwd2(const void* fb, const void* dy, const void* mu,
                                     const void* var, const void* A, const void* Bq,
-                                    const void* w, void* dx, void* db_part, int B, int H,
-                                    int W, int C, int G, int F, float lam,
+                                    const void* w, void* dx, void* db_part, int B, int HW,
+                                    int C, int G, int F, float lam, int pc,
                                     cudaStream_t stream) {
-  if (C % VEC || F < 1 || F > kMaxClasses) return cudaErrorInvalidValue;
-  const int threads = G * (C / VEC);
-  if (threads > 1024) return cudaErrorInvalidValue;
-  const double count = (double)H * W * G;
-  head_bwd2_kernel<T, VEC, GATE><<<(unsigned)(B * H), threads, 0, stream>>>(
+  const int chunks = (HW + pc - 1) / pc;
+  const SlotSplit sp = slot_split(G * (C / VEC));
+  const double count = (double)HW * G;
+  head_bwd2_kernel<T, VEC, GATE, FM, SPLIT>
+      <<<dim3((unsigned)(B * chunks), sp.splits), sp.threads, 0, stream>>>(
       static_cast<const T*>(fb), static_cast<const T*>(dy), static_cast<const float*>(mu),
       static_cast<const float*>(var), static_cast<const float*>(A),
       static_cast<const float*>(Bq), static_cast<const T*>(w), static_cast<T*>(dx),
-      static_cast<float*>(db_part), H, W, C, G, F, lam, (float)(1.0 / count),
-      (float)(1.0 / (count > 1.0 ? count - 1.0 : 1.0)));
+      static_cast<float*>(db_part), HW, C, G, F, lam, (float)count,
+      (float)(count > 1.0 ? count - 1.0 : 1.0), pc, chunks);
   return cudaGetLastError();
+}
+
+template <typename T, int VEC, bool GATE>
+static cudaError_t launch_head_bwd2_f(const void* fb, const void* dy, const void* mu,
+                                      const void* var, const void* A, const void* Bq,
+                                      const void* w, void* dx, void* db_part, int B, int HW,
+                                      int C, int G, int F, float lam, int pc,
+                                      cudaStream_t s) {
+  if (slot_split(G * (C / VEC)).splits > 1)  // a wide pixel: one instantiation, F <= 8
+    return launch_head_bwd2<T, VEC, GATE, 8, true>(fb, dy, mu, var, A, Bq, w, dx, db_part, B,
+                                                   HW, C, G, F, lam, pc, s);
+  if (F <= 1)
+    return launch_head_bwd2<T, VEC, GATE, 1, false>(fb, dy, mu, var, A, Bq, w, dx, db_part, B,
+                                                    HW, C, G, F, lam, pc, s);
+  if (F <= 2)
+    return launch_head_bwd2<T, VEC, GATE, 2, false>(fb, dy, mu, var, A, Bq, w, dx, db_part, B,
+                                                    HW, C, G, F, lam, pc, s);
+  if (F <= 4)
+    return launch_head_bwd2<T, VEC, GATE, 4, false>(fb, dy, mu, var, A, Bq, w, dx, db_part, B,
+                                                    HW, C, G, F, lam, pc, s);
+  return launch_head_bwd2<T, VEC, GATE, 8, false>(fb, dy, mu, var, A, Bq, w, dx, db_part, B,
+                                                  HW, C, G, F, lam, pc, s);
 }
 
 template <bool GATE>
@@ -435,19 +551,23 @@ static cudaError_t dispatch_head_bwd2(int dtype, int vec, const void* fb, const 
                                       const void* mu, const void* var, const void* A,
                                       const void* Bq, const void* w, void* dx, void* db_part,
                                       int B, int H, int W, int C, int G, int F, float lam,
-                                      cudaStream_t s) {
+                                      int pc, cudaStream_t s) {
+  if (vec < 1 || C % vec || F < 1 || F > kMaxClasses || G < 1 || pc < 1 || B < 1 || H < 1 ||
+      W < 1 || slot_split(G * (C / vec)).splits > 65535)
+    return cudaErrorInvalidValue;
+  const int HW = H * W;
   if (dtype == kFloat32 && vec == 4)
-    return launch_head_bwd2<float, 4, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part, B, H, W,
-                                            C, G, F, lam, s);
+    return launch_head_bwd2_f<float, 4, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part, B, HW,
+                                              C, G, F, lam, pc, s);
   if (dtype == kFloat32 && vec == 1)
-    return launch_head_bwd2<float, 1, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part, B, H, W,
-                                            C, G, F, lam, s);
+    return launch_head_bwd2_f<float, 1, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part, B, HW,
+                                              C, G, F, lam, pc, s);
   if (dtype == kBFloat16 && vec == 8)
-    return launch_head_bwd2<__nv_bfloat16, 8, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part,
-                                                    B, H, W, C, G, F, lam, s);
+    return launch_head_bwd2_f<__nv_bfloat16, 8, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part,
+                                                      B, HW, C, G, F, lam, pc, s);
   if (dtype == kBFloat16 && vec == 1)
-    return launch_head_bwd2<__nv_bfloat16, 1, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part,
-                                                    B, H, W, C, G, F, lam, s);
+    return launch_head_bwd2_f<__nv_bfloat16, 1, GATE>(fb, dy, mu, var, A, Bq, w, dx, db_part,
+                                                      B, HW, C, G, F, lam, pc, s);
   return cudaErrorInvalidValue;
 }
 
@@ -457,8 +577,9 @@ static cudaError_t dispatch_head_bwd2(int dtype, int vec, const void* fb, const 
 // fb (B, H, W, G*C) in the compute dtype; mu, var (B, C) float32 (null
 // without the gate); w (C, F) in the compute dtype; out (B, H, W, G*F).  A
 // block per chunk of pc pixels of one image (blocks = B * ceil(H*W / pc),
-// image-major), G*L threads: L lanes (a power of two up to min(32, C/vec),
-// G*L <= 256) per (pixel, g).
+// image-major), L lanes (a power of two up to min(32, C/vec), G*L <= 256
+// where G <= 256) per (pixel, g), head_groups' slices of the G groups a
+// block.
 CSU_EXPORT int csu_simam_head_fwd(int dtype, const void* fb, const void* mu,
                                   const void* var, const void* w, void* out, int B, int H,
                                   int W, int C, int G, int F, int vec, int lanes, float lam,
@@ -476,7 +597,8 @@ CSU_EXPORT int csu_simam_head_fwd(int dtype, const void* fb, const void* mu,
 // var (B, C) float32, w (C, F) in the compute dtype; part (blocks,
 // (2 + F)*G*C) float32 receives each block's sums, A (G*C), B (G*C) and
 // dW (F, G*C) in a row, a block per chunk of pc pixels of one image:
-// blocks = B * ceil(H*W / pc), image-major.
+// blocks = B * ceil(H*W / pc), image-major, each pixel's G*C/vec slots
+// split over slot_split's blockIdx.y.
 CSU_EXPORT int csu_head_bwd1(int dtype, const void* fb, const void* dy, const void* mu,
                              const void* var, const void* w, void* part, int B, int H, int W,
                              int C, int G, int F, int vec, float lam, int pc, void* stream) {
@@ -498,24 +620,26 @@ CSU_EXPORT int csu_head_bwd1_nogate(int dtype, const void* fb, const void* dy, v
 // K5: fb (B, H, W, G*C) and dy (B, H, W, G*F) in the compute dtype, mu,
 // var, A and Bq (B, C) float32 (A and Bq pooled per real channel, as K3's
 // caller gives them), w (C, F) in the compute dtype; dx like fb, db_part
-// (B*H, G*C) float32 receives each image row's sums of the unrounded dx.
+// (blocks, G*C) float32 receives each block's sums of the unrounded dx, a
+// block per chunk of pc pixels of one image (blocks = B * ceil(H*W / pc),
+// image-major), its G*C/vec slots split over slot_split's blockIdx.y.
 CSU_EXPORT int csu_head_bwd2(int dtype, const void* fb, const void* dy, const void* mu,
                              const void* var, const void* A, const void* Bq, const void* w,
                              void* dx, void* db_part, int B, int H, int W, int C, int G,
-                             int F, int vec, float lam, void* stream) {
+                             int F, int vec, float lam, int pc, void* stream) {
   return (int)csu::dispatch_head_bwd2<true>(dtype, vec, fb, dy, mu, var, A, Bq, w, dx,
-                                            db_part, B, H, W, C, G, F, lam,
+                                            db_part, B, H, W, C, G, F, lam, pc,
                                             static_cast<cudaStream_t>(stream));
 }
 
 // K5 without the gate: dx = dy kron(I_G, W^T) like a (B, H, W, G*C) map, from
-// dy (B, H, W, G*F) and w (C, F); db_part as for csu_head_bwd2.
+// dy (B, H, W, G*F) and w (C, F); db_part and the blocks as for csu_head_bwd2.
 CSU_EXPORT int csu_head_bwd2_nogate(int dtype, const void* dy, const void* w, void* dx,
                                     void* db_part, int B, int H, int W, int C, int G, int F,
-                                    int vec, void* stream) {
+                                    int vec, int pc, void* stream) {
   return (int)csu::dispatch_head_bwd2<false>(dtype, vec, nullptr, dy, nullptr, nullptr,
                                              nullptr, nullptr, w, dx, db_part, B, H, W, C, G,
-                                             F, 0.f, static_cast<cudaStream_t>(stream));
+                                             F, 0.f, pc, static_cast<cudaStream_t>(stream));
 }
 
 // The message of a CUDA error code returned by the functions above.

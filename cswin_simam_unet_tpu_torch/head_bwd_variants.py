@@ -1,6 +1,7 @@
 """The fused head's four kernels, K3 and K4 (backward) and K-H1 and K-H2
-(forward), and the decoder's CARAFE kernels on K4's and K-H1's bodies, K-C'
-and K-C, against variants of themselves on the card.
+(forward), the standalone head's K5 (with and without the gate), and the
+decoder's CARAFE kernels on K4's and K-H1's bodies, K-C' and K-C, against
+variants of themselves on the card.
 
     python -m cswin_simam_unet_tpu_torch.head_bwd_variants [--only NAME ...]
         [--baseline DIR]
@@ -14,8 +15,9 @@ the sum of its db partials) and of each of their launches alone, at the
 ``carafe_biased_moments`` (K-H1, with and without the moments) and
 ``simam_head_flat`` (K-H2), the wrappers' torch glue included, at the same
 heads and at cswinunet's (448^2, batch 2, float32, no SimAM); K4 without
-the gate at all three heads and with it at cswinunet's too; K-C
-(``carafe_flat``) and K-C' (``carafe_flat_bwd``) summed over the three
+the gate at all three heads and with it at cswinunet's too; K5
+(``simam_head.head_bwd2``, its db sum included) with and without the gate
+at the three heads; K-C (``carafe_flat``) and K-C' (``carafe_flat_bwd``) summed over the three
 decoder CARAFEs of the 512^2 (batch 8), 2048^2 (batch 1) and cswinunet
 (448^2, batch 2, float32) models; and each variant's largest error over
 max|plain| at the 512^2 head and decoder (batch 1).  The variants say what the design
@@ -25,10 +27,10 @@ K4's time that staging takes, and other block shapes.  ``--baseline DIR``
 adds the variant ``baseline``, the package of the checkout at DIR (another
 commit's tree, say) timed by the same measurements, so that ``--only
 baseline "as built" "as built" baseline`` compares two trees in turns.
-``--faults`` instead plants each of FAULTS in a copy of the package and runs
-the CARAFE card tests (``-k "carafe or tiny_model"``) and ``chip_smoke.py``
-there, which must fail.  Needs a CUDA device; prints one JSON line per
-variant or fault.
+``--faults`` instead plants each of FAULTS (those named by ``--only``, or
+all) in a copy of the package and runs the CARAFE and K5 card tests (``-k
+SELECT``) and ``chip_smoke.py`` there, which must fail.  Needs a CUDA
+device; prints one JSON line per variant or fault.
 """
 
 from __future__ import annotations
@@ -44,8 +46,15 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 ROOT = PKG.parent / "build" / "head_bwd_variants"
 K3_SRC, K4_SRC, PY = "csrc/simam_head.cu", "csrc/carafe_head_bwd.cu", "ops/carafe_head.py"
+K5_SRC = K3_SRC
 H2_SRC, H1_SRC = K3_SRC, "csrc/carafe_head_fwd.cu"
 CK_PY = "ops/carafe_kernels.py"  # K-C and K-C' (on K-H1's and K4's bodies)
+
+# K5's pixels in flight, its dx and its store, as the variants below rewrite them
+K5_U = ("constexpr int U = FM <= 2 ? 4 : 2;  // pixels whose loads are in flight together\n"
+        "  const int CV = C / VEC, GC = G * C;\n  int g, c;")
+K5_DX = "dg = fmaf(-cb[i], xc, fmaf(dg, gv, 2.f * w4[i] * t * xc) - ca[i]);"
+K5_STORE = "      store_vec_cs<T, VEC>(dx + (p0 + u0 + u) * GC + g * C + c, out);"
 
 # name -> [(file in the package, text, replacement)]
 VARIANTS = {
@@ -107,6 +116,32 @@ VARIANTS = {
     "K-C' runs of 16 rows": [
         (CK_PY, "vec, elem, 1, False, sms, copy=True)",
          "vec, elem, 1, False, sms, copy=True, tile=(16, 8))")],
+    "K5 chunks of 64 pixels": [(PY, "K5_PIXELS = K3_PIXELS ", "K5_PIXELS = (64,) ")],
+    "K5 chunks of 256 pixels": [(PY, "K5_PIXELS = K3_PIXELS ", "K5_PIXELS = (256,) ")],
+    "K5 8 pixels in flight": [(K5_SRC, K5_U, K5_U.replace("FM <= 2 ? 4 : 2", "FM <= 2 ? 8 : 4"))],
+    "K5 2 pixels in flight": [(K5_SRC, K5_U, K5_U.replace("FM <= 2 ? 4 : 2", "2"))],
+    # every pixel's slots split over blockIdx.y at the flagship too (K3's as well)
+    "K5 slots split at 64 threads": [
+        (K5_SRC, "constexpr int kSlotThreads = 256;", "constexpr int kSlotThreads = 64;"),
+        (PY, "SLOT_THREADS = 256 ", "SLOT_THREADS = 64 ")],
+    "K5 gate with /": [
+        (K5_SRC, "div_rn_by(xc * xc, den[i], w4[i]) + 0.5f", "xc * xc / den[i] + 0.5f"),
+        (K5_SRC, "const float gv = rcp_rn(1.f + expf(-e));",
+         "const float gv = 1.f / (1.f + expf(-e));")],
+    "K5 dx without FMAs": [(K5_SRC, K5_DX, "dg = __fsub_rn(__fsub_rn(__fadd_rn(__fmul_rn(dg, gv), "
+                            "__fmul_rn(__fmul_rn(2.f * w4[i], t), xc)), ca[i]), "
+                            "__fmul_rn(cb[i], xc));")],
+    "K5 plain stores": [(K5_SRC, K5_STORE, K5_STORE.replace("store_vec_cs", "store_vec"))],
+    "K5 at most 80 registers": [
+        (K5_SRC, "template <typename T, int VEC, bool GATE, int FM, bool SPLIT>\n"
+                 "__global__ void head_bwd2_kernel",
+         "template <typename T, int VEC, bool GATE, int FM, bool SPLIT>\n__global__ void "
+         "__launch_bounds__(256, 3) head_bwd2_kernel")],
+    "K5 at most 64 registers": [
+        (K5_SRC, "template <typename T, int VEC, bool GATE, int FM, bool SPLIT>\n"
+                 "__global__ void head_bwd2_kernel",
+         "template <typename T, int VEC, bool GATE, int FM, bool SPLIT>\n__global__ void "
+         "__launch_bounds__(256, 4) head_bwd2_kernel")],
     "K-H2 2 pixels in flight": [
         (H2_SRC, "int U = FM <= 2 ? 4 : 2;  // pixels whose loads are in flight together\n"
                  "  const int CV = C / VEC, GC = G * C, GF",
@@ -116,6 +151,12 @@ VARIANTS = {
 
 # planted faults, each of which the card tests and the smoke must catch
 FAULTS = {
+    "K5 A term dropped": [(K5_SRC, "ca[i] = (2.f * w4[i] / count) * A[bc];",
+                           "ca[i] = 0.f * A[bc];")],
+    "K5 B term x 0.9": [(K5_SRC, "cb[i] = (8.f * (w4[i] * w4[i]) / count_m1) * Bq[bc];",
+                         "cb[i] = (8.f * (w4[i] * w4[i]) / count_m1) * Bq[bc] * 0.9f;")],
+    "K5 last pixel of a ragged chunk unwritten": [
+        (K5_SRC, K5_STORE, "      if (n == pc || u0 + u != n - 1)\n  " + K5_STORE)],
     "K-C tap 4 x 0.95": [
         (H1_SRC, "const float p = pr[s * 9 + k];",
          "const float p = pr[s * 9 + k] * (!BIAS && k == 4 ? 0.95f : 1.f);")],
@@ -132,7 +173,7 @@ CHILD = r"""
 import json, sys, torch
 sys.path.insert(0, sys.argv[1])
 from cswin_simam_unet_tpu_torch import _build
-from cswin_simam_unet_tpu_torch.ops import carafe, carafe_head, carafe_kernels
+from cswin_simam_unet_tpu_torch.ops import carafe, carafe_head, carafe_kernels, simam_head
 from cswin_simam_unet_tpu_torch.ops.simam import LAMBDA, pooled_stats
 
 dev = torch.device("cuda")
@@ -191,6 +232,9 @@ for label, B, r in (("512", 8, 128), ("2048", 1, 512)):
     out[f"K-H1 no moments {label}"] = device_ms(
         lambda: carafe_head.carafe_biased_moments(*h1_args, gate=False))
     out[f"K-H2 {label}"] = device_ms(lambda: carafe_head.simam_head_flat(fb, mu, v, wt, G))
+    out[f"K5 {label}"] = device_ms(lambda: simam_head.head_bwd2(fb, dy, mu, v, A, Bq, w, G))
+    out[f"K5 no gate {label}"] = device_ms(
+        lambda: simam_head.head_bwd2(fb, dy, None, None, None, None, w, G, gate=False))
     if label == "512":  # errors over max|plain| of each output, batch 1
         x1, e1, fb1, dy1 = x[:1], enc[:1], fb[:1], dy[:1]
         f1 = fb1.float()
@@ -211,6 +255,12 @@ for label, B, r in (("512", 8, 128), ("2048", 1, 512)):
         got = carafe_head.simam_head_flat(fb1, mu1, v1, wt, G)
         ref = carafe_head.head_reference(f1, torch.zeros(E, device=dev), wt.float(), G)
         out["K-H2 error"] = float((got.float() - ref).abs().max() / ref.abs().max())
+        for gate in (True, False):
+            got = simam_head.head_bwd2(fb1, dy1, mu1, v1, want[0], want[1], w, G, gate=gate)
+            ref = carafe_head.head_bwd2_reference(f1, dy1.float(), mu1, v1, want[0],
+                                                  want[1], w, G, gate=gate)
+            out["K5 error" if gate else "K5 no gate error"] = max(
+                float((a.float() - b).abs().max() / b.abs().max()) for a, b in zip(got, ref))
     del fb, dy, x, enc
     torch.cuda.empty_cache()
 # cswinunet's head: 448^2, batch 2, float32, no SimAM
@@ -230,6 +280,9 @@ mu, v = pooled_stats(fb.sum((1, 2)), (fb * fb).sum((1, 2)), r * r * G, G)
 A, Bq, _ = carafe_head.head_bwd1(fb, dy, mu, v, w, G)
 out["K4 448 f32"] = device_ms(
     lambda: carafe_head.fused_head_bwd(x, enc, fb, dy, mu, v, A, Bq, w, 4))
+out["K5 448 f32"] = device_ms(lambda: simam_head.head_bwd2(fb, dy, mu, v, A, Bq, w, G))
+out["K5 no gate 448 f32"] = device_ms(
+    lambda: simam_head.head_bwd2(fb, dy, None, None, None, None, w, G, gate=False))
 del x, enc, fb, dy
 # K-C and K-C' at the decoder's three CARAFEs (upsample4, 3, 2: S 2, C 256,
 # 128, 64 at img/32, img/16, img/8), summed; errors at 512^2, batch 1
@@ -297,7 +350,8 @@ def run_fault(name: str, patches, select: str, root: Path = ROOT) -> dict:
 
 
 def main(variants=VARIANTS, faults=FAULTS, child=CHILD, root: Path = ROOT,
-         select: str = "carafe or tiny_model") -> int:
+         select: str = "carafe or tiny_model or head_bwd2 or head_bwd_kernels_wide "
+                       "or simam_head_function or entry_points") -> int:
     """The command line: time ``variants`` (or plant ``faults`` and run the
     card tests ``-k select`` and the smoke), each copy under ``root``, each
     timed by the script ``child``."""
@@ -310,8 +364,8 @@ def main(variants=VARIANTS, faults=FAULTS, child=CHILD, root: Path = ROOT,
     args = ap.parse_args()
     if args.faults:
         missed = 0
-        for name, patches in faults.items():
-            out = run_fault(name, patches, select, root)
+        for name in args.only or list(faults):
+            out = run_fault(name, faults[name], select, root)
             missed += not out["failed"] or out["smoke_rc"] == 0
             print(json.dumps(out), flush=True)
         return 1 if missed else 0

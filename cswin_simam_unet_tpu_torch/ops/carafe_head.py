@@ -73,6 +73,9 @@ K4_ROWS = (32, 16, 8, 4, 2, 1)  # rows of a K4 block's run, the longest that fil
 KC_PX, KC_WAVES = K4_PX, WAVES  # the same for K-C' (K4's body, copy=True)
 K3_PIXELS = (1024, 512, 256, 128, 64, 32, 16)  # pixels of a K3 block, the same way
 H2_PIXELS = K3_PIXELS          # pixels of a K-H2 block, the same way
+K5_PIXELS = K3_PIXELS          # pixels of a K5 block (ops/simam_head.py), the same way
+SLOT_THREADS = 256             # (g, channel vector) slots of a K3 or K5 block at most
+MAX_GRID_Y = 65535             # blocks along blockIdx.y at most (the slices above)
 H2_THREADS = 256               # threads of a K-H2 block at most (simam_head.cu)
 H1_THREADS = 256               # threads of a K-H1 block at most (carafe_head_fwd.cu)
 H1_SMEM = 48 * 1024            # shared memory of a K-H1 block at most
@@ -174,51 +177,94 @@ def k3_geometry(B: int, H: int, W: int, sms: int = H100_SMS,
     return dict(pixels=pc, chunks=chunks, blocks=B * chunks)
 
 
+def slot_split(slots: int) -> dict:
+    """The threads of a K3 or K5 block, one a (g, channel vector) slot of a
+    pixel: all ``slots`` where they fit SLOT_THREADS, else ``splits`` even
+    slices of ``threads`` over blockIdx.y, the last one possibly short
+    (csrc/simam_head.cu::slot_split).  Slot ``y*threads + t`` (those below
+    ``slots``) is lane (g, c) = divmod(slot, C/vec), c in vectors."""
+    splits = -(-slots // SLOT_THREADS)
+    if splits > MAX_GRID_Y:
+        raise ValueError(f"{slots} slots a pixel take {splits} slices, over the grid's "
+                         f"{MAX_GRID_Y}")
+    return dict(threads=-(-slots // splits), splits=splits)
+
+
+def k5_geometry(B: int, H: int, W: int, C: int, G: int, vec: int,
+                sms: int = H100_SMS) -> dict:
+    """K5's launch: chunks of pixels as :func:`k3_geometry` picks them from
+    K5_PIXELS, and the G*C/vec slots of a pixel by :func:`slot_split`, as
+    K3's are.  The db partials are row ``i`` of (blocks, G*C) for block
+    ``i``, whatever its slice."""
+    return dict(k3_geometry(B, H, W, sms, K5_PIXELS), **slot_split(G * (C // vec)))
+
+
 def h2_geometry(B: int, H: int, W: int, C: int, G: int, vec: int,
                 sms: int = H100_SMS) -> dict:
-    """K-H2's launch: K3's chunks of pixels (from H2_PIXELS), and G groups
-    of ``lanes`` threads, the largest power of two up to min(32, C/vec,
-    H2_THREADS/G), per (pixel, g); ``one`` where each lane holds exactly one
-    channel vector (its constants in registers).  Raises where G exceeds
-    H2_THREADS."""
-    if G > H2_THREADS:
-        raise ValueError(f"K-H2: G = {G} groups exceed a block of {H2_THREADS} threads")
+    """K-H2's launch: K3's chunks of pixels (from H2_PIXELS), and groups of
+    ``lanes`` threads, the largest power of two up to min(32, C/vec,
+    H2_THREADS/G), one a (pixel, g); ``one`` where each lane holds exactly
+    one channel vector (its constants in registers).  A block holds
+    ``groups`` of the G groups: all of them where they fit H2_THREADS, else
+    the largest divisor of G that does, the G/groups slices over blockIdx.y
+    (``group_splits``; csrc/simam_head.cu::head_groups)."""
     cv = C // vec
     lanes = 1
     while lanes * 2 <= min(32, cv, H2_THREADS // G):
         lanes *= 2
-    return dict(k3_geometry(B, H, W, sms, H2_PIXELS), lanes=lanes, threads=G * lanes,
-                one=vec > 1 and cv == lanes)
+    groups = G if G * lanes <= H2_THREADS else next(
+        d for d in range(H2_THREADS // lanes, 0, -1) if G % d == 0)
+    if G // groups > MAX_GRID_Y:
+        raise ValueError(f"K-H2: G = {G} groups take {G // groups} slices of {groups}, "
+                         f"over the grid's {MAX_GRID_Y}")
+    return dict(k3_geometry(B, H, W, sms, H2_PIXELS), lanes=lanes, groups=groups,
+                group_splits=G // groups, threads=groups * lanes, one=vec > 1 and cv == lanes)
 
 
-def h1_smem_bytes(C: int, S: int, pass_pixels: int) -> int:
+def h1_smem_bytes(C: int, S: int, pass_pixels: int, stats: bool = True) -> int:
     """Shared memory of one K-H1 block (csrc/carafe_head_fwd.cu::h1_smem):
     two pass buffers of 9*S^2 + 1 floats a pixel, which the block's moment
-    sums (2 x pass_pixels x C floats) reuse."""
-    return 4 * max(2 * pass_pixels * (9 * S * S + 1), 2 * pass_pixels * C)
+    sums (2 x pass_pixels x C floats, with ``stats``) reuse."""
+    ring = 2 * pass_pixels * (9 * S * S + 1)
+    return 4 * (max(ring, 2 * pass_pixels * C) if stats else ring)
+
+
+def h1_slice(cv: int, pass_pixels: int) -> int:
+    """The channel vectors of a pixel that one K-H1 block covers: all ``cv``
+    where a pass fits H1_THREADS, else even slices of at most H1_THREADS,
+    one a blockIdx.y (csrc/carafe_head_fwd.cu::h1_slice)."""
+    if pass_pixels * cv <= H1_THREADS:
+        return cv
+    return -(-cv // -(-cv // H1_THREADS))
 
 
 def h1_geometry(B: int, H: int, W: int, C: int, S: int, vec: int,
-                sms: int = H100_SMS) -> dict:
+                sms: int = H100_SMS, stats: bool = True) -> dict:
     """K-H1's launch: a thread owns a (pixel, channel vector) of a pass of
     ``pass_pixels`` pixels (up to H1_PASS, H1_THREADS threads and the shared
     memory's H1_SMEM); a block owns ``pixels`` = passes x pass_pixels
     consecutive pixels of one image, the most passes of H1_PASSES that still
     give WAVES x ``sms`` blocks.  Block ``i`` is chunk ``i % chunks`` of
-    image ``i // chunks``; its moment sums are row ``i`` of (blocks, C).
-    Raises where a block cannot hold one pixel."""
+    image ``i // chunks``; its moment sums (``stats``) are row ``i`` of
+    (blocks, C).  Without ``stats`` (K-C, K-H1 without the gate) a pixel of
+    more than H1_THREADS channel vectors takes one pixel a pass and its
+    vectors in ``slices`` of ``slice`` over blockIdx.y.  Raises where a
+    block cannot hold one pixel."""
     cv = C // vec
-    pp = min(H1_PASS, H1_THREADS // cv)
-    while pp > 0 and h1_smem_bytes(C, S, pp) > H1_SMEM:
+    pp = min(H1_PASS, H1_THREADS // cv) or (0 if stats else 1)
+    while pp > 0 and h1_smem_bytes(C, S, pp, stats) > H1_SMEM:
         pp -= 1
     if pp < 1:
         raise ValueError(f"a K-H1 block cannot hold a pixel of C={C}, S={S} "
-                         f"(C/{vec} > {H1_THREADS} threads or 9*S^2 taps over shared memory)")
+                         f"(C/{vec} > {H1_THREADS} threads with the moments, or 9*S^2 taps "
+                         f"over shared memory)")
+    sl = h1_slice(cv, pp)
     passes = next(n for n in H1_PASSES if n == H1_PASSES[-1]
                   or B * -(-(H * W) // (n * pp)) >= WAVES * sms)
     chunks = -(-(H * W) // (passes * pp))
-    return dict(pass_pixels=pp, passes=passes, pixels=passes * pp, threads=pp * cv,
-                chunks=chunks, blocks=B * chunks, smem=h1_smem_bytes(C, S, pp))
+    return dict(pass_pixels=pp, passes=passes, pixels=passes * pp, threads=pp * sl,
+                slice=sl, slices=-(-cv // sl), chunks=chunks, blocks=B * chunks,
+                smem=h1_smem_bytes(C, S, pp, stats))
 
 
 def _sms(device: torch.device) -> int:
@@ -323,7 +369,7 @@ def carafe_biased_moments(x: torch.Tensor, enc: torch.Tensor, bias: torch.Tensor
         raise ValueError(f"bias must be ({C},) on {x.device}")
     fb = torch.empty(B, H, W, S * S * C, dtype=x.dtype, device=x.device)
     vec = _build.vec_width(x, fb, bias, channels=C)
-    geom = h1_geometry(B, H, W, C, S, vec, _sms(x.device))
+    geom = h1_geometry(B, H, W, C, S, vec, _sms(x.device), stats=gate)
     s1 = s2 = None
     if gate:
         s1 = torch.empty(B, geom["chunks"], C, dtype=torch.float32, device=x.device)
@@ -391,8 +437,7 @@ def head_bwd1(fb, dy, mu, v, w, G: int, lam: float = LAMBDA, gate: bool = True):
     B, H, W, _ = fb.shape
     C, Fc = w.shape
     vec = _build.vec_width(fb, channels=C)
-    if G * (C // vec) > 1024:
-        raise ValueError(f"G*C/{vec} = {G * C // vec} threads exceed one block")
+    slot_split(G * (C // vec))  # raises where the grid cannot hold the slices
     geom = k3_geometry(B, H, W, _sms(fb.device))
     pc = geom["pixels"]
     # one row of partial sums a block, image-major: A, B (with the gate), then

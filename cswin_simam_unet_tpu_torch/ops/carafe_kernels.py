@@ -9,7 +9,7 @@ plain versions in :mod:`cswin_simam_unet_tpu_torch.ops.carafe`.
 
 The two kernels run on the fused head's bodies: K-C (``csu_carafe_fwd``)
 on K-H1's (``csrc/carafe_head_fwd.cu``) without the bias and the moments,
-in K-H1's blocks (``carafe_head.h1_geometry``); K-C' (``csu_carafe_bwd``)
+in K-H1's blocks (:func:`fwd_geometry`); K-C' (``csu_carafe_bwd``)
 on K4's (``csrc/carafe_head_bwd.cu``) with the cotangent and x copied into
 its ring as they are, in K4's blocks sized for that ring
 (``carafe_head.k4_geometry(..., copy=True)``).  A shape whose block cannot
@@ -29,6 +29,12 @@ KERNEL = "csu_carafe_fwd"
 BWD_KERNEL = "csu_carafe_bwd"
 
 
+def fwd_geometry(B: int, H: int, W: int, C: int, S: int, vec: int, sms: int) -> dict:
+    """The launch of K-C: K-H1's blocks without the moments, so a pixel of
+    more than H1_THREADS channel vectors takes its vectors in slices."""
+    return h1_geometry(B, H, W, C, S, vec, sms, stats=False)
+
+
 def bwd_geometry(B: int, H: int, W: int, C: int, S: int, vec: int, elem: int,
                  sms: int) -> dict:
     """The launch of K-C': K4's blocks, shared memory for the ring of dacc,
@@ -44,7 +50,7 @@ def carafe_flat_fwd(x: torch.Tensor, enc: torch.Tensor, up_factor: int) -> torch
     S = up_factor
     out = torch.empty(B, H, W, S * S * C, dtype=x.dtype, device=x.device)
     vec = _build.vec_width(x, out, channels=C)
-    geom = h1_geometry(B, H, W, C, S, vec, _sms(x.device))
+    geom = fwd_geometry(B, H, W, C, S, vec, _sms(x.device))
     _build.launch(KERNEL, x.device, _build.dtype_code(x), x.data_ptr(), enc.data_ptr(),
                   out.data_ptr(), B, H, W, C, S, vec, geom["pass_pixels"], geom["pixels"])
     return out

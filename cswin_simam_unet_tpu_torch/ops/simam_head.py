@@ -13,8 +13,9 @@ simam_head`` and its custom VJP (``:185-381``), the head that follows
   A, B and dW; then K5 (``csrc/simam_head.cu``, ``csu_head_bwd2``, for
   ``_bwd2_kernel`` at ``:145``), or K5 without the gate
   (``csu_head_bwd2_nogate``, ``_bwd2_nogate_kernel`` at ``:169``), gives dx
-  and the per-row partials of db, which are summed over the rows and the G
-  slots of each channel in float32 and returned in the bias dtype.
+  and per-block partials of db (a block a chunk of pixels,
+  :func:`~.carafe_head.k5_geometry`), which are summed over the blocks and
+  the G slots of each channel in float32 and returned in the bias dtype.
 
 On CPU tensors both directions take the plain versions of
 :mod:`.carafe_head` (:func:`~.carafe_head.head_reference`,
@@ -29,8 +30,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .carafe_head import (MAX_CLASSES, head_bwd1, head_bwd2_reference, head_reference,
-                          simam_head_flat)
+from .carafe_head import (MAX_CLASSES, _sms, head_bwd1, head_bwd2_reference, head_reference,
+                          k5_geometry, simam_head_flat)
 from .flat_dot import flat_grouped_dot
 from .simam import LAMBDA, pooled_stats, simam_flat
 
@@ -57,10 +58,9 @@ def head_bwd2(fb, dy, mu, v, A, Bq, w, G: int, lam: float = LAMBDA, gate: bool =
     _build.check_cuda(fb, dy)
     wt = w.to(fb.dtype).contiguous()
     dx = torch.empty_like(fb)
-    db_part = torch.empty(B * H, GC, dtype=torch.float32, device=fb.device)
     vec = _build.vec_width(fb, dx, channels=C)
-    if G * (C // vec) > 1024:
-        raise ValueError(f"G*C/{vec} = {G * C // vec} threads exceed one block")
+    geom = k5_geometry(B, H, W, C, G, vec, _sms(fb.device))
+    db_part = torch.empty(geom["blocks"], GC, dtype=torch.float32, device=fb.device)
     dtype = _build.dtype_code(fb)
     if gate:
         stats = [t.float().contiguous() for t in (mu, v, A, Bq)]
@@ -69,11 +69,12 @@ def head_bwd2(fb, dy, mu, v, A, Bq, w, G: int, lam: float = LAMBDA, gate: bool =
         _build.check_cuda(*stats)
         _build.launch(BWD2_KERNEL, fb.device, dtype, fb.data_ptr(), dy.data_ptr(),
                       *(t.data_ptr() for t in stats), wt.data_ptr(), dx.data_ptr(),
-                      db_part.data_ptr(), B, H, W, C, G, Fc, vec, float(lam))
+                      db_part.data_ptr(), B, H, W, C, G, Fc, vec, float(lam), geom["pixels"])
     else:
         _build.launch(BWD2_NOGATE_KERNEL, fb.device, dtype, dy.data_ptr(), wt.data_ptr(),
-                      dx.data_ptr(), db_part.data_ptr(), B, H, W, C, G, Fc, vec)
-    return dx, db_part.reshape(B * H * G, C).sum(dim=0)
+                      dx.data_ptr(), db_part.data_ptr(), B, H, W, C, G, Fc, vec,
+                      geom["pixels"])
+    return dx, db_part.reshape(geom["blocks"] * G, C).sum(dim=0)
 
 
 class SimamHead(torch.autograd.Function):

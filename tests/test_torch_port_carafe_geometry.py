@@ -3,15 +3,17 @@
 cotangent staged as it is), on the CPU.
 
 The wrappers (``ops/carafe_kernels.py``) take their blocks from
-``carafe_head.h1_geometry`` (K-H1's) and ``carafe_kernels.bwd_geometry`` (K4's ``k4_geometry`` sized for the ring of dacc, p and
-x).  At every decoder CARAFE of every configuration, at its training
+``carafe_kernels.fwd_geometry`` (K-H1's ``h1_geometry`` without the
+moments) and ``carafe_kernels.bwd_geometry`` (K4's ``k4_geometry`` sized
+for the ring of dacc, p and x).  At every decoder CARAFE of every configuration, at its training
 batch (and batch 1 and 2 at 1024^2 and 2048^2), and at the S 4 head path
 (the unfused chain above 8 classes, ``CARAFE(flat_raw)``), each geometry
 must fit a block's threads and shared memory, cover each pixel exactly
 once, and give a grid of at least 4 x 132 blocks where its rules allow
 (else it has taken its shortest run or fewest passes).  Every shape the
-first K-C and K-C' launches took is taken again, but for the forward at
-S 1 with more than 256 channel vectors.  Pure Python: no kernel runs here.
+first K-C and K-C' launches took is taken again, the forward at S 1 with
+more than 256 channel vectors included (in slices of the vectors).  Pure
+Python: no kernel runs here.
 """
 
 import numpy as np
@@ -66,9 +68,10 @@ def bwd_coverage(g, B, H, W):
 def test_kc_geometry_at_every_decoder_carafe(name, B):
     for H, C, S in carafe_shapes(name):
         vec, _ = _vec(name, C)
-        g = carafe_head.h1_geometry(B, H, H, C, S, vec, 132)
+        g = carafe_kernels.fwd_geometry(B, H, H, C, S, vec, 132)
         assert g["threads"] == g["pass_pixels"] * (C // vec) <= carafe_head.H1_THREADS
-        assert g["smem"] == carafe_head.h1_smem_bytes(C, S, g["pass_pixels"]) \
+        assert g["slices"] == 1
+        assert g["smem"] == carafe_head.h1_smem_bytes(C, S, g["pass_pixels"], stats=False) \
             <= carafe_head.H1_SMEM
         assert g["blocks"] >= MIN_BLOCKS or g["passes"] == 1, (H, C, S, g)
         assert (fwd_coverage(g, B, H * H) == 1).all()
@@ -95,7 +98,7 @@ def test_kc_bwd_geometry_at_every_decoder_carafe(name, B):
 ])
 def test_flagship_decoder_blocks(H, C, fwd, bwd):
     """The flagship's three decoder CARAFEs (512^2, batch 8, bf16)."""
-    g = carafe_head.h1_geometry(8, H, H, C, 2, 8, 132)
+    g = carafe_kernels.fwd_geometry(8, H, H, C, 2, 8, 132)
     assert {k: g[k] for k in fwd} == fwd
     g = carafe_kernels.bwd_geometry(8, H, H, C, 2, 8, 2, 132)
     assert {k: g[k] for k in bwd} == bwd
@@ -109,9 +112,9 @@ def _old_launch_took(C, S, vec):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("S", [1, 2, 4])
 def test_kc_takes_what_the_old_launch_took(S, dtype):
-    """K-C takes every (C, S, vec) the first K-C took, but S 1 with more
-    than H1_THREADS channel vectors (a K-H1 pass needs a thread per vector
-    of one pixel); the scalar path (vec 1) included."""
+    """K-C takes every (C, S, vec) the first K-C took, S 1 with more than
+    H1_THREADS channel vectors included (one pixel a pass, its vectors in
+    slices over blockIdx.y); the scalar path (vec 1) included."""
     vec16, _ = DTYPES[dtype]
     refused = []
     for vec in (vec16, 1):
@@ -119,14 +122,12 @@ def test_kc_takes_what_the_old_launch_took(S, dtype):
             if not _old_launch_took(C, S, vec):
                 break
             try:
-                g = carafe_head.h1_geometry(2, 9, 13, C, S, vec, 132)
+                g = carafe_kernels.fwd_geometry(2, 9, 13, C, S, vec, 132)
             except ValueError:
                 refused.append((C, vec))
                 continue
             assert (fwd_coverage(g, 2, 9 * 13) == 1).all()
-    want = [(C, vec) for vec in (vec16, 1) for C in range(vec, 1024 * vec + 1, vec)
-            if S == 1 and C // vec > carafe_head.H1_THREADS]
-    assert refused == want
+    assert refused == []
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -152,7 +153,12 @@ def test_kc_bwd_takes_what_the_old_launch_took(S, dtype):
 
 
 def test_kc_geometries_reject_what_cannot_fit():
+    """K-C's block needs the two pass buffers of one pixel's 9*S^2 taps in
+    shared memory (S 32 does not fit); its channel vectors no longer bound
+    it.  K-C' takes at most 1024 (sub-pixel, channel vector) slots."""
+    g = carafe_kernels.fwd_geometry(1, 8, 8, 4096, 1, 8, 132)
+    assert (g["pass_pixels"], g["slice"], g["slices"], g["threads"]) == (1, 256, 2, 256)
     with pytest.raises(ValueError, match="K-H1"):
-        carafe_head.h1_geometry(1, 8, 8, 4096, 1, 8, 132)
+        carafe_kernels.fwd_geometry(1, 8, 8, 64, 32, 8, 132)
     with pytest.raises(ValueError, match="threads"):
         carafe_kernels.bwd_geometry(1, 8, 8, 4096, 2, 8, 2, 132)

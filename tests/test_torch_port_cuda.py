@@ -184,17 +184,34 @@ def test_carafe_kernel_rejects_strided(dev):
 
 
 def test_carafe_kernels_reject_what_cannot_fit(dev):
-    """K-C's block (K-H1's) needs a thread per channel vector of a pixel, and
-    K-C' (on K4's body) takes at most 1024 (sub-pixel, channel vector) slots
-    a pixel.  Both raise; nothing falls back."""
-    x = torch.zeros(1, 2, 2, 4096, device=dev, dtype=torch.bfloat16)
+    """K-C's block (K-H1's) needs the two pass buffers of a pixel's 9*S^2
+    taps in shared memory (S 32 does not fit; its channel vectors no longer
+    bound it), and K-C' (on K4's body) takes at most 1024 (sub-pixel,
+    channel vector) slots a pixel.  Both raise; nothing falls back."""
+    x = torch.zeros(1, 2, 2, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K-H1"):
-        carafe_kernels.carafe_flat(x, torch.zeros(1, 2, 2, 9, device=dev,
-                                                  dtype=torch.bfloat16), 1)
+        carafe_kernels.carafe_flat(x, torch.zeros(1, 2, 2, 9 * 32 * 32, device=dev,
+                                                  dtype=torch.bfloat16), 32)
+    x = torch.zeros(1, 2, 2, 4096, device=dev, dtype=torch.bfloat16)
     enc = torch.zeros(1, 2, 2, 36, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="threads"):
         carafe_kernels.carafe_flat_bwd(x, enc, torch.zeros(1, 2, 2, 4 * 4096, device=dev,
                                                            dtype=torch.bfloat16), 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,S", [(1, 5, 7, 4096, 1), (1, 4, 9, 2560, 2)])
+def test_carafe_kernel_wide(dev, dtype, B, H, W, C, S):
+    """K-C above 256 channel vectors a pixel (JAX's CARAFE takes any C): one
+    pixel a pass, the vectors in slices over blockIdx.y; against the plain
+    version at both scales."""
+    x, enc, _ = _carafe_inputs(dev, dtype, B, H, W, C, S)
+    _build.reset_launches()
+    got = carafe_kernels.carafe_flat(x, enc, S)
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {carafe_kernels.KERNEL: 1}
+    want = carafe.carafe_flat(x.float(), enc.float(), S)
+    _check_both(got, want, dtype)
+    _check_own(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -378,16 +395,35 @@ def test_head_fwd_gate_is_the_backward_gate(dev, dtype, C, G):
 
 
 def test_head_fwd_kernels_reject(dev):
-    """Geometries a block cannot hold raise; nothing falls back."""
-    fb = torch.zeros(1, 2, 2, 512 * 8, device=dev, dtype=torch.bfloat16)
+    """Geometries a launch cannot hold raise; nothing falls back: K-H2's
+    slices of groups past the grid's height (a prime G above 65535), K-H1's
+    moments above 256 channel vectors."""
+    fb = torch.zeros(1, 1, 1, 65537 * 8, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K-H2"):
-        carafe_head.simam_head_flat(fb, None, None, torch.zeros(8, 1, device=dev), 512,
+        carafe_head.simam_head_flat(fb, None, None, torch.zeros(8, 1, device=dev), 65537,
                                     gate=False)
     x = torch.zeros(1, 2, 2, 4096, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K-H1"):
         carafe_head.carafe_biased_moments(x, torch.zeros(1, 2, 2, 36, device=dev,
                                                          dtype=torch.bfloat16),
                                           torch.zeros(4096, device=dev), 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("G,C,F", [(512, 8, 1), (17 * 31, 16, 3)])
+def test_head_fwd_kernel_many_groups(dev, dtype, gate, G, C, F):
+    """K-H2 with more groups than a block holds (JAX's simam_head takes any
+    G): slices of whole groups over blockIdx.y, against the plain version."""
+    fb = _randn(dev, 1, 3, 5, G * C, seed=5).to(dtype)
+    w = _randn(dev, C, F, scale=C ** -0.5, seed=3)
+    mu, v = _stats(fb, G)
+    _build.reset_launches()
+    out = carafe_head.simam_head_flat(fb, mu, v, w, G, gate=gate)
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {carafe_head.HEAD_KERNEL: 1}
+    want = carafe_head.head_reference(fb.float(), torch.zeros(C, device=dev), w.float(), G,
+                                      gate=gate)
+    _check_both(out, want, dtype)
 
 
 @pytest.mark.parametrize("use_simam", [True, False])
@@ -1540,25 +1576,91 @@ def test_layernorm_kernel_rejects(dev):
                              torch.zeros(520, device=dev))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("gate", [True, False])
-@pytest.mark.parametrize("H,W,C,G,F", [(8, 8, 16, 16, 1), (4, 6, 8, 4, 3), (4, 4, 6, 4, 8),
-                                       (6, 20, 64, 16, 4)])
-def test_head_bwd2_kernels(dev, dtype, gate, H, W, C, G, F):
-    fb = _randn(dev, 2, H, W, G * C, seed=2).to(dtype)
-    dy = _randn(dev, 2, H, W, G * F, seed=3).to(dtype)
+def _head_bwd2_inputs(dev, dtype, H, W, C, G, F, B=2, pooled_only=False):
+    """fb, dy, mu, v, A, Bq, w of K5: A and B from the plain K3, or with
+    ``pooled_only`` dy = 0 and A, B of order 100, so that dx is the two
+    pooled terms alone (about 1/N of dx at the flagship otherwise)."""
+    fb = _randn(dev, B, H, W, G * C, seed=2).to(dtype)
+    dy = _randn(dev, B, H, W, G * F, seed=3).to(dtype)
     w = _randn(dev, C, F, scale=C ** -0.5, seed=4)
     f = fb.float()
     mu, v = pooled_stats(f.sum((1, 2)), (f * f).sum((1, 2)), H * W * G, G)
-    A, Bq, _ = carafe_head.head_bwd1_reference(f, dy.float(), mu, v, w, G, gate=gate)
+    if pooled_only:
+        return (fb, torch.zeros_like(dy), mu, v, _randn(dev, B, C, scale=100.0, seed=5),
+                _randn(dev, B, C, scale=100.0, seed=6), w)
+    A, Bq, _ = carafe_head.head_bwd1_reference(f, dy.float(), mu, v, w, G)
+    return fb, dy, mu, v, A, Bq, w
+
+
+# K5's checks: a map that fills neither a chunk nor U pixels (7 x 9), F 1, 2,
+# 3, 5 and 8 (every class bound), scalar slots (C 6), G 4 and 16
+HEAD_BWD2_GEOMS = [(8, 8, 16, 16, 1), (4, 6, 8, 4, 3), (4, 4, 6, 4, 8), (6, 20, 64, 16, 4),
+                   (7, 9, 16, 16, 2), (7, 9, 24, 4, 5), (7, 9, 64, 16, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("H,W,C,G,F", HEAD_BWD2_GEOMS)
+def test_head_bwd2_kernels(dev, dtype, gate, H, W, C, G, F):
+    """K5 and K5 without the gate against the plain version: dx and db each
+    at max(1, max|plain|) and at its own max|plain|, and two runs bit for
+    bit (fixed-order partials, no atomics)."""
+    fb, dy, mu, v, A, Bq, w = _head_bwd2_inputs(dev, dtype, H, W, C, G, F)
     _build.reset_launches()
     got = simam_head.head_bwd2(fb, dy, mu, v, A, Bq, w, G, gate=gate)
     name = simam_head.BWD2_KERNEL if gate else simam_head.BWD2_NOGATE_KERNEL
     assert {n: c for n, c in _build.LAUNCHES.items() if c} == {name: 1}
-    want = carafe_head.head_bwd2_reference(f, dy.float(), mu, v, A, Bq, w, G, gate=gate)
-    assert got[0].dtype == dtype and got[1].shape == (C,)
+    want = carafe_head.head_bwd2_reference(fb.float(), dy.float(), mu, v, A, Bq, w, G,
+                                           gate=gate)
+    assert got[0].dtype == dtype and got[0].shape == fb.shape and got[1].shape == (C,)
     for a, r in zip(got, want):
         _check_scaled(a, r, dtype)
+        _check_own(a, r, dtype)
+    again = simam_head.head_bwd2(fb, dy, mu, v, A, Bq, w, G, gate=gate)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,G,F", [(7, 9, 16, 16, 1), (4, 6, 8, 4, 3)])
+def test_head_bwd2_pooled_terms(dev, dtype, H, W, C, G, F):
+    """K5 with dy = 0 and A, B of order 100: dx = -(2 w4 / N) A - (8 w4^2 /
+    (N-1)) B (x - mu) alone, dx and db each at its own max|plain|."""
+    fb, dy, mu, v, A, Bq, w = _head_bwd2_inputs(dev, dtype, H, W, C, G, F, pooled_only=True)
+    got = simam_head.head_bwd2(fb, dy, mu, v, A, Bq, w, G)
+    want = carafe_head.head_bwd2_reference(fb.float(), dy.float(), mu, v, A, Bq, w, G)
+    assert float(want[0].abs().max()) > 0.1
+    for a, r in zip(got, want):
+        _check_scaled(a, r, dtype)
+        _check_own(a, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate", [True, False])
+def test_head_bwd_kernels_wide(dev, dtype, gate):
+    """K3 and K5 at G 16, C 1024: 2048 (bf16) or 4096 (float32) channel
+    vectors a pixel, more than a block's threads, in slices over blockIdx.y
+    (JAX's simam_head takes any G*C); each output against the plain version
+    at both scales."""
+    H, W, C, G, F = 5, 7, 1024, 16, 3
+    fb, dy, mu, v, A, Bq, w = _head_bwd2_inputs(dev, dtype, H, W, C, G, F, B=1)
+    f = fb.float()
+    _build.reset_launches()
+    got = carafe_head.head_bwd1(fb, dy, mu if gate else None, v if gate else None, w, G,
+                                gate=gate)
+    want = carafe_head.head_bwd1_reference(f, dy.float(), mu, v, w, G, gate=gate)
+    for a, r in zip(got, want):
+        if r is not None:
+            _check_scaled(a, r, dtype)
+            _check_own(a, r, dtype)
+    got = simam_head.head_bwd2(fb, dy, mu, v, A, Bq, w, G, gate=gate)
+    want = carafe_head.head_bwd2_reference(f, dy.float(), mu, v, A, Bq, w, G, gate=gate)
+    for a, r in zip(got, want):
+        _check_scaled(a, r, dtype)
+        _check_own(a, r, dtype)
+    names = ((carafe_head.BWD1_KERNEL, simam_head.BWD2_KERNEL) if gate else
+             (carafe_head.BWD1_NOGATE_KERNEL, simam_head.BWD2_NOGATE_KERNEL))
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {n: 1 for n in names}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -119,8 +119,16 @@ def test_h2_lanes_for_every_channel_count(C, vec, lanes, one):
 
 
 def test_h2_geometry_rejects_what_cannot_fit():
+    """K-H2 takes any G that JAX's simam_head takes: more groups than a
+    block holds go in slices of whole groups over blockIdx.y (512 groups:
+    two slices of 256; 17 * 31: 17 slices of 31).  Only slices past the
+    grid's height raise (a prime G above 65535)."""
+    g = carafe_head.h2_geometry(1, 8, 8, 8, 512, 8)
+    assert (g["lanes"], g["groups"], g["group_splits"], g["threads"]) == (1, 256, 2, 256)
+    g = carafe_head.h2_geometry(1, 8, 8, 64, 17 * 31, 8)
+    assert (g["groups"], g["group_splits"]) == (31, 17)
     with pytest.raises(ValueError, match="K-H2"):
-        carafe_head.h2_geometry(1, 8, 8, 8, 512, 8)
+        carafe_head.h2_geometry(1, 8, 8, 8, 65537, 8)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
