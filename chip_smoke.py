@@ -292,15 +292,18 @@ def check_pair(name, torch, kernel_fn, plain_fn, make, batch=2, own=False):
     return err32, err16, *rel
 
 
-def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2, own=(), ratios=None):
+def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2, own=(), ratios=None,
+                  own32=False):
     """Backward kernel vs plain at float32 and at bf16, every output; the
     error of each output is taken relative to max(1, max|plain|) of it.
     The outputs listed in ``own`` (indices) are also held in bf16 to
-    TOL_BF16 times their own max|plain|, with no floor at 1; every output's
+    TOL_BF16 times their own max|plain|, with no floor at 1, and with
+    ``own32`` in float32 to TOL_BWD_F32 times it too; every output's
     max|plain| and bf16 error over it are logged.  Returns the largest
     scaled errors (float32, bf16) and the largest absolute one in float32;
     ``ratios`` (a dict), where given, keeps the largest bf16 error over its
-    own max|plain| of the ``own`` outputs under "own16"."""
+    own max|plain| of the ``own`` outputs under "own16" (and with
+    ``own32`` the float32 one under "own32")."""
     errs, abs32, tops = [], 0.0, []
     for dtype, tol in ((torch.float32, TOL_BWD_F32), (torch.bfloat16, TOL_BF16)):
         args = make(batch, dtype)
@@ -313,6 +316,12 @@ def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2, own=(), ratio
             err, top = max_err(g, w), float(w.abs().max())
             if dtype == torch.float32:
                 abs32 = max(abs32, err)
+                if own32 and i in own:
+                    if ratios is not None:
+                        ratios["own32"] = max(ratios.get("own32", 0.0),
+                                              err / max(top, 1e-30))
+                    require(err <= TOL_BWD_F32 * top, f"{name}: float32 output {i} error "
+                            f"{err} > {TOL_BWD_F32} x max|plain| {top}")
             else:
                 tops.append(f"{top:.3g} ({err / max(top, 1e-30):.2e})")
                 if ratios is not None and i in own:
@@ -326,7 +335,8 @@ def check_outputs(name, torch, kernel_fn, plain_fn, make, batch=2, own=(), ratio
     log(f"  {name}: f32 scaled err {errs[0]:.3e} (tol {TOL_BWD_F32:g})  "
         f"bf16 scaled err {errs[1]:.3e} (tol {TOL_BF16:g})  f32 max abs err {abs32:.3e}; "
         f"bf16 max|plain| (err over it) per output: {', '.join(tops)}"
-        + (f"; own scale held for outputs {list(own)}" if own else ""))
+        + (f"; own scale held for outputs {list(own)}" if own else "")
+        + (" in float32 too" if own and own32 else ""))
     return errs[0], errs[1], abs32
 
 
@@ -759,7 +769,10 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
     """Phase 4c: the last six kernel bodies (K-LN, K-LN', K5 with and
     without the gate, K-V1, K-V1') against their plain versions at the
     shapes their entry points take in the flagship (bf16, batch 8) and in
-    ``cswinunet`` (float32, batch 2), and at one odd shape each (K-V1 and
+    ``cswinunet`` (float32, batch 2), and at one odd shape each (K-LN' at
+    four: one row, ragged last blocks, C off the vector width; dx, dg and
+    db each also against its own max|plain| in float32 and bf16, and the
+    body each K-LN' launch took; K-V1 and
     every output of K-V1' also against its own max|plain|, K-V1''s masked
     keys with dk = dv = 0 exactly, and the body each launch took: bf16 at
     head dims 16-64 the tensor-core ones, float32 the CUDA-core ones; K5's
@@ -768,7 +781,8 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
     their times at the flagship's shapes (K-V1 and K-V1' on the device
     beside SDPA's device time; K5 and K5 without the gate also on the device
     at the 2048^2 head and at cswinunet's float32 one, with their SFU and ALU
-    floors); then the three entry points driven forward and
+    floors; K-LN' also on the device at cswinunet's four float32 shapes,
+    beside F.layer_norm's backward); then the three entry points driven forward and
     backward with the launch counts reset before and read after each
     (FusedLayerNorm(use_kernel=True) at every LayerNorm shape of both
     configs; CARAFE(flat_output, flat_raw) into FusedSimAMHead at 1 and 4
@@ -831,13 +845,23 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
         x, g = randn(M, C, scale=2.0, dtype=dtype), randn(C, scale=0.3) + 1.0
         return x, g, randn(M, C, dtype=dtype) if grad else randn(C, scale=0.1)
 
-    for M, C in ln_flag + ln_448 + [(1000, 100)]:
+    # odd shapes: C off the vector width (the scalar body in bf16, or in
+    # both), one row, ragged last blocks
+    for M, C in ln_flag + ln_448 + [(1000, 100), (37, 33), (1, 8), (2049, 512), (263 * 8 + 1, 64)]:
         fold("K-LN", check_pair(f"K-LN ({M}, {C})", torch, layernorm.kernel_fwd,
                                 layernorm.ln_reference,
                                 lambda _B, dtype, M=M, C=C: ln_inputs(M, C, dtype)))
+        _build.reset_launches()
         fold("K-LN'", check_outputs(f"K-LN' ({M}, {C})", torch, layernorm.kernel_bwd,
                                     layernorm.ln_bwd_reference,
-                                    lambda _B, dtype, M=M, C=C: ln_inputs(M, C, dtype, True)))
+                                    lambda _B, dtype, M=M, C=C: ln_inputs(M, C, dtype, True),
+                                    own=(0, 1, 2), ratios=rows["K-LN'"], own32=True))
+        want = {}  # float32 loads 4 a vector, bf16 8
+        for per16 in (4, 8):
+            key = f"{layernorm.BWD_KERNEL}:{'vec' if C % per16 == 0 else 'scalar'}"
+            want[key] = want.get(key, 0) + 1
+        bodies = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
+        require(bodies == want, f"K-LN' ({M}, {C}): body launches {bodies} != {want}")
     for M, C in ln_flag:  # times at the flagship's shapes, bf16
         x, g, dy = ln_inputs(M, C, torch.bfloat16, True)
         b = randn(C, scale=0.1)
@@ -853,6 +877,25 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
                            lambda: torch.autograd.grad(lib_out, (xg, gg, bg), dy,
                                                        retain_graph=True)),
                  3 * M * C * 2 + 3 * C * 4, 14 * M * C, (M, C))
+        del x, g, dy, xg, lib_out
+    r = rows["K-LN'"]
+    r["device_ms_448"] = r["bound_ms_448"] = r["library_device_ms_448"] = 0.0
+    r["per_shape_448"] = []
+    for M, C in ln_448:  # K-LN' on the device at cswinunet's shapes, float32
+        x, g, dy = ln_inputs(M, C, torch.float32, True)
+        xg, gg, bg = (t.detach().requires_grad_() for t in (x, g, randn(C, scale=0.1)))
+        lib_out = F.layer_norm(xg, (C,), gg, bg, 1e-5)
+        dev_ms = device_ms(torch, lambda: layernorm.kernel_bwd(x, g, dy))
+        lib_dev = device_ms(torch, lambda: torch.autograd.grad(lib_out, (xg, gg, bg), dy,
+                                                               retain_graph=True))
+        b_ms, _ = bound_ms(3 * M * C * 4 + 3 * C * 4, 14 * M * C, "float32")
+        r["device_ms_448"] += dev_ms
+        r["library_device_ms_448"] += lib_dev
+        r["bound_ms_448"] += b_ms
+        r["per_shape_448"].append(dict(shape=(M, C), device_ms=dev_ms,
+                                       library_device_ms=lib_dev, bound_ms=b_ms))
+        log(f"    K-LN' ({M}, {C}) float32: device {dev_ms:.4f} ms  library device "
+            f"{lib_dev:.4f} ms  bound {b_ms:.4f} ms")
         del x, g, dy, xg, lib_out
 
     # -- K5 and K5 without the gate: the flagship head's flat map --
@@ -1022,6 +1065,10 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
         tally(f"FusedLayerNorm(use_kernel=True) ({M}, {C}) {dtype}",
               launches_of(torch, _build, run_ln),
               {layernorm.FWD_KERNEL: 1, layernorm.BWD_KERNEL: 1})
+        bodies = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
+        require(bodies == {f"{layernorm.BWD_KERNEL}:vec": 1},
+                f"FusedLayerNorm ({M}, {C}) {dtype}: K-LN' bodies {bodies}")
+        rows["K-LN'"]["launches_vec"] = rows["K-LN'"].get("launches_vec", 0) + 1
 
     tokens = randn(TIME_BATCH, r512 * r512, E, dtype=torch.bfloat16)
     for Fc, gate in ((1, True), (1, False), (4, True), (4, False), (16, True)):
@@ -2301,6 +2348,12 @@ def main() -> int:
         }
         entry.update({k: v for k, v in row.items() if k.endswith("_flagship_step")
                       or k == "layernorms_per_flagship_step"})
+        if label == "K-LN'":
+            entry.update({k: row[k] for k in ("device_ms_448", "bound_ms_448",
+                                              "library_device_ms_448", "per_shape_448",
+                                              "launches_vec")},
+                         body="vec: 16-byte loads (csrc/layernorm.cu), scalar off the width",
+                         err_over_max_plain=row["own32"], err_over_max_plain_bf16=row["own16"])
         if label in ("K5", "K5 no gate"):
             entry.update({k: row[k] for k in ("device_ms_2048", "bound_ms_2048",
                                               "device_ms_448", "bound_ms_448", "floors")},

@@ -87,8 +87,8 @@ _SIGNATURES = {
     "csu_head_bwd2_nogate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, g, b, y, M, C, eps, stream
     "csu_layernorm_fwd": [_I, _P, _P, _P, _P, _L, _I, _F, _P],
-    # dtype, x, g, dy, dx, dg_part, db_part, M, C, eps, stream
-    "csu_layernorm_bwd": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _F, _P],
+    # dtype, x, g, dy, dx, part, out, M, C, eps, sms, blocks, stream
+    "csu_layernorm_bwd": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _L, _P],
     # dtype, q, k, v, out, lse, G, Np, head_dim, n_valid, scale, stream
     "csu_window_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # dtype, q, k, v, dout, lse, delta, dq, dk, dv, G, Np, head_dim, n_valid, scale, stream
@@ -112,14 +112,18 @@ LAUNCHES = {key: 0 for name in _SIGNATURES for key in (
 # The attention entries (K-A, K-A', the flash family's three, K-V1 and
 # K-V1') launch one of two bodies, which the C entry picks by dtype and head
 # dim (csu_attention_body): "mma", the bf16 tensor-core body, or "fma", the
-# CUDA-core body.  Each launch also counts under "<entry>:<body>" (K-A,
-# K-A', K-V1, K-V1') or "<entry>:<mode>:<body>" (the flash family) here,
-# apart from LAUNCHES, whose keys stay one per entry and mode.
+# CUDA-core body.  K-LN' launches "vec" (16-byte loads) or "scalar", by
+# dtype, C and the rows' alignment.  Each launch also counts under
+# "<entry>:<body>" (K-A, K-A', K-V1, K-V1', K-LN') or "<entry>:<mode>:<body>"
+# (the flash family) here, apart from LAUNCHES, whose keys stay one per
+# entry and mode.
 BODY_ENTRIES = ("csu_stripe_attention_fwd", "csu_stripe_attention_bwd", *FLASH_ENTRIES,
                 "csu_window_attention_fwd", "csu_window_attention_bwd")
 BODIES = ("mma", "fma")
+ENTRY_BODIES = {**{name: BODIES for name in BODY_ENTRIES},
+                "csu_layernorm_bwd": ("vec", "scalar")}
 BODY_LAUNCHES = {f"{key}:{body}": 0 for key in LAUNCHES
-                 if key.split(":")[0] in BODY_ENTRIES for body in BODIES}
+                 for body in ENTRY_BODIES.get(key.split(":")[0], ())}
 
 _lock = threading.Lock()
 _lib = None
@@ -215,6 +219,9 @@ def library() -> ctypes.CDLL:
             lib.csu_attention_body.restype = ctypes.c_int
             lib.csu_window_attention_design.argtypes = [ctypes.c_int] * 3
             lib.csu_window_attention_design.restype = ctypes.c_int
+            lib.csu_layernorm_bwd_design.argtypes = [_I, _L, _I, _I, _I,
+                                                     ctypes.POINTER(ctypes.c_int64)]
+            lib.csu_layernorm_bwd_design.restype = ctypes.c_int
             _lib = lib
     return _lib
 

@@ -17,7 +17,11 @@ K-A' against their plain versions at 512, 1024, 2048 (vertical) and 4096
 (global) tokens, which kernels each window size launches, and
 CSWin-SimAM-UNet at 2048^2 (a forward, a batch-8 forward whose later images
 must not see 32-bit offsets wrap, and a training step).  The last six
-kernel bodies: K-LN and K-LN' (odd channel counts among them), K5 with and
+kernel bodies: K-LN and K-LN' at every LayerNorm shape of the configs and at
+odd ones (a single row, ragged last blocks, channel counts off the vector
+width), dx, dg and db each also at its own scale, the body K-LN' took
+(16-byte or scalar loads, unaligned rows among them), two K-LN' runs bitwise
+equal and the wrapper's mirror of its launch shape against the C entry's; K5 with and
 without the gate (alone and inside the standalone head's autograd
 Function), K-V1 and K-V1' (a key mask at n_valid not a multiple of 16, up
 to 2048 tokens), the launches of their three entry points, and a
@@ -1553,27 +1557,107 @@ def test_model_512_training_step_runs_tensor_core_stripe_attention_bwd(dev):
 # ---- the last six kernel bodies: K-LN, K-LN', K5 (with and without the
 # gate), K-V1, K-V1' ----
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,C", [(200, 64), (131, 96), (64, 512), (37, 33), (70, 8)])
-def test_layernorm_kernels(dev, dtype, M, C):
+# every LayerNorm shape (rows M = B*L, channels C) of cswin_simam_512 at
+# batch 8, cswinunet at batch 2 and cswin_simam_2048 at batch 1
+LN_CONFIG_SHAPES = [(8 * 128 * 128 >> 2 * s, 64 << s) for s in range(4)] + [
+    (2 * 112 * 112 >> 2 * s, 64 << s) for s in range(4)] + [
+    (512 * 512 >> 2 * s, 64 << s) for s in range(4)]
+# odd shapes: one row, ragged last blocks, C off the vector width (the
+# scalar body: 33, 100; 96 in bf16), C = 8 (a lane a row), C = 512
+LN_ODD_SHAPES = [(200, 64), (131, 96), (64, 512), (37, 33), (70, 8), (1, 8), (1, 512),
+                 (131, 100), (1000, 100), (263 * 500 + 1, 64), (2049, 512), (8191, 256)]
+
+
+def _ln_inputs(dev, dtype, M, C):
     x = (_randn(dev, M, C, scale=2.0) + 0.5).to(dtype)
     dy = _randn(dev, M, C, seed=1).to(dtype)
     g = _randn(dev, C, scale=0.3, seed=2) + 1.0
+    return x, dy, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C", LN_ODD_SHAPES + LN_CONFIG_SHAPES)
+def test_layernorm_kernels(dev, dtype, M, C):
+    """K-LN and K-LN' against their plain versions; dx, dg and db each also
+    against its own max|plain|, and the body K-LN' took (16-byte loads
+    where C is a multiple of 16 bytes' elements)."""
+    x, dy, g = _ln_inputs(dev, dtype, M, C)
     b = _randn(dev, C, scale=0.1, seed=3)
     _build.reset_launches()
     y = layernorm.kernel_fwd(x, g, b)
     got = layernorm.kernel_bwd(x, g, dy)
     assert _build.LAUNCHES[layernorm.FWD_KERNEL] == _build.LAUNCHES[layernorm.BWD_KERNEL] == 1
+    body = "vec" if C % (16 // x.element_size()) == 0 else "scalar"
+    assert {n: c for n, c in _build.BODY_LAUNCHES.items() if c} == {
+        f"{layernorm.BWD_KERNEL}:{body}": 1}
     assert y.dtype == got[0].dtype == dtype and got[1].dtype == torch.float32
     _check(y, layernorm.ln_reference(x.float(), g, b), dtype)
     for a, r in zip(got, layernorm.ln_bwd_reference(x.float(), g, dy.float())):
         _check_scaled(a, r, dtype)
+        _check_own(a, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_bwd_unaligned_rows_take_the_scalar_body(dev, dtype):
+    """Rows whose base is not 16-byte aligned: the scalar body, the same
+    answers."""
+    M, C = 300, 64
+    x, dy, g = _ln_inputs(dev, dtype, M * C + 1, 1)
+    x, dy = x.reshape(-1)[1:].view(M, C), dy.reshape(-1)[1:].view(M, C)
+    g = _randn(dev, C, scale=0.3, seed=2) + 1.0
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    _build.reset_launches()
+    got = layernorm.kernel_bwd(x, g, dy)
+    assert {n: c for n, c in _build.BODY_LAUNCHES.items() if c} == {
+        f"{layernorm.BWD_KERNEL}:scalar": 1}
+    for a, r in zip(got, layernorm.ln_bwd_reference(x.float(), g, dy.float())):
+        _check_scaled(a, r, dtype)
+        _check_own(a, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C", [(131072, 64), (2048, 512), (392, 512), (1000, 100),
+                                 (263 * 500 + 1, 64)])
+def test_layernorm_bwd_deterministic(dev, dtype, M, C):
+    """Two runs of K-LN' on the same inputs give the same bits: dg and db
+    are summed in a fixed order, without atomics."""
+    x, dy, g = _ln_inputs(dev, dtype, M, C)
+    first = layernorm.kernel_bwd(x, g, dy)
+    second = layernorm.kernel_bwd(x, g, dy)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_layernorm_bwd_design_matches_the_c_entry(dev):
+    """The wrapper's mirror of K-LN''s launch shape (ops/layernorm.py::
+    bwd_geometry) and the C entry's, over dtypes, row counts, every C from 1
+    to 512, aligned rows or not, and the SM counts of other cards."""
+    lib = _build.library()
+    out = (ctypes.c_int64 * 7)()
+    keys = ("vec", "lanes", "vpl", "in_flight", "warps", "rows", "blocks")
+    sms_here = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        for sms in sorted({sms_here, 132, 108, 1}):
+            for M in (1, 7, 37, 263, 264, 265, 392, 1000, 2048, 8191, 25088, 131072, 262144):
+                for C in range(1, layernorm.MAX_CHANNELS + 1):
+                    for aligned in (True, False):
+                        code = lib.csu_layernorm_bwd_design(_build.DTYPE_CODES[dtype], M, C,
+                                                            int(aligned), sms, out)
+                        assert code == 0
+                        geo = layernorm.bwd_geometry(M, C, dtype, aligned, sms)
+                        assert {k: geo[k] for k in keys} == dict(zip(keys, out)), (M, C)
+    for M, C in ((0, 64), (4, 0), (4, 513)):
+        assert lib.csu_layernorm_bwd_design(1, M, C, 1, 132, out) != 0
 
 
 def test_layernorm_kernel_rejects(dev):
     with pytest.raises(ValueError, match="channels"):
         layernorm.kernel_fwd(torch.zeros(4, 520, device=dev), torch.ones(520, device=dev),
                              torch.zeros(520, device=dev))
+    x = torch.zeros(100, 64, device=dev)
+    with pytest.raises(RuntimeError, match="csu_layernorm_bwd failed"):  # partials' size
+        _build.launch(layernorm.BWD_KERNEL, dev, 0, x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                      x.data_ptr(), x.data_ptr(), x.data_ptr(), 100, 64, 1e-5, 132, 7)
 
 
 def _head_bwd2_inputs(dev, dtype, H, W, C, G, F, B=2, pooled_only=False):
