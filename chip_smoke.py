@@ -79,7 +79,21 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    512^2 and 448^2 configs (the masks are the same, so the gradients must
    agree) and the loss in bf16; and one batch-1 step of ``cswin_simam_2048``
    at full width and depth (1,1,1,1), float32, drops 0.3 with attention
-   dropout 0 (the flash path's mask is not the plain path's).
+   dropout 0 (the flash path's mask is not the plain path's).  Then the
+   multi-class step: ``cswin_simam_512_dp`` (4 classes, bf16, batch 16 on
+   one card, class-id disc masks) through the same training run and checks,
+   and one batch-2 step's float32 gradients and bf16 loss with kernels on
+   against off (the head's F = 4 kernels in a real step).  Then ``fit`` on
+   ``cswin_simam_512`` (bf16, drops 0.3, batch 8): 2 epochs over in-memory
+   loaders of host uint8 batches (3 training, 2 test), plateau patience 0;
+   every training step's launches are a step's, every eval forward's the
+   serving forward's (no backward kernel); 7 finite history series, Dice and
+   IoU in [0, 1], the learning rates the schedule's rule gives; ms per epoch
+   and images/s.  Last, gradient accumulation on ``cswin_simam_512`` in
+   float32 at drops 0: ``grad_accum=2`` at batch 4 (equal micro-batches)
+   and 3 (ragged) against the full-batch step from the same weights, every
+   parameter's gradient within 1e-3 x max|g|, loss, Dice and IoU within
+   1e-5 relative, twice a step's launches, and the ms of each step.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -133,6 +147,8 @@ HASH_OPS = 10                       # integer operations of one keep bit (fmix32
 TRAIN_WARMUP, TRAIN_STEPS, CHECK_BATCH = 3, 10, 2
 DEADLINE_S = 1100                   # the whole run takes about 200 s on the H100
 LOSS_TAIL = 3                       # the mean of the last 3 losses is below the first
+TOL_ACCUM = 1e-5                    # relative, loss / Dice / IoU, grad_accum 2 vs the full batch
+ACCUM_STEPS = 3                     # timed steps of each gradient-accumulation run
 
 
 def log(*args) -> None:
@@ -351,20 +367,30 @@ def attention_geometries(model) -> dict:
     return geoms
 
 
-def disc_batch(torch, img: int, batch: int, dev):
-    """A fixed uint8 batch of bright discs on noise and their masks, on dev."""
+def disc_arrays(img: int, batch: int, n_classes: int = 1, seed: int = SEED + 1):
+    """A fixed uint8 batch of discs on noise and their masks, on the host:
+    binary masks 255 in the discs; with several classes each image's three
+    discs are classes 1-3 (ids on background 0), each class its own
+    brightness."""
     import numpy as np
-    rs = np.random.RandomState(SEED + 1)
+    rs = np.random.RandomState(seed)
     yy, xx = np.mgrid[:img, :img]
     images = rs.randint(0, 160, (batch, img, img, 3)).astype("uint8")
     masks = np.zeros((batch, img, img, 1), "uint8")
     for i in range(batch):  # a learnable batch
-        for _ in range(3):
+        for j in range(3):
             cy, cx = rs.randint(img // 8, img - img // 8, size=2)
             rad = rs.randint(20, 60)
             disc = (yy - cy) ** 2 + (xx - cx) ** 2 < rad * rad
-            images[i][disc] = 255
-            masks[i, disc, 0] = 255
+            cls = 1 + (i + j) % 3 if n_classes > 1 else 1
+            images[i][disc] = 255 - 40 * (cls - 1)
+            masks[i, disc, 0] = cls if n_classes > 1 else 255
+    return images, masks
+
+
+def disc_batch(torch, img: int, batch: int, dev, n_classes: int = 1):
+    """:func:`disc_arrays` on ``dev``."""
+    images, masks = disc_arrays(img, batch, n_classes)
     return torch.from_numpy(images).to(dev), torch.from_numpy(masks).to(dev)
 
 
@@ -377,11 +403,12 @@ def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev,
     peak memory, launches and the losses."""
     img = model.img_size
     phase(f"training {label}, {img}^2, {model.dtype}, kernels on: {tcfg}")
-    images_d, masks_d = disc_batch(torch, img, tcfg.batch_size, dev)
+    images_d, masks_d = disc_batch(torch, img, tcfg.batch_size, dev, model.num_classes)
     trained = copy.deepcopy(model)
     opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
                                 trained.parameters())
-    step = engine.make_train_step(trained, opt, seed=SEED)
+    step = engine.make_train_step(trained, opt, model.num_classes, grad_accum=tcfg.grad_accum,
+                                  seed=SEED)
     torch.cuda.synchronize()
     _build.reset_launches()
     history = [step(images_d, masks_d)]
@@ -1239,6 +1266,167 @@ def remaining_kernels_phase(torch, F, dev, randn, _build, build_model, model, mo
             f"{r['bound_ms_flagship_step']:.4f} ms")
     return rows, dict(head_on_off=head_gaps, classes16_max_abs_dp=dp16,
                       classes16_forward_ms=ms16, main_path_launches=main)
+
+
+class StepCounts:
+    """Inside ``with``: the training and eval steps that ``engine.fit``
+    makes are wrapped so that each call's launches and body launches are
+    recorded.  The counts live on the host, so reading them around a call
+    waits for nothing on the device."""
+
+    def __init__(self, engine, _build):
+        self.engine, self._build = engine, _build
+        self.calls: dict = {"train": [], "eval": []}
+
+    def _wrap(self, kind, make):
+        def maker(*args, **kw):
+            step = make(*args, **kw)
+
+            def counted(*a, **k):
+                before = [dict(c) for c in (self._build.LAUNCHES, self._build.BODY_LAUNCHES)]
+                out = step(*a, **k)
+                self.calls[kind].append(tuple(
+                    {key: n - was[key] for key, n in now.items() if n != was[key]}
+                    for now, was in zip((self._build.LAUNCHES, self._build.BODY_LAUNCHES),
+                                        before)))
+                return out
+            return counted
+        return maker
+
+    def __enter__(self):
+        self.saved = self.engine.make_train_step, self.engine.make_eval_step
+        self.engine.make_train_step = self._wrap("train", self.saved[0])
+        self.engine.make_eval_step = self._wrap("eval", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.make_train_step, self.engine.make_eval_step = self.saved
+
+
+def plateau_lrs(losses, lr, factor, patience, min_lr, threshold=1e-4, eps=1e-8) -> list:
+    """The learning rate after each epoch of a reduce-on-plateau schedule
+    (mode min, relative threshold, no cooldown), stated apart from torch's
+    scheduler that ``fit`` steps."""
+    best, bad, out = math.inf, 0, []
+    for loss in losses:
+        if loss < best * (1.0 - threshold):
+            best, bad = loss, 0
+        else:
+            bad += 1
+        if bad > patience:
+            new = max(lr * factor, min_lr)
+            lr = new if lr - new > eps else lr
+            bad = 0
+        out.append(lr)
+    return out
+
+
+def fit_phase(torch, engine, _build, model, tcfg, want_step, want_step_bodies, want_eval,
+              want_eval_bodies) -> dict:
+    """``engine.fit`` on a copy of ``model``: 2 epochs over in-memory loaders
+    of host uint8 disc batches (3 training, 2 test), plateau patience 0.
+    Every training step must launch ``want_step`` and every eval forward
+    ``want_eval`` (the serving forward's kernels, no backward kernel); the
+    history must hold 7 finite series of 2, Dice and IoU in [0, 1], and
+    learning rates that the schedule's rule gives for its test losses."""
+    from cswin_simam_unet_tpu_torch.train.schedule import make_plateau_scheduler
+    img, batch = model.img_size, tcfg.batch_size
+    phase(f"fit: {img}^2, {model.dtype}, batch {batch}, 2 epochs of 3 training and 2 test "
+          f"batches, kernels on")
+    trained = copy.deepcopy(model)
+    opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
+                                trained.parameters())
+    train = [disc_arrays(img, batch, seed=SEED + 10 + i) for i in range(3)]
+    test = [disc_arrays(img, batch, seed=SEED + 20 + i) for i in range(2)]
+    cfg = engine.FitConfig(num_epochs=2, plateau_patience=0, seed=SEED)
+    sched = make_plateau_scheduler(opt, cfg.plateau_factor, cfg.plateau_patience,
+                                   cfg.plateau_min_lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StepCounts(engine, _build) as counts:
+        history, global_step = engine.fit(trained, opt, train, test, cfg, scheduler=sched)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    require(global_step == 6, f"fit: global step {global_step}")
+    calls = counts.calls
+    require(len(calls["train"]) == 6 and len(calls["eval"]) == 4,
+            f"fit: {len(calls['train'])} training and {len(calls['eval'])} eval steps")
+    for i, (launched, bodies) in enumerate(calls["train"]):
+        require(launched == want_step and bodies == want_step_bodies,
+                f"fit training step {i}: launches {launched}, bodies {bodies}")
+    for i, (launched, bodies) in enumerate(calls["eval"]):
+        require(launched == want_eval and bodies == want_eval_bodies,
+                f"fit eval forward {i}: launches {launched}, bodies {bodies}")
+    log(f"each of the 6 training steps launched {calls['train'][0][0]}; each of the 4 eval "
+        f"forwards {calls['eval'][0][0]} (bodies {calls['eval'][0][1]})")
+    require(sorted(history) == sorted(engine.empty_history()), f"history keys {sorted(history)}")
+    for key, series in history.items():
+        require(len(series) == 2 and all(math.isfinite(v) for v in series),
+                f"fit history {key}: {series}")
+        if key.endswith(("dice", "iou")):
+            require(all(0.0 <= v <= 1.0 for v in series), f"fit history {key}: {series}")
+    want_lrs = plateau_lrs(history["test_loss"], tcfg.learning_rate, cfg.plateau_factor,
+                           cfg.plateau_patience, cfg.plateau_min_lr)
+    require(history["learning_rates"] == want_lrs
+            and engine.get_learning_rate(opt) == want_lrs[-1],
+            f"fit learning rates {history['learning_rates']} != {want_lrs}")
+    epoch_ms = fit_s / 2 * 1e3
+    ips = len(train) * batch * 2 / fit_s
+    log(f"fit: {epoch_ms:.1f} ms per epoch ({len(train)} training and {len(test)} test "
+        f"batches of {batch}), {ips:.1f} training images/s over the whole run (host clock, "
+        f"synchronize at both ends, first epoch included); history "
+        + json.dumps(history))
+    del trained, opt
+    torch.cuda.empty_cache()
+    return dict(epoch_ms=epoch_ms, train_images_per_s=ips, history=history,
+                step_launches=calls["train"][0][0], eval_launches=calls["eval"][0][0])
+
+
+def grad_accum_phase(torch, engine, _build, build_model, no_drops, want_step, dev) -> dict:
+    """``grad_accum=2`` against the full-batch step from the same weights
+    (``cswin_simam_512``, float32, drops 0; AdamW at lr 0 keeps the
+    weights): batch 4 (two equal micro-batches) and 3 (ragged, 1 + 2).
+    Every parameter's gradient within TOL_GRAD_F32 x max|g|, loss, Dice and
+    IoU within TOL_ACCUM relative, twice a step's launches; then the ms of
+    each step (mean of ACCUM_STEPS after the checked one)."""
+    phase("gradient accumulation: cswin_simam_512, float32, drops 0, grad_accum 2 vs 1")
+    net = build_model("cswin_simam_512", device=dev, seed=SEED, dtype="float32", **no_drops)
+    opt = engine.make_optimizer("adamw", 0.0, 0.0, net.parameters())
+    out = {}
+    for batch in (4, 3):
+        images_d, masks_d = disc_batch(torch, net.img_size, batch, dev)
+        res = {}
+        for accum in (1, 2):
+            step = engine.make_train_step(net, opt, grad_accum=accum, seed=SEED)
+            launched = launches_of(torch, _build, lambda: res.__setitem__(
+                accum, step(images_d, masks_d)))
+            require(launched == {k: accum * n for k, n in want_step.items()},
+                    f"batch {batch}, grad_accum {accum}: launches {launched}")
+            grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+            t0 = time.perf_counter()
+            for _ in range(ACCUM_STEPS):
+                step(images_d, masks_d)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / ACCUM_STEPS * 1e3
+            res[accum] = ({k: float(v) for k, v in res[accum].items()}, grads, ms)
+        (full, g_full, ms_full), (acc, g_acc, ms_acc) = res[1], res[2]
+        gaps = torch.stack([(g_acc[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)
+                            for n, g in g_full.items()]).cpu()
+        worst = float(gaps.max())
+        require(worst <= TOL_GRAD_F32, f"batch {batch}: accumulated gradient gap {worst}")
+        rel = {k: abs(acc[k] - full[k]) / max(abs(full[k]), 1e-30) for k in full}
+        require(all(r <= TOL_ACCUM for r in rel.values()), f"batch {batch}: metrics {rel}")
+        kind = "equal" if batch % 2 == 0 else "ragged"
+        log(f"batch {batch} ({kind}): grad_accum 2 vs 1: largest gradient gap {worst:.3e} x "
+            f"max|g| over {len(g_full)} parameters (tol {TOL_GRAD_F32:g}); loss {acc['loss']:.6f}"
+            f" vs {full['loss']:.6f}, relative gaps "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + f" (tol {TOL_ACCUM:g}); {ms_acc:.2f} ms a step vs {ms_full:.2f} (mean of "
+            f"{ACCUM_STEPS}, host clock)")
+        out[f"batch{batch}"] = dict(grad_gap=worst, rel=rel, ms_accum2=ms_acc, ms_full=ms_full)
+    del net, opt
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2152,14 +2340,14 @@ def main() -> int:
     # and the same dropout seed (so the same masks)
     def grads_of(net, use_kernels, images_d, masks_d):
         net.zero_grad(set_to_none=True)
-        loss, _, _ = engine.compute_gradients(net, images_d, masks_d, 1, use_kernels,
-                                              rng=DROP_SEED)
+        loss, _, _ = engine.compute_gradients(net, images_d, masks_d, net.num_classes,
+                                              use_kernels, rng=DROP_SEED)
         grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
         net.zero_grad(set_to_none=True)
         return float(loss), grads
 
     def compare_f32(label, net, img, batch=CHECK_BATCH):
-        images_d, masks_d = disc_batch(torch, img, batch, dev)
+        images_d, masks_d = disc_batch(torch, img, batch, dev, net.num_classes)
         loss_on, g_on = grads_of(net, True, images_d, masks_d)
         loss_off, g_off = grads_of(net, False, images_d, masks_d)
         worst_name, worst = "", 0.0
@@ -2201,6 +2389,31 @@ def main() -> int:
         + ", ".join(f"{k} {v:.2e}" for k, v in groups.items()))
     require(abs(loss_on - loss_off) <= TOL_LOSS_BF16, "bf16 loss, kernels on vs off")
     del g_on, g_off
+
+    # the multi-class step: cswin_simam_512_dp, 4 classes, its global batch
+    # of 16 on one card; the head's F = 4 kernels in a real step
+    model_dp = build_model("cswin_simam_512_dp", device=dev, seed=SEED)
+    runs["cswin_simam_512_dp drops 0.3"] = train_phase(
+        torch, engine, _build, "cswin_simam_512_dp drops 0.3", model_dp,
+        TRAIN_CONFIGS["cswin_simam_512_dp"], per_step, dev, bodies512)
+    phase("gradients, kernels on vs off, cswin_simam_512_dp (4 classes), drops 0.3")
+    model_dp32 = build_model("cswin_simam_512_dp", device=dev, seed=SEED, dtype="float32")
+    grad_gap_dp = compare_f32("cswin_simam_512_dp drops 0.3", model_dp32, IMG)
+    del model_dp32
+    images_d, masks_d = disc_batch(torch, IMG, CHECK_BATCH, dev, model_dp.num_classes)
+    loss_on_dp, _ = grads_of(model_dp, True, images_d, masks_d)
+    loss_off_dp, _ = grads_of(model_dp, False, images_d, masks_d)
+    log(f"cswin_simam_512_dp, bf16, drops 0.3, batch {CHECK_BATCH}: loss {loss_on_dp:.6f} "
+        f"kernels on vs {loss_off_dp:.6f} off (tol {TOL_LOSS_BF16:g})")
+    require(abs(loss_on_dp - loss_off_dp) <= TOL_LOSS_BF16,
+            "cswin_simam_512_dp bf16 loss, kernels on vs off")
+    del model_dp
+    torch.cuda.empty_cache()
+
+    fit_run = fit_phase(torch, engine, _build, model, TRAIN_CONFIGS["cswin_simam_512"],
+                        per_step, bodies512, per_forward,
+                        {ka_mma: per_forward[stripe_attention.KERNEL]})
+    accum_run = grad_accum_phase(torch, engine, _build, build_model, NO_DROPS, per_step, dev)
 
     # ---- 7. results ----
     sources = {
@@ -2371,9 +2584,12 @@ def main() -> int:
                                        if m not in ("launches", "bodies")}
                                    for k, r in runs.items()}))
     log("serving 2048^2: " + json.dumps(serve2048))
+    log("fit: " + json.dumps(fit_run))
+    log("gradient accumulation: " + json.dumps(accum_run))
     log(f"f32 gradient gaps, kernels on vs off at drops 0.3: cswin_simam_512 {grad_gap:.3e}, "
         f"cswinunet {grad_gap448:.3e}; cswin_simam_2048 at depth (1,1,1,1), attention drop "
-        f"0: {grad_gap2048:.3e}; K-A keep rate {table['K-A']['keep_rate']:.6f}")
+        f"0: {grad_gap2048:.3e}; cswin_simam_512_dp {grad_gap_dp:.3e}; K-A keep rate "
+        f"{table['K-A']['keep_rate']:.6f}")
     log(f"build {build_s:.1f} s, whole run {time.perf_counter() - T_START:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

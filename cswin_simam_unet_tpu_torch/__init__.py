@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of ``cswin_simam_unet_tpu`` for NVIDIA Hopper.
 
 CSWin-SimAM-UNet serves (``serving.py``: uint8 images in, probabilities
-out) and trains (``train/engine.py``: BCE, Dice/IoU, AdamW, dropout and
-drop-path at the configs' rates) at 448^2 to 2048^2 (``configs.py``)
+out) and trains (``train/engine.py``: the binary and the multi-class step,
+gradient accumulation, AdamW or L2-coupled Adam, dropout and drop-path at
+the configs' rates, the eval step and ``fit`` with its plateau schedule) at
+448^2 to 2048^2 (``configs.py``)
 through hand-written CUDA kernels, each an autograd Function whose CPU path
 is its plain PyTorch version: stripe attention K-A / K-A'
 (``ops/stripe_attention.py``, windows that one block holds whole), the

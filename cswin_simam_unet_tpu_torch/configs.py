@@ -19,9 +19,16 @@ configs (``configs.py:154``, ``:171``): the flagship's geometry at 1024^2
 and 2048^2 (windows of 512 and 1024 tokens, a 4096-token global window on
 the flash path), AdamW lr 1e-4, weight decay 1e-4, batch 2 and 1.  What
 the JAX entries add is not ported: ``scan_stages`` (an XLA compile-size
-device), ``grad_accum`` (ROADMAP queue A item 4), the segmented step
-(queue A item 10; the port trains 2048^2 in one eager step) and the
-augmentation pipeline (queue A item 5).
+device), the segmented step (queue A item 10; the port trains 2048^2 in
+one eager step) and the augmentation pipeline (queue A item 5).
+``cswin_simam_1024`` trains with ``grad_accum=2``, as its JAX entry does.
+
+``cswin_simam_512_dp`` is the JAX package's multi-class entry
+(``configs.py:142-147``): the flagship's geometry with 4 classes, SimAM,
+drops 0.3, AdamW lr 1e-4, weight decay 1e-4, batch 16, in bf16 as the
+port's flagship computes (the JAX entry keeps its float32 default).  JAX
+splits its global batch of 16 over a data-parallel mesh; the port runs it
+on one card, since data parallelism is ROADMAP queue A item 9.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ class TrainConfig:
     learning_rate: float = 1e-4
     weight_decay: float = 1e-4
     batch_size: int = 8
+    grad_accum: int = 1  # micro-batches per optimizer step
 
 
 # every CSWin config of the JAX package trains with these (_cswin_model)
@@ -69,13 +77,15 @@ CONFIGS = {
     "cswin_simam_512": ModelConfig(**DROPS),
     "cswinunet": ModelConfig(img_size=448, split_size=(1, 2, 7, 7), use_simam=False,
                              dtype="float32", **DROPS),
+    "cswin_simam_512_dp": ModelConfig(num_classes=4, **DROPS),
     "cswin_simam_1024": ModelConfig(img_size=1024, **DROPS),
     "cswin_simam_2048": ModelConfig(img_size=2048, **DROPS),
 }
 TRAIN_CONFIGS = {
     "cswin_simam_512": TrainConfig(),
     "cswinunet": TrainConfig(batch_size=2),
-    "cswin_simam_1024": TrainConfig(batch_size=2),
+    "cswin_simam_512_dp": TrainConfig(batch_size=16),
+    "cswin_simam_1024": TrainConfig(batch_size=2, grad_accum=2),
     "cswin_simam_2048": TrainConfig(batch_size=1),
 }
 

@@ -7,8 +7,8 @@ Builds the configuration (``--config``, default ``cswin_simam_512``, random
 weights from seed 0; ``--no-drops`` sets its dropout, attention dropout and
 drop-path rates to 0, which only training uses) and warms up.  Then, ``--repeats`` times, it times ``--steps``
 forwards of one ``--batch`` request (with ``--train``: training steps of
-``make_train_step`` with the configuration's AdamW settings on one uint8
-batch) on the host clock, untraced, and right
+``make_train_step`` with the configuration's AdamW settings, classes and
+``grad_accum`` on one uint8 batch) on the host clock, untraced, and right
 after traces ``--steps`` more under ``torch.profiler`` (device activity
 only).  For each traced window it prints the device's busy and idle share of
 that same window: the window runs from the start of its first device
@@ -82,10 +82,13 @@ def main() -> None:
         tcfg = TRAIN_CONFIGS[args.config]
         opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
                                     model.parameters())
-        step = engine.make_train_step(model, opt)
+        n_classes = model.num_classes
+        step = engine.make_train_step(model, opt, n_classes, grad_accum=tcfg.grad_accum)
         images_d = torch.from_numpy(images).cuda()
+        # class ids, or 0/255 for the binary head
+        masks = rs.randint(0, max(n_classes, 2), (args.batch, img, img, 1))
         masks_d = torch.from_numpy(
-            (rs.randint(0, 2, (args.batch, img, img, 1)) * 255).astype(np.uint8)).cuda()
+            (masks if n_classes > 1 else masks * 255).astype(np.uint8)).cuda()
 
         def run():
             step(images_d, masks_d)

@@ -1,8 +1,16 @@
-"""Training of the port: losses, metrics and the training step."""
+"""Training of the port: losses, metrics, the training and eval steps, the
+plateau schedule and the epoch loop ``fit``."""
 
-from .engine import make_optimizer, make_train_step
-from .losses import bce_with_logits, segmentation_loss
-from .metrics import dice_coefficient, iou_score, threshold_predictions
+from .engine import (FitConfig, empty_history, evaluate, fit, get_learning_rate,
+                     make_eval_step, make_optimizer, make_train_step, set_learning_rate)
+from .losses import bce_with_logits, segmentation_loss, soft_dice_loss, softmax_cross_entropy
+from .metrics import (dice_coefficient, iou_score, multiclass_dice, multiclass_metrics,
+                      threshold_predictions)
+from .reporting import EpochProgress
+from .schedule import make_plateau_scheduler
 
-__all__ = ["bce_with_logits", "dice_coefficient", "iou_score", "make_optimizer",
-           "make_train_step", "segmentation_loss", "threshold_predictions"]
+__all__ = ["EpochProgress", "FitConfig", "bce_with_logits", "dice_coefficient", "empty_history",
+           "evaluate", "fit", "get_learning_rate", "iou_score", "make_eval_step",
+           "make_optimizer", "make_plateau_scheduler", "make_train_step", "multiclass_dice",
+           "multiclass_metrics", "segmentation_loss", "set_learning_rate", "soft_dice_loss",
+           "softmax_cross_entropy", "threshold_predictions"]

@@ -55,10 +55,14 @@ tiled bodies above): the flagship's windows, cswinunet's padded ones, 512
 and 2048 tokens, a single attended key, G 1, 3 and 5, every output also at
 its own scale and the body each launch took; the wrapper's choice of body
 against the C entry's; two runs bitwise equal; and a key whose logit is 30
-above the rest.
+above the rest.  Training beyond the binary step: the 4-class step (the
+head's F = 4 kernels, image-layout logits) with kernels on against off,
+``grad_accum=2`` (equal and ragged micro-batches) against the full batch,
+and a tiny ``fit`` whose eval forwards launch no backward kernel.
 """
 
 import ctypes
+import math
 import subprocess
 
 import pytest
@@ -272,7 +276,8 @@ def test_carafe_kernel_is_head_fwd_without_bias(dev, dtype, B, H, W, C, S):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gate", [True, False])
-@pytest.mark.parametrize("H,W,C,S,F", [(8, 8, 16, 4, 1), (4, 6, 8, 2, 3), (4, 4, 6, 2, 8)])
+@pytest.mark.parametrize("H,W,C,S,F", [(8, 8, 16, 4, 1), (4, 6, 8, 2, 3), (4, 4, 6, 2, 8),
+                                       (8, 8, 16, 4, 4)])
 def test_carafe_simam_head_kernels(dev, dtype, gate, H, W, C, S, F):
     x = _randn(dev, 2, H, W, C).to(dtype)
     enc = _randn(dev, 2, H, W, 9 * S * S, seed=1).to(dtype)
@@ -309,9 +314,10 @@ def test_carafe_head_moments(dev):
 # (batch 1), chunks that do not divide the image (45 x 77 = 3465 pixels),
 # odd channel counts (C 24 in bf16: three channel vectors, the strided K-H2
 # path; C 6: scalar slots; C 512: more channel vectors than a warp's lanes,
-# and in bf16 a K-H1 pass of four pixels), S 2 and 4, 1, 3 and 8 classes
+# and in bf16 a K-H1 pass of four pixels), S 2 and 4, 1, 3, 4 and 8 classes
+# (4: cswin_simam_512_dp's head)
 HEAD_FWD_GEOMS = [(128, 128, 64, 4, 1), (112, 112, 64, 4, 3), (45, 77, 64, 4, 8),
-                  (9, 13, 24, 2, 3), (5, 7, 6, 2, 1), (3, 5, 512, 2, 8)]
+                  (9, 13, 24, 2, 3), (5, 7, 6, 2, 1), (3, 5, 512, 2, 8), (16, 16, 64, 4, 4)]
 
 
 def _head_fwd_inputs(dev, dtype, H, W, C, S, F, B=1):
@@ -519,10 +525,11 @@ def test_carafe_bwd_kernel_rejects(dev):
 # (H, W, C, S, F) of the head's backward kernels: odd channel counts (C 6:
 # scalar slots; C 24 in bf16: three channel vectors a sub-pixel; C 512: more
 # channel vectors than a warp's lanes, and in float32 more vector slots
-# than a K4 block's threads), a single row, W below a strip, 1, 3 and 8
-# classes, S 2 and 4
+# than a K4 block's threads), a single row, W below a strip, 1, 3, 4
+# (cswin_simam_512_dp's head) and 8 classes, S 2 and 4
 HEAD_BWD_GEOMS = [(8, 8, 16, 4, 1), (4, 6, 8, 2, 3), (4, 4, 6, 2, 8), (6, 20, 64, 4, 1),
-                  (9, 13, 24, 2, 3), (1, 11, 16, 4, 8), (5, 6, 64, 4, 3), (3, 5, 512, 2, 1)]
+                  (9, 13, 24, 2, 3), (1, 11, 16, 4, 8), (5, 6, 64, 4, 3), (3, 5, 512, 2, 1),
+                  (5, 6, 64, 4, 4)]
 
 
 def _k4_tiles(H, W, C, S, F, dtype):
@@ -872,6 +879,95 @@ def test_train_step_at_drops_kernels_match_plain(dev, use_simam):
     x = images.to(dev).float() / 255
     with torch.inference_mode():
         torch.testing.assert_close(model.predict(x), torch.sigmoid(model(x)), rtol=0, atol=0)
+
+
+# ---- the multi-class step, gradient accumulation and fit ----
+
+CLASSES = 4
+# one tiny forward's launches (14 attention branches, 3 decoder CARAFEs, the
+# head) and the backward's on top of them in a training step
+TINY_FORWARD = {stripe_attention.KERNEL: 14, carafe_kernels.KERNEL: 3,
+                carafe_head.MOMENTS_KERNEL: 1, carafe_head.HEAD_KERNEL: 1}
+TINY_STEP = {**TINY_FORWARD, stripe_attention.BWD_KERNEL: 14, carafe_kernels.BWD_KERNEL: 3,
+             carafe_head.BWD1_KERNEL: 1, carafe_head.FUSED_BWD_KERNEL: 1}
+
+
+def _uint8_batch(B, seed, n_classes):
+    """Random uint8 images and masks: class ids, or 0/255 for one class."""
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randint(0, 256, (B, 64, 64, 3), generator=gen, dtype=torch.uint8)
+    masks = torch.randint(0, max(n_classes, 2), (B, 64, 64, 1), generator=gen)
+    return images, (masks if n_classes > 1 else masks * 255).to(torch.uint8)
+
+
+def _launched():
+    return {k: n for k, n in _build.LAUNCHES.items() if n}
+
+
+def test_multiclass_step_kernels_match_plain(dev):
+    """The 4-class step at drops 0.3, one seed: image-layout logits through
+    the head's F = 4 kernels, float32 gradients with kernels on against off."""
+    model = CSWinUNet(**TINY, num_classes=CLASSES, use_simam=True, drop_rate=0.3,
+                      attn_drop_rate=0.3, drop_path_rate=0.3, device=dev, seed=8)
+    images, masks = _uint8_batch(2, 2, CLASSES)
+    runs = []
+    for use_kernels in (True, False):
+        model.zero_grad(set_to_none=True)
+        _build.reset_launches()
+        loss, logits, targets = engine.compute_gradients(model, images, masks, CLASSES,
+                                                         use_kernels, rng=19)
+        runs.append((float(loss), {n: p.grad.clone() for n, p in model.named_parameters()},
+                     _launched()))
+    assert tuple(logits.shape) == (2, 64, 64, CLASSES) and targets.dtype == torch.int64
+    assert runs[0][2] == TINY_STEP and runs[1][2] == {}
+    assert abs(runs[0][0] - runs[1][0]) <= 1e-4
+    for name, g in runs[1][1].items():
+        err = float((runs[0][1][name] - g).abs().max())
+        assert err <= 1e-3 * max(float(g.abs().max()), 1e-12), (name, err)
+
+
+@pytest.mark.parametrize("n_classes", [1, CLASSES])
+@pytest.mark.parametrize("batch", [4, 3], ids=["equal", "ragged"])
+def test_grad_accum_matches_full_batch_on_card(dev, n_classes, batch):
+    """grad_accum=2 against the full-batch step from the same weights (AdamW
+    at lr 0 keeps them): gradients within 1e-3 x max|g|, loss, Dice and IoU
+    within 1e-5 relative, twice a step's launches."""
+    model = CSWinUNet(**TINY, num_classes=n_classes, use_simam=True, device=dev, seed=9)
+    opt = engine.make_optimizer("adamw", 0.0, 0.0, model.parameters())
+    images, masks = _uint8_batch(batch, 3, n_classes)
+    runs = []
+    for accum in (1, 2):
+        _build.reset_launches()
+        m = engine.make_train_step(model, opt, n_classes, grad_accum=accum)(images, masks)
+        runs.append(({k: float(v) for k, v in m.items()},
+                     {n: p.grad.clone() for n, p in model.named_parameters()}, _launched()))
+    (full, g_full, c_full), (acc, g_acc, c_acc) = runs
+    assert c_full == TINY_STEP and c_acc == {k: 2 * n for k, n in TINY_STEP.items()}
+    for k in engine.METRICS:
+        assert abs(acc[k] - full[k]) <= 1e-5 * max(abs(full[k]), 1e-30), (k, acc[k], full[k])
+    for name, g in g_full.items():
+        err = float((g_acc[name] - g).abs().max())
+        assert err <= 1e-3 * max(float(g.abs().max()), 1e-12), (name, err)
+
+
+def test_fit_on_card(dev):
+    """A tiny 4-class ``fit`` from host uint8 batches: an eval forward
+    launches the forward kernels only (no backward kernel), a training step
+    a step's; over 2 epochs of 2 steps and 1 eval forward the counts add up
+    to exactly that, and the history is 7 finite series."""
+    model = CSWinUNet(**TINY, num_classes=CLASSES, use_simam=True, device=dev, seed=10)
+    opt = engine.make_optimizer("adamw", 1e-3, 1e-4, model.parameters())
+    train = [tuple(t.numpy() for t in _uint8_batch(2, s, CLASSES)) for s in (4, 5)]
+    test = [tuple(t.numpy() for t in _uint8_batch(2, 6, CLASSES))]
+    _build.reset_launches()
+    engine.evaluate(engine.make_eval_step(model, CLASSES), test, dev)
+    assert _launched() == TINY_FORWARD
+    _build.reset_launches()
+    history, step = engine.fit(model, opt, train, test, engine.FitConfig(
+        num_epochs=2, n_classes=CLASSES, plateau_patience=0, verbose=False))
+    assert step == 4
+    assert _launched() == {k: 4 * TINY_STEP[k] + 2 * TINY_FORWARD.get(k, 0) for k in TINY_STEP}
+    assert all(len(v) == 2 and all(map(math.isfinite, v)) for v in history.values())
 
 
 # ---- long windows: the flash kernels and the tiled K-A / K-A' ----
