@@ -93,7 +93,29 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    float32 at drops 0: ``grad_accum=2`` at batch 4 (equal micro-batches)
    and 3 (ragged) against the full-batch step from the same weights, every
    parameter's gradient within 1e-3 x max|g|, loss, Dice and IoU within
-   1e-5 relative, twice a step's launches, and the ms of each step.
+   1e-5 relative, twice a step's launches, and the ms of each step;
+7. data, checkpoints and the CLI: which JPEG decoders the machine has (the
+   native library, committed or built, each tried in a child process; cv2;
+   PIL); augmentation on the card at 512^2 batch 8 and 2048^2 batch 1 with
+   TF32 switched on around it (which it must not use): within 1e-5 of
+   float64 on the CPU from the same draws, nearest class-id masks exact,
+   against the gather oracle, each k and flip forced, the draws'
+   frequencies over 65,536 samples within 5 sigma, ms and device ms against
+   the flop bound of its two products; the ``cswin_simam_512`` step (batch
+   8, bf16, drops 0.3) without and with augmentation, 3 + 10 steps each, the
+   same launches; ``DataLoader`` -> ``device_prefetch`` -> ``fit`` for 2
+   epochs from the 24 JPEG pairs under ``tests/data/discs`` (an in-memory
+   source where no decoder is found), augmented, with a ``CheckpointStore``:
+   every step's launches a step's, the loader's images/s, ms per epoch
+   checkpointed, then from files and from the same batches in memory
+   without checkpoints, the checkpoint's save ms and size; a fresh model and optimizer restore epoch
+   1 and train epoch 2 (cuDNN deterministic in this part), every parameter
+   within 1e-6 of the unbroken run (far below one AdamW step), the history
+   within 1e-5, the schedule's state and learning rate the same; then the CLI as child processes at
+   ``cswin_simam_512``: ``train --epochs 2``, ``train --resume --epochs 3``
+   ("Resumed from epoch 2"), ``evaluate`` of the best weights on the test
+   split within 1e-4 of the history's best epoch, ``predict`` of 24 masks
+   where cv2 or PIL can write them.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -106,12 +128,15 @@ names its line instead of running into an outside time limit.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import faulthandler
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 T_START = time.perf_counter()
@@ -395,12 +420,14 @@ def disc_batch(torch, img: int, batch: int, dev, n_classes: int = 1):
 
 
 def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev,
-                want_bodies) -> dict:
+                want_bodies, augment=None) -> dict:
     """Train a copy of ``model`` with ``make_train_step`` on one fixed batch:
     the launch counts of one step (reset before, read after) must be
     ``want_step``, and the attention kernels' body launches ``want_bodies``;
     then 3 warm-up and 10 timed steps.  Returns the step's ms, images/s,
-    peak memory, launches and the losses."""
+    peak memory, launches and the losses.  With ``augment`` each step
+    augments the batch on the card (new draws each step), and the loss need
+    not fall."""
     img = model.img_size
     phase(f"training {label}, {img}^2, {model.dtype}, kernels on: {tcfg}")
     images_d, masks_d = disc_batch(torch, img, tcfg.batch_size, dev, model.num_classes)
@@ -408,7 +435,7 @@ def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev,
     opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
                                 trained.parameters())
     step = engine.make_train_step(trained, opt, model.num_classes, grad_accum=tcfg.grad_accum,
-                                  seed=SEED)
+                                  seed=SEED, augment=augment)
     torch.cuda.synchronize()
     _build.reset_launches()
     history = [step(images_d, masks_d)]
@@ -442,7 +469,8 @@ def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev,
         require(0.0 <= h["dice"] <= 1.0 and 0.0 <= h["iou"] <= 1.0,
                 f"{label} step {i}: dice/iou outside [0, 1]")
     tail = sum(h["loss"] for h in hist[-LOSS_TAIL:]) / LOSS_TAIL
-    require(tail < hist[0]["loss"], f"{label}: the loss did not fall on a fixed batch")
+    require(augment is not None or tail < hist[0]["loss"],
+            f"{label}: the loss did not fall on a fixed batch")
     ips = tcfg.batch_size * 1e3 / step_ms
     log(f"training step {label}, batch {tcfg.batch_size}: {step_ms:.2f} ms, {ips:.1f} "
         f"images/s (mean of {TRAIN_STEPS}, host clock after synchronize, {TRAIN_WARMUP} "
@@ -1338,7 +1366,7 @@ def fit_phase(torch, engine, _build, model, tcfg, want_step, want_step_bodies, w
                                 trained.parameters())
     train = [disc_arrays(img, batch, seed=SEED + 10 + i) for i in range(3)]
     test = [disc_arrays(img, batch, seed=SEED + 20 + i) for i in range(2)]
-    cfg = engine.FitConfig(num_epochs=2, plateau_patience=0, seed=SEED)
+    cfg = engine.FitConfig(num_epochs=2, augment=None, plateau_patience=0, seed=SEED)
     sched = make_plateau_scheduler(opt, cfg.plateau_factor, cfg.plateau_patience,
                                    cfg.plateau_min_lr)
     torch.cuda.synchronize()
@@ -1426,6 +1454,370 @@ def grad_accum_phase(torch, engine, _build, build_model, no_drops, want_step, de
         out[f"batch{batch}"] = dict(grad_gap=worst, rel=rel, ms_accum2=ms_acc, ms_full=ms_full)
     del net, opt
     torch.cuda.empty_cache()
+    return out
+
+
+DATA_DIR = os.path.join(HERE, "tests", "data", "discs")  # 24 image/mask JPEG pairs, 512^2
+TOL_AUG = 1e-5                      # absolute, augmentation on [0, 1] data vs float64
+AUG_DRAWS = 65536                   # draws whose frequencies are checked
+AUG_SIGMA = 5                       # frequency bounds, in standard deviations
+TOL_RESUME = 1e-6                   # max |param| gap, resumed vs unbroken fit: far below
+                                    # one AdamW step (lr 1e-4), so a lost moment fails
+TOL_RESUME_HISTORY = 1e-5           # max |metric| gap, resumed vs unbroken history
+TOL_CLI_EVAL = 1e-4                 # evaluate vs the history's best epoch
+CLI_TIMEOUT_S = 300
+
+
+def decoder_probe() -> dict:
+    """Which JPEG decoders this machine has: the native library (committed,
+    or built from native/dataio.cpp; each tried in a child process), cv2,
+    PIL."""
+    from cswin_simam_unet_tpu_torch.data.dataset import decoders
+    found = decoders()
+    log(f"JPEG decoders: native {found['native']} ({found['native_status']}), "
+        f"cv2 {found['cv2']}, PIL {found['pil']}")
+    return found
+
+
+def augment_phase(torch, dev) -> dict:
+    """Augmentation on the card (the matrix form, TF32 switched on around
+    it, which it must not use) at 512^2 batch 8 and 2048^2 batch 1:
+    against float64 on the CPU from the same draws within TOL_AUG, nearest
+    class-id masks exact, against the gather oracle on the card; the first
+    samples with each k and flip forced; the draws' frequencies; device ms
+    against the flop bound of its two products."""
+    from cswin_simam_unet_tpu_torch.data import augment
+    phase("augmentation on the card: 512^2 batch 8, 2048^2 batch 1")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    out = {}
+    for N, B in ((IMG, TIME_BATCH), (IMG2048, 1)):
+        images = torch.rand(B, N, N, 3, generator=gen, device=dev)
+        ids = torch.randint(0, 4, (B, N, N, 1), generator=gen, device=dev).float()
+        row = {}
+        for nearest in (False, True):
+            cfg = augment.AugmentConfig(mask_nearest=nearest)
+            masks = ids if nearest else (ids > 1).float()
+            draws = list(augment.draw_params(gen, B, cfg))
+            # forced: k = 0..3 on samples 0-3, hflip on 1, 4 and 6, vflip on
+            # 2, 5 and 6; at batch 1 an odd k (the transposed path) and a flip
+            for i in range(B):
+                if i < 4:
+                    draws[2][i] = i
+                draws[0][i], draws[1][i] = i in (1, 4, 6), i in (2, 5, 6)
+            if B == 1:
+                draws[2][0], draws[0][0], draws[1][0] = (3, False, True) if nearest \
+                    else (1, True, False)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                got = augment.augment_from_params(images, masks, *draws, cfg=cfg)
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            ref = augment.augment_from_params(images.cpu().double(), masks.cpu().double(),
+                                              *[d.cpu() for d in draws], cfg=cfg)
+            oracle = augment.augment_gather(images, masks, *draws, cfg=cfg)
+            err = max_err(got[0].cpu().double(), ref[0])
+            err_mask = max_err(got[1].cpu().double(), ref[1])
+            err_oracle = max(max_err(got[0], oracle[0]), max_err(got[1], oracle[1]))
+            kind = "nearest" if nearest else "bilinear"
+            log(f"  {N}^2 batch {B}, {kind} masks: |image - float64| {err:.3e}, |mask - "
+                f"float64| {err_mask:.3e}, |matrix - gather| {err_oracle:.3e} (tol {TOL_AUG:g}"
+                f"{', nearest masks exact' if nearest else ''}); k {draws[2].tolist()}, "
+                f"hflip {draws[0].int().tolist()}, vflip {draws[1].int().tolist()}")
+            require(err <= TOL_AUG and err_oracle <= TOL_AUG, f"augmentation {N}^2 {kind}")
+            require(err_mask == 0.0 if nearest else err_mask <= TOL_AUG,
+                    f"augmentation {N}^2 {kind}: masks {err_mask}")
+            row[f"max_abs_err_{kind}"] = max(err, err_mask)
+            row[f"max_abs_err_gather_{kind}"] = err_oracle
+        cfg = augment.AugmentConfig()
+        masks = (ids > 1).float()
+        draws = augment.draw_params(gen, B, cfg)
+        ms = time_ms(torch, lambda: augment.augment_from_params(images, masks, *draws, cfg=cfg))
+        dev_ms = device_ms(torch, lambda: augment.augment_from_params(images, masks, *draws,
+                                                                      cfg=cfg))
+        draw_ms = time_ms(torch, lambda: augment.augment_batch(gen, images, masks, cfg))
+        gather_ms = time_ms(torch, lambda: augment.augment_gather(images, masks, *draws,
+                                                                   cfg=cfg), iters=3)
+        flops = 2 * 2 * B * N * N * N * 4  # two products over the 4 channels of the pair
+        nbytes = 4 * 2 * B * N * N * 4  # the image/mask pair read once and written once
+        bound, by = bound_ms(nbytes, flops, "float32")
+        log(f"  {N}^2 batch {B}: augment_from_params {ms:.3f} ms, device {dev_ms:.3f} ms; with "
+            f"the draws (augment_batch) {draw_ms:.3f} ms, the gather form {gather_ms:.3f} ms "
+            f"(CUDA events, mean of 10 / 3; device: behind a spin kernel); bound {bound:.3f} ms "
+            f"by {by} ({flops / 1e9:.1f} GFLOP float32 at {PEAK_FLOPS['float32'] / 1e12:.0f} "
+            f"TFLOP/s)")
+        row.update(ms=ms, device_ms=dev_ms, ms_with_draws=draw_ms, gather_ms=gather_ms,
+                   bound_ms=bound, bound_by=by, gflop=flops / 1e9)
+        out[f"{N}x{B}"] = row
+        del images, ids, masks
+    # the draws' frequencies
+    hflip, vflip, k, scale, top_u, left_u = augment.draw_params(gen, AUG_DRAWS)
+    n = AUG_DRAWS
+    freq = {"hflip": float(hflip.float().mean()), "vflip": float(vflip.float().mean())}
+    want = {"hflip": 0.5, "vflip": 0.5}
+    for j in range(4):
+        freq[f"k{j}"] = float((k == j).float().mean())
+        want[f"k{j}"] = 1 - 0.25 * 0.75 if j == 0 else 0.25 * 0.25
+    for name, p in want.items():
+        bound = AUG_SIGMA * math.sqrt(p * (1 - p) / n)
+        require(abs(freq[name] - p) <= bound, f"draw frequency {name} {freq[name]} vs {p}")
+    s_min, s_max, s_mean = float(scale.min()), float(scale.max()), float(scale.mean())
+    u_bound = AUG_SIGMA / math.sqrt(12 * n)
+    require(0.75 <= s_min and s_max < 1.0 and abs(s_mean - 0.875) <= 0.25 * u_bound,
+            f"scale draws {s_min} {s_max} {s_mean}")
+    for u in (top_u, left_u):
+        require(abs(float(u.mean()) - 0.5) <= u_bound, "crop position draws")
+    log(f"  draw frequencies over {n}: " + ", ".join(f"{k_} {v:.4f} (p {want[k_]:.4f})"
+                                                     for k_, v in freq.items())
+        + f"; scale in [{s_min:.4f}, {s_max:.4f}], mean {s_mean:.4f}; bounds {AUG_SIGMA} sigma")
+    out["draw_frequencies"] = freq
+    torch.cuda.empty_cache()
+    return out
+
+
+class MemorySource:
+    """The loader's source interface over in-memory disc images: where the
+    machine has no JPEG decoder."""
+
+    def __init__(self, n: int, img: int):
+        self.images, self.masks = disc_arrays(img, n, seed=SEED + 40)
+
+    def __len__(self):
+        return len(self.images)
+
+    def load(self, i):
+        return self.images[i], self.masks[i]
+
+    def load_batch(self, idx):
+        return self.images[list(idx)], self.masks[list(idx)]
+
+
+def files_phase(torch, engine, _build, build_model, model, tcfg, want_step, want_eval,
+                decoders) -> dict:
+    """``DataLoader`` -> ``device_prefetch`` -> ``fit`` of ``cswin_simam_512``
+    (bf16, drops 0.3, batch 8) for 2 epochs with augmentation and a
+    ``CheckpointStore``, from the 24 JPEG pairs (or an in-memory source where
+    no decoder was found); every step's launches a training step's; then a
+    fresh model and optimizer restore epoch 1 and train epoch 2, against the
+    unbroken run; the loader's images/s, ms per epoch checkpointed and, without
+    checkpoints, from files against the same batches in memory, checkpoint
+    save ms and size."""
+    import numpy as np
+    from cswin_simam_unet_tpu_torch.data import (AugmentConfig, DataLoader,
+                                                 SegmentationDataSource, train_test_indices)
+    from cswin_simam_unet_tpu_torch.data import dataset
+    from cswin_simam_unet_tpu_torch.train.checkpoint import CheckpointStore
+    from cswin_simam_unet_tpu_torch.train.schedule import make_plateau_scheduler
+    files = decoders["native"] or decoders["cv2"] or decoders["pil"]
+    phase(f"data from {'files' if files else 'memory (no JPEG decoder)'}: DataLoader -> fit, "
+          f"{IMG}^2, batch {tcfg.batch_size}, augmented, checkpointed, resumed")
+    if files:
+        source = SegmentationDataSource(os.path.join(DATA_DIR, "images"),
+                                        os.path.join(DATA_DIR, "masks"), (IMG, IMG))
+    else:
+        source = MemorySource(24, IMG)
+    train_idx, test_idx = train_test_indices(len(source), tcfg.test_split, tcfg.seed)
+    batch = tcfg.batch_size
+
+    def loaders():
+        return (DataLoader(source, train_idx, batch, shuffle=True, seed=tcfg.seed),
+                DataLoader(source, test_idx, batch, shuffle=False))
+
+    # the loader alone: 2 passes over the 24 images (no cache)
+    dataset.DECODES.clear()
+    everything = DataLoader(source, None, batch, shuffle=False)
+    t0 = time.perf_counter()
+    n_img = sum(b[0].shape[0] for _ in range(2) for b in everything)
+    load_s = time.perf_counter() - t0
+    loader_ips = n_img / load_s
+    decoded = dict(dataset.DECODES)
+    log(f"loader: {n_img} images in {load_s * 1e3:.1f} ms, {loader_ips:.1f} images/s at batch "
+        f"{batch} ({IMG}^2; decoders used {decoded or 'none: in memory'}; 4 decode threads, "
+        f"host clock)")
+    cfg = engine.FitConfig(num_epochs=2, augment=AugmentConfig(), seed=SEED, verbose=False)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    # cuDNN's convolution backward may add in any order unless told not to;
+    # the resumed run must equal the unbroken one to far below one step
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        # the checkpointed run first (its first steps at the ragged batch
+        # shapes warm them up), then files and memory without checkpoints
+        for label in ("unbroken", "files", "memory"):
+            net = copy.deepcopy(model)
+            opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
+                                        net.parameters())
+            sched = make_plateau_scheduler(opt, cfg.plateau_factor, cfg.plateau_patience,
+                                           cfg.plateau_min_lr)
+            train, test = loaders()
+            store = None
+            if label == "memory":  # the same batches, decoded once before
+                train.set_epoch(0)
+                train = [b for b in train]
+                test = [b for b in test]
+            elif label == "unbroken":
+                store = CheckpointStore(os.path.join(workdir, "ck"))
+            run_cfg = dataclasses.replace(cfg, checkpoint_manager=store)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with StepCounts(engine, _build) as counts:
+                history, step = engine.fit(net, opt, train, test, run_cfg, scheduler=sched)
+            torch.cuda.synchronize()
+            epoch_ms = (time.perf_counter() - t0) / 2 * 1e3
+            n_train = len(counts.calls["train"])
+            require(n_train == 2 * math.ceil(len(train_idx) / batch), f"{label}: {n_train} steps")
+            for i, (launched, _) in enumerate(counts.calls["train"]):
+                require(launched == want_step, f"{label} fit step {i}: launches {launched}")
+            for i, (launched, _) in enumerate(counts.calls["eval"]):
+                require(launched == want_eval, f"{label} fit eval {i}: launches {launched}")
+            for key, series in history.items():
+                require(len(series) == 2 and all(math.isfinite(v) for v in series),
+                        f"{label} history {key}: {series}")
+                if key.endswith(("dice", "iou")):
+                    require(all(0.0 <= v <= 1.0 for v in series), f"{label} {key}: {series}")
+            runs[label] = dict(net=net, opt=opt, sched=sched, history=history, step=step,
+                               epoch_ms=epoch_ms, store=store)
+            what = {"unbroken": "from the loader, checkpointed every epoch",
+                    "files": "from the loader", "memory": "from the same batches in memory"}
+            log(f"fit {what[label]}: {epoch_ms:.1f} ms per epoch ({n_train // 2} training "
+                f"batches of up to {batch} and {len(test)} test batch, host clock, 2 epochs); "
+                f"each step launched {counts.calls['train'][0][0]}; history "
+                + json.dumps(history))
+        store = runs["unbroken"]["store"]
+        require(store.all_epochs() == [1, 2], f"checkpoints {store.all_epochs()}")
+        # checkpoint save, timed alone, and its size
+        ref = runs["unbroken"]
+        probe = CheckpointStore(os.path.join(workdir, "probe"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe.save_epoch(2, ref["net"], ref["opt"], ref["sched"], ref["history"], 0.0,
+                         ref["step"])
+        save_ms = (time.perf_counter() - t0) * 1e3
+        ck_bytes = os.path.getsize(os.path.join(probe.directory, "epoch_2.pt"))
+        best_bytes = os.path.getsize(probe.best_weights_path())
+        log(f"checkpoint save: {save_ms:.1f} ms for {ck_bytes / 2 ** 20:.1f} MiB (model, AdamW "
+            f"moments, schedule, history) and the best weights ({best_bytes / 2 ** 20:.1f} MiB), "
+            f"host clock, page cache warm")
+        # a fresh model and optimizer restore epoch 1 and train epoch 2
+        fresh = build_model("cswin_simam_512", device=model.device, seed=SEED + 7)
+        opt2 = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
+                                     fresh.parameters())
+        sched2 = make_plateau_scheduler(opt2, cfg.plateau_factor, cfg.plateau_patience,
+                                        cfg.plateau_min_lr)
+        t0 = time.perf_counter()
+        sched_state, hist2, epoch, step2 = store.restore(fresh, opt2, epoch=1)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        sched2.load_state_dict(sched_state)
+        train, test = loaders()
+        hist2, step2 = engine.fit(fresh, opt2, train, test, cfg, history=hist2,
+                                  scheduler=sched2, start_epoch=epoch, global_step=step2)
+        torch.cuda.synchronize()
+        gaps = torch.stack([(a.detach().float() - b.detach().float()).abs().max() for a, b in
+                            zip(ref["net"].parameters(), fresh.parameters())]).cpu()
+        gap = float(gaps.max())
+        bit_equal = gap == 0.0
+        hist_gap = max(abs(a - b) for k in hist2 for a, b in zip(hist2[k], ref["history"][k]))
+        want_sched, got_sched = ref["sched"].state_dict(), sched2.state_dict()
+        sched_diff = sorted(k for k in want_sched if k != "best"
+                            and want_sched[k] != got_sched.get(k))
+        best_gap = abs(want_sched["best"] - got_sched["best"])
+        log(f"resumed from epoch 1 (restore {restore_ms:.1f} ms): global step {step2} vs "
+            f"{ref['step']}; largest parameter gap to the unbroken run {gap:.3e} (tol "
+            f"{TOL_RESUME:g}; bit-equal: {bit_equal}); largest history gap {hist_gap:.3e} "
+            f"(tol {TOL_RESUME_HISTORY:g}); schedule fields that differ: {sched_diff or 'none'}, "
+            f"best-loss gap {best_gap:.3e}; learning rate {engine.get_learning_rate(opt2):g} "
+            f"vs {engine.get_learning_rate(ref['opt']):g}")
+        require(step2 == ref["step"] and len(hist2["train_loss"]) == 2, "resumed fit: steps")
+        require(gap <= TOL_RESUME, f"resumed fit: parameter gap {gap:.3e}")
+        require(hist_gap <= TOL_RESUME_HISTORY, f"resumed fit: history gap {hist_gap:.3e}")
+        require(not sched_diff and best_gap <= TOL_RESUME_HISTORY,
+                f"resumed fit: schedule {sched_diff}, best-loss gap {best_gap:.3e}")
+        require(engine.get_learning_rate(opt2) == engine.get_learning_rate(ref["opt"]),
+                "resumed fit: learning rate")
+        out = dict(decoders={k: v for k, v in decoders.items()}, from_files=bool(files),
+                   loader_images_per_s=loader_ips, decoded=decoded,
+                   epoch_ms_checkpointed=runs["unbroken"]["epoch_ms"],
+                   epoch_ms_files=runs["files"]["epoch_ms"],
+                   epoch_ms_memory=runs["memory"]["epoch_ms"], checkpoint_save_ms=save_ms,
+                   checkpoint_mib=ck_bytes / 2 ** 20, best_weights_mib=best_bytes / 2 ** 20,
+                   restore_ms=restore_ms, resume_max_param_gap=gap, resume_bit_equal=bit_equal,
+                   resume_history_gap=hist_gap)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(workdir, ignore_errors=True)
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli(args: list, label: str) -> str:
+    """Run the port's CLI in a child process; its output, or fail."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "cswin_simam_unet_tpu_torch.cli", *args],
+                         cwd=HERE, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    tail = "\n".join((res.stdout + res.stderr).strip().splitlines()[-12:])
+    epochs = [line.strip() for line in res.stdout.splitlines() if line.startswith("Epoch [")]
+    log(f"  cli {label}: exit {res.returncode} in {secs:.1f} s" + (
+        f" ({'; '.join(epochs)})" if epochs else ""))
+    require(res.returncode == 0, f"cli {label} failed:\n{tail}")
+    return res.stdout
+
+
+def cli_phase(decoders) -> dict:
+    """The CLI as child processes at ``cswin_simam_512`` on the card:
+    ``train --epochs 2``; ``train --resume --epochs 3`` ("Resumed from epoch
+    2"); ``evaluate`` of the best weights on the test split, against the
+    history's numbers for the best epoch; ``predict`` of the 24 images where
+    cv2 or PIL can write PNGs."""
+    import re
+    phase("the CLI: train, train --resume, evaluate, predict (cswin_simam_512 on the card)")
+    if not (decoders["native"] or decoders["cv2"] or decoders["pil"]):
+        log("no JPEG decoder on this machine: the CLI reads JPEG files only; not run")
+        return dict(ran=False)
+    import torch
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        dirs = ["--image-dir", os.path.join(DATA_DIR, "images"),
+                "--mask-dir", os.path.join(DATA_DIR, "masks")]
+        common = ["--config", "cswin_simam_512", "--no-progress", *dirs, "--output-dir",
+                  workdir]
+        out = {}
+        log_train = cli(["train", *common, "--epochs", "2"], "train --epochs 2")
+        require("Epoch [2/2]" in log_train, "cli train: no second epoch")
+        log_resume = cli(["train", *common, "--epochs", "3", "--resume"], "train --resume")
+        require("Resumed from epoch 2" in log_resume and "Epoch [3/3]" in log_resume,
+                "cli train --resume: did not resume from epoch 2")
+        ckpt = os.path.join(workdir, "cswin_simam_512_checkpoints")
+        with open(os.path.join(ckpt, "meta.json")) as f:
+            best = json.load(f)["best_epoch"]
+        history = torch.load(os.path.join(ckpt, "epoch_3.pt"), map_location="cpu",
+                             weights_only=True)["history"]
+        log_eval = cli(["evaluate", "--config", "cswin_simam_512", *dirs, "--weights",
+                        os.path.join(ckpt, "best_weights.pth"), "--split", "test"], "evaluate")
+        m = re.search(r"Loss: (\S+), Dice: (\S+), IoU: (\S+)", log_eval)
+        require(m is not None, f"cli evaluate printed {log_eval!r}")
+        got = dict(zip(("loss", "dice", "iou"), map(float, m.groups())))
+        gaps = {k: abs(v - history[f"test_{k}"][best - 1]) for k, v in got.items()}
+        log(f"  evaluate of the best epoch ({best}): {got}; gaps to the history "
+            + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + f" (tol {TOL_CLI_EVAL:g})")
+        require(all(g <= TOL_CLI_EVAL for g in gaps.values()), "cli evaluate vs history")
+        out.update(ran=True, best_epoch=best, evaluate=got, evaluate_gaps=gaps)
+        if decoders["cv2"] or decoders["pil"]:
+            pred = os.path.join(workdir, "pred")
+            log_pred = cli(["predict", "--config", "cswin_simam_512", "--image-dir", dirs[1],
+                            "--weights", ckpt, "--output-dir", pred], "predict")
+            n = len([p for p in os.listdir(pred) if p.endswith("_mask.png")])
+            require(n == 24 and "Wrote 24 masks" in log_pred, f"cli predict wrote {n} masks")
+            out["predicted_masks"] = n
+        else:
+            log("  predict not run: neither cv2 nor PIL can write the PNG masks here")
+        png = "matplotlib is not installed" not in log_train
+        log(f"  training plot written: {png}")
+        out["plot_written"] = png
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     return out
 
 
@@ -2415,7 +2807,22 @@ def main() -> int:
                         {ka_mma: per_forward[stripe_attention.KERNEL]})
     accum_run = grad_accum_phase(torch, engine, _build, build_model, NO_DROPS, per_step, dev)
 
-    # ---- 7. results ----
+    # ---- 7. data, checkpoints and the CLI ----
+    phase("data, checkpoints and the CLI: JPEG decoders")
+    decoders = decoder_probe()
+    data_run = {"decoders": decoders, "augment": augment_phase(torch, dev)}
+    from cswin_simam_unet_tpu_torch.data import AugmentConfig
+    for label, aug in (("cswin_simam_512 drops 0.3, not augmented", None),
+                       ("cswin_simam_512 drops 0.3, augmented", AugmentConfig())):
+        data_run[label] = train_phase(torch, engine, _build, label, model,
+                                      TRAIN_CONFIGS["cswin_simam_512"], per_step, dev,
+                                      bodies512, augment=aug)
+    data_run["files"] = files_phase(torch, engine, _build, build_model, model,
+                                    TRAIN_CONFIGS["cswin_simam_512"], per_step, per_forward,
+                                    decoders)
+    data_run["cli"] = cli_phase(decoders)
+
+    # ---- 8. results ----
     sources = {
         "K-A": ("csu_stripe_attention_fwd", "cswin_simam_unet_tpu_torch/csrc/stripe_attention.cu",
                 "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:180"),
@@ -2586,6 +2993,9 @@ def main() -> int:
     log("serving 2048^2: " + json.dumps(serve2048))
     log("fit: " + json.dumps(fit_run))
     log("gradient accumulation: " + json.dumps(accum_run))
+    log("data: " + json.dumps({k: ({m: v for m, v in r.items() if m not in ("launches", "bodies")}
+                                   if isinstance(r, dict) else r)
+                               for k, r in data_run.items()}))
     log(f"f32 gradient gaps, kernels on vs off at drops 0.3: cswin_simam_512 {grad_gap:.3e}, "
         f"cswinunet {grad_gap448:.3e}; cswin_simam_2048 at depth (1,1,1,1), attention drop "
         f"0: {grad_gap2048:.3e}; cswin_simam_512_dp {grad_gap_dp:.3e}; K-A keep rate "

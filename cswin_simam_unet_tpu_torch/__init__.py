@@ -3,8 +3,10 @@
 CSWin-SimAM-UNet serves (``serving.py``: uint8 images in, probabilities
 out) and trains (``train/engine.py``: the binary and the multi-class step,
 gradient accumulation, AdamW or L2-coupled Adam, dropout and drop-path at
-the configs' rates, the eval step and ``fit`` with its plateau schedule) at
-448^2 to 2048^2 (``configs.py``)
+the configs' rates, augmentation on the device, the eval step and ``fit``
+with its plateau schedule and checkpoints) at 224^2 to 2048^2
+(``configs.py``), from JPEG files (``data/``) or the command line
+(``cli.py``),
 through hand-written CUDA kernels, each an autograd Function whose CPU path
 is its plain PyTorch version: stripe attention K-A / K-A'
 (``ops/stripe_attention.py``, windows that one block holds whole), the

@@ -29,16 +29,31 @@ drops 0.3, AdamW lr 1e-4, weight decay 1e-4, batch 16, in bf16 as the
 port's flagship computes (the JAX entry keeps its float32 default).  JAX
 splits its global batch of 16 over a data-parallel mesh; the port runs it
 on one card, since data parallelism is ROADMAP queue A item 9.
+
+``cswin_tiny_224`` and ``cswin_simam_224`` are the JAX package's configs 3
+and 4 (``configs.py:128-138``): a narrow shallow CSWin-UNet without SimAM
+(embed 32, depths (1,2,2,1), stripes [1,2,2,7], heads (2,2,4,8), batch 2)
+and the full CSWin-SimAM-UNet at 224^2 (stripes [1,2,7,7], batch 8), both
+float32, AdamW lr 1e-4, drops 0.3.
+
+``TrainConfig`` carries the run fields of JAX's ``TrainRunConfig``
+(``configs.py:53-85``): epochs, the plateau schedule, the split, the seed,
+the augmentation, the loader's workers, the checkpoint directory and the
+prefix of the output files.  :func:`get_config` gives a config by name with
+fields overridden as JAX's does: ``model_<field>`` for the model's fields,
+``image_size`` for its resolution, any other name for a run field.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from . import resolve_device
+from .data.augment import AugmentConfig
 from .models import CSWinUNet
 
 
@@ -67,6 +82,28 @@ class TrainConfig:
     weight_decay: float = 1e-4
     batch_size: int = 8
     grad_accum: int = 1  # micro-batches per optimizer step
+    num_epochs: int = 100
+    plateau_factor: float = 0.5
+    plateau_patience: int = 5
+    plateau_min_lr: float = 1e-7
+    test_split: float = 0.2
+    seed: int = 42
+    augment: Optional[AugmentConfig] = AugmentConfig()
+    num_workers: int = 4
+    checkpoint_dir: Optional[str] = None
+    output_prefix: str = "cswin_simam_512"
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """A named configuration: the model's fields and the run's."""
+    name: str
+    model: ModelConfig
+    train: TrainConfig
+
+    @property
+    def image_size(self) -> int:
+        return self.model.img_size
 
 
 # every CSWin config of the JAX package trains with these (_cswin_model)
@@ -80,26 +117,52 @@ CONFIGS = {
     "cswin_simam_512_dp": ModelConfig(num_classes=4, **DROPS),
     "cswin_simam_1024": ModelConfig(img_size=1024, **DROPS),
     "cswin_simam_2048": ModelConfig(img_size=2048, **DROPS),
+    "cswin_tiny_224": ModelConfig(img_size=224, embed_dim=32, depth=(1, 2, 2, 1),
+                                  split_size=(1, 2, 2, 7), num_heads=(2, 2, 4, 8),
+                                  use_simam=False, dtype="float32", **DROPS),
+    "cswin_simam_224": ModelConfig(img_size=224, split_size=(1, 2, 7, 7), dtype="float32",
+                                   **DROPS),
 }
-TRAIN_CONFIGS = {
-    "cswin_simam_512": TrainConfig(),
-    "cswinunet": TrainConfig(batch_size=2),
-    "cswin_simam_512_dp": TrainConfig(batch_size=16),
-    "cswin_simam_1024": TrainConfig(batch_size=2, grad_accum=2),
-    "cswin_simam_2048": TrainConfig(batch_size=1),
-}
+TRAIN_CONFIGS = {name: TrainConfig(output_prefix=name, **kw) for name, kw in (
+    ("cswin_simam_512", {}),
+    ("cswinunet", dict(batch_size=2)),
+    ("cswin_simam_512_dp", dict(batch_size=16)),
+    ("cswin_simam_1024", dict(batch_size=2, grad_accum=2)),
+    ("cswin_simam_2048", dict(batch_size=1)),
+    ("cswin_tiny_224", dict(batch_size=2)),
+    ("cswin_simam_224", dict(batch_size=8)),
+)}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_model(name: str = "cswin_simam_512", *, device=None, seed: int = 0,
-                **overrides) -> CSWinUNet:
-    """The named configuration (fields overridable) with random weights from
-    ``seed``, on ``device`` (None means CUDA)."""
+def get_config(name: str, **overrides) -> RunConfig:
+    """The named configuration with fields overridden: ``model_<field>``
+    (``model_dtype``, ``model_num_classes``, ...) for the model,
+    ``image_size`` for its resolution, any other name for the run."""
     if name not in CONFIGS:
         raise KeyError(f"unknown config '{name}'; available: {sorted(CONFIGS)}")
+    model_kw = {k[len("model_"):]: v for k, v in overrides.items() if k.startswith("model_")}
+    if "image_size" in overrides:
+        model_kw["img_size"] = overrides["image_size"]
+    run_kw = {k: v for k, v in overrides.items()
+              if not k.startswith("model_") and k != "image_size"}
+    return RunConfig(name, dataclasses.replace(CONFIGS[name], **model_kw),
+                     dataclasses.replace(TRAIN_CONFIGS[name], **run_kw))
+
+
+def build_model(name="cswin_simam_512", *, device=None, seed: int = 0,
+                **overrides) -> CSWinUNet:
+    """The named configuration, or a ``ModelConfig`` (fields overridable),
+    with random weights from ``seed``, on ``device`` (None means CUDA)."""
+    if isinstance(name, ModelConfig):
+        cfg = name
+    elif name in CONFIGS:
+        cfg = CONFIGS[name]
+    else:
+        raise KeyError(f"unknown config '{name}'; available: {sorted(CONFIGS)}")
     device = resolve_device(device)
-    cfg = dataclasses.replace(CONFIGS[name], **overrides)
+    cfg = dataclasses.replace(cfg, **overrides)
     kw = dataclasses.asdict(cfg)
     kw["dtype"] = _DTYPES[cfg.dtype]
     return CSWinUNet(**kw, device=device, seed=seed)

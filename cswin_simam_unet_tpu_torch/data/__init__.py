@@ -1,6 +1,9 @@
-"""Data: the host-to-device prefetch of ``fit``; the datasets, the loader
-and augmentation are not ported yet (ROADMAP queue A item 5)."""
+"""Data: image/mask files and the split, the threaded loader, the
+host-to-device prefetch and on-device augmentation."""
 
-from .pipeline import device_prefetch
+from .augment import AugmentConfig, augment_batch, augment_from_params, draw_params
+from .dataset import SegmentationDataSource, train_test_indices
+from .pipeline import DataLoader, device_prefetch
 
-__all__ = ["device_prefetch"]
+__all__ = ["AugmentConfig", "DataLoader", "SegmentationDataSource", "augment_batch",
+           "augment_from_params", "device_prefetch", "draw_params", "train_test_indices"]

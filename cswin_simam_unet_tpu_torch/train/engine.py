@@ -2,23 +2,28 @@
 
 Counterpart of ``cswin_simam_unet_tpu/train/engine.py``: the optimizers
 (AdamW, and Adam with L2-coupled weight decay), the training step for the
-binary and the multi-class head with gradient accumulation, the eval step,
-``evaluate`` and ``fit`` with its plateau schedule and 7-series history.
+binary and the multi-class head with gradient accumulation and on-device
+augmentation, the eval step, ``evaluate`` and ``fit`` with its plateau
+schedule, 7-series history, checkpoints and TensorBoard logging.
 
 The step takes uint8 images and masks.  The binary head trains on flat
-logits: its masks are unshuffled to the flat layout while still uint8, and
-BCE, Dice and IoU (thresholded at 0 on the logits: ``sigmoid(x) > 0.5``
-exactly when ``x > 0``) are means over pixels, which do not care about
-their order.  Several classes need the class axis whole, so the
-multi-class step takes image-layout logits (the kernels' flat logits
-pixel-shuffled), softmax cross-entropy and the argmax's mean per-class Dice
-and IoU.  The training forward is ``train=True``: dropout, attention
-dropout and drop-path act at the model's rates, with randomness from a host
-seed that the step hands down; the module's ``training`` flag is never set
-or read.  Metrics stay on the device: ``evaluate`` and ``fit`` fetch them
-once at the end of a pass.  Augmentation (ROADMAP queue A item 5),
-checkpoints and TensorBoard (item 6), data parallelism (item 9) and the
-segmented step (item 10) are not ported yet.
+logits: without augmentation its masks are unshuffled to the flat layout
+while still uint8; with it, the order is JAX's: the batch is scaled to
+[0, 1], augmented at image resolution (``data/augment.py``), its targets
+finalised and only then unshuffled.  BCE, Dice and IoU (thresholded at 0 on
+the logits: ``sigmoid(x) > 0.5`` exactly when ``x > 0``) are means over
+pixels, which do not care about their order.  Several classes need the
+class axis whole, so the multi-class step takes image-layout logits (the
+kernels' flat logits pixel-shuffled), softmax cross-entropy and the
+argmax's mean per-class Dice and IoU.  The training forward is
+``train=True``: dropout, attention dropout and drop-path act at the model's
+rates, with randomness from a host seed that the step hands down; the
+augmentation's draws come from a stream of the same seed of their own
+(:func:`augment_seed`), so dropout draws what it draws without them.  The
+module's ``training`` flag is never set or read.  Metrics stay on the
+device: ``evaluate`` and ``fit`` fetch them once at the end of a pass.
+Data parallelism (ROADMAP queue A item 9) and the segmented step (item 10)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,15 +35,19 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..data.augment import AugmentConfig, augment_batch
 from ..data.pipeline import device_prefetch
 from ..models.cswin import FLAT_HEAD_FACTOR
 from ..ops.dropout import mix_seed
 from ..ops.windows import pixel_unshuffle
 from .losses import segmentation_loss
-from .reporting import EpochProgress
+from .reporting import EpochProgress, TensorBoardLogger
 from .schedule import make_plateau_scheduler
 
 METRICS = ("loss", "dice", "iou")
+# the counter of the augmentation's stream of a step seed: the attention
+# calls of a forward take the counters 1, 2, ... of the same seed
+AUGMENT_STREAM = 0x41554721
 
 
 def make_optimizer(kind: str, learning_rate: float, weight_decay: float,
@@ -124,26 +133,42 @@ def _batch_metrics(logits: torch.Tensor, targets: torch.Tensor, n_classes: int):
     return _metrics_from_sums(_metric_sums(logits, targets, n_classes))
 
 
-def _inputs(model: torch.nn.Module, images_u8, masks_u8, n_classes: int):
-    """uint8 batch -> (images, targets) on the model's device, the binary
-    head's masks unshuffled while uint8 (the same values, a quarter of the
-    bytes)."""
+def augment_seed(rng: int) -> int:
+    """The seed of the augmentation's draws of one (micro-)batch, from the
+    seed ``rng`` that its dropout uses."""
+    return mix_seed(int(rng), AUGMENT_STREAM)
+
+
+def _inputs(model: torch.nn.Module, images_u8, masks_u8, n_classes: int,
+            augment: Optional[AugmentConfig] = None, rng: Optional[int] = None):
+    """uint8 batch -> (images, targets) on the model's device: scale,
+    augment from :func:`augment_seed` (``rng``) where ``augment`` is given,
+    finalise the targets, then unshuffle the binary head's (JAX's order:
+    the paired transform needs the masks at image resolution)."""
     device = model.device
-    images_u8, masks_u8 = _to_device(images_u8, device), _to_device(masks_u8, device)
-    if _flat_head(n_classes):
-        masks_u8 = pixel_unshuffle(masks_u8, FLAT_HEAD_FACTOR)
-    images, masks = _prepare_batch(images_u8, masks_u8, n_classes)
-    return images, _finalize_targets(masks, n_classes)
+    images, masks = _prepare_batch(_to_device(images_u8, device),
+                                   _to_device(masks_u8, device), n_classes)
+    if augment is not None:
+        if rng is None:
+            raise ValueError("an augmented batch needs rng (an integer seed)")
+        generator = torch.Generator(device=device)
+        generator.manual_seed(augment_seed(rng))
+        images, masks = augment_batch(generator, images, masks, augment)
+    targets = _finalize_targets(masks, n_classes)
+    return images, pixel_unshuffle(targets, FLAT_HEAD_FACTOR) if _flat_head(n_classes) else targets
 
 
 def compute_gradients(model: torch.nn.Module, images_u8, masks_u8, n_classes: int = 1,
-                      use_kernels: bool = True, rng=None, weight: float = 1.0):
+                      use_kernels: bool = True, rng=None, weight: float = 1.0,
+                      augment: Optional[AugmentConfig] = None):
     """Training forward (``train=True``, dropout randomness from the host
     seed ``rng``), loss and backward of ``weight`` x the loss on one uint8
-    batch; the gradients are added to the parameters' ``.grad``.  Returns
-    the loss, the logits (flat for the binary head, image layout for
-    several classes) and the targets, detached."""
-    images, targets = _inputs(model, images_u8, masks_u8, n_classes)
+    batch, augmented first where ``augment`` is given (draws from
+    :func:`augment_seed` of ``rng``); the gradients are added to the
+    parameters' ``.grad``.  Returns the loss, the logits (flat for the
+    binary head, image layout for several classes) and the targets,
+    detached."""
+    images, targets = _inputs(model, images_u8, masks_u8, n_classes, augment, rng)
     logits = model(images, use_kernels=use_kernels, flat_logits=_flat_head(n_classes),
                    train=True, rng=rng)
     loss = segmentation_loss(logits, targets, n_classes)
@@ -165,7 +190,8 @@ def micro_batches(batch: int, grad_accum: int) -> list:
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     n_classes: int = 1, use_kernels: bool = True,
-                    augment=None, grad_accum: int = 1, seed: int = 0) -> Callable:
+                    augment: Optional[AugmentConfig] = None, grad_accum: int = 1,
+                    seed: int = 0) -> Callable:
     """The step ``(images_u8 (B, H, W, C), masks_u8 (B, H, W, 1), rng=None)
     -> {'loss', 'dice', 'iou'}`` (0-d float32 tensors on the model's device;
     reading them synchronises).  One optimizer step per call.
@@ -176,13 +202,17 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     the seed ``mix_seed(rng, i)``, and each one's loss is weighted by its
     share before its backward, so ``.grad`` holds the full batch's mean
     gradient; the loss is summed with the same weights and Dice and IoU come
-    from the micro-batches' summed counts, equal to the full batch's."""
-    if augment is not None:
-        raise NotImplementedError("on-device augmentation is not ported yet "
-                                  "(ROADMAP queue A item 5)")
+    from the micro-batches' summed counts, equal to the full batch's.  With
+    ``augment`` each micro-batch is augmented on the device from its own
+    seed's augmentation stream (JAX folds the micro-batch index into its
+    augmentation key the same way); class-id masks need
+    ``augment.mask_nearest``."""
     accum = int(grad_accum)
     if accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if n_classes > 1 and augment is not None and not augment.mask_nearest:
+        raise ValueError("class-id masks need augment.mask_nearest=True: bilinear "
+                         "resampling blends neighbouring class ids")
     calls = [0]
 
     def step(images_u8, masks_u8, rng: Optional[int] = None) -> dict:
@@ -194,7 +224,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         for i, (lo, hi, w) in enumerate(micro_batches(images_u8.shape[0], accum)):
             mloss, logits, targets = compute_gradients(
                 model, images_u8[lo:hi], masks_u8[lo:hi], n_classes, use_kernels,
-                rng if accum == 1 else mix_seed(rng, i), w)
+                rng if accum == 1 else mix_seed(rng, i), w, augment)
             loss = loss + w * mloss
             sums = sums + _metric_sums(logits, targets, n_classes)
         optimizer.step()
@@ -240,14 +270,12 @@ def evaluate(eval_step: Callable, loader, device) -> Dict[str, float]:
 
 @dataclass
 class FitConfig:
-    """``fit``'s settings, the JAX package's ``FitConfig``.  Fields whose
-    machinery is not ported take only their off value: ``augment`` (None
-    here until ROADMAP queue A item 5 ports it; JAX's default augments),
-    ``segmented`` / ``seg_depth_split`` (item 10), ``checkpoint_manager``
-    and ``tensorboard_dir`` (item 6)."""
+    """``fit``'s settings, the JAX package's ``FitConfig``: it augments by
+    default, as JAX's does.  ``segmented`` / ``seg_depth_split`` (ROADMAP
+    queue A item 10) take only their off value."""
     num_epochs: int = 100
     n_classes: int = 1
-    augment: Any = None
+    augment: Optional[AugmentConfig] = AugmentConfig()
     plateau_factor: float = 0.5
     plateau_patience: int = 5
     plateau_min_lr: float = 1e-7
@@ -257,16 +285,16 @@ class FitConfig:
     seed: int = 42
     log_every: int = 0  # batches; 0 = epoch lines only
     progress: bool = True
-    checkpoint_manager: Any = None
+    checkpoint_manager: Any = None  # train.checkpoint.CheckpointStore
+    # checkpoint period in epochs (0: the last epoch only); the last epoch
+    # is always saved
+    checkpoint_every: int = 1
     tensorboard_dir: Optional[str] = None
     verbose: bool = True
 
 
-_NOT_PORTED = (("augment", "on-device augmentation", 5),
-               ("segmented", "the segmented step", 10),
-               ("seg_depth_split", "the segmented step", 10),
-               ("checkpoint_manager", "checkpoints", 6),
-               ("tensorboard_dir", "TensorBoard logging", 6))
+_NOT_PORTED = (("segmented", "the segmented step", 10),
+               ("seg_depth_split", "the segmented step", 10))
 
 
 def empty_history() -> Dict[str, list]:
@@ -287,10 +315,14 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
     batch's scalars stay on the device and are fetched once an epoch; only
     the progress line (the previous batch, at a bounded rate) and
     ``log_every`` read them sooner.  Step k of epoch e trains with the seed
-    ``mix_seed(cfg.seed, e * 1_000_000 + k)``, k counted over the whole run,
-    so a run resumed with ``start_epoch``, ``global_step``, ``history`` and
-    ``scheduler`` (and the model's and optimizer's states) follows the
-    trajectory of the run that was not stopped."""
+    ``mix_seed(cfg.seed, e * 1_000_000 + k)``, k counted over the whole run
+    (its augmentation draws come from the same seed's own stream), so a run
+    resumed with ``start_epoch``, ``global_step``, ``history`` and
+    ``scheduler`` (and the model's and optimizer's states, as
+    ``CheckpointStore.restore`` gives them back) follows the trajectory of
+    the run that was not stopped.  With ``cfg.checkpoint_manager`` the
+    epochs that ``checkpoint_every`` names, and the last, are saved; with
+    ``cfg.tensorboard_dir`` each epoch's metrics are logged there."""
     for name, what, item in _NOT_PORTED:
         if getattr(cfg, name):
             raise NotImplementedError(f"FitConfig.{name}: {what} is not ported yet "
@@ -299,12 +331,14 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
         raise NotImplementedError("fit(mesh=...): data parallelism is not ported yet "
                                   "(ROADMAP queue A item 9)")
     device = model.device
-    train_step = make_train_step(model, optimizer, cfg.n_classes, grad_accum=cfg.grad_accum)
+    train_step = make_train_step(model, optimizer, cfg.n_classes, augment=cfg.augment,
+                                 grad_accum=cfg.grad_accum)
     eval_step = make_eval_step(model, cfg.n_classes)
     if scheduler is None:
         scheduler = make_plateau_scheduler(optimizer, cfg.plateau_factor,
                                            cfg.plateau_patience, cfg.plateau_min_lr)
     history = history if history is not None else empty_history()
+    tb = TensorBoardLogger(cfg.tensorboard_dir) if cfg.tensorboard_dir else None
 
     for epoch in range(start_epoch, cfg.num_epochs):
         t0 = time.time()
@@ -339,6 +373,8 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
             for k in METRICS:
                 history[f"{split}_{k}"].append(metrics[k])
         history["learning_rates"].append(lr)
+        if tb is not None:
+            tb.log_epoch(epoch + 1, train_metrics, test_metrics, lr)
 
         dt = time.time() - t0
         if cfg.verbose:
@@ -349,4 +385,13 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
             print(f"  Test  - Loss: {test_metrics['loss']:.4f}, "
                   f"Dice: {test_metrics['dice']:.4f}, IoU: {test_metrics['iou']:.4f}")
             print(f"  LR: {lr:.8f}")
+
+        is_last = epoch + 1 == cfg.num_epochs
+        due = cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0
+        if cfg.checkpoint_manager is not None and (due or is_last):
+            cfg.checkpoint_manager.save_epoch(epoch + 1, model, optimizer, scheduler, history,
+                                              test_dice=test_metrics["dice"],
+                                              global_step=global_step)
+    if tb is not None:
+        tb.close()
     return history, global_step

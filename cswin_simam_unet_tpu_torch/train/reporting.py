@@ -1,15 +1,24 @@
-"""The live progress line of ``fit``.
+"""Metric artifacts: the live progress line of ``fit``, the CSV, the plot,
+the TensorBoard logger and the configuration banner.
 
-Counterpart of ``EpochProgress`` in ``cswin_simam_unet_tpu/train/reporting.py``;
-the CSV, the plot, the banner and the TensorBoard logger are not ported yet
-(ROADMAP queue A item 6).
+Counterpart of ``cswin_simam_unet_tpu/train/reporting.py``, in the
+reference's schema:
+
+* CSV: 8 columns ``Epoch, Train_Loss, Train_Dice, Train_IoU, Test_Loss,
+  Test_Dice, Test_IoU, Learning_Rate``, 6 decimals (8 for the rate), utf-8;
+* PNG: a 2x2 grid, Loss / Dice / IoU (train blue, test red) and the rate
+  (log scale, green), dpi 300.  ``matplotlib`` is imported when a plot is
+  made, and only then;
+* TensorBoard: scalars through ``tensorboardX`` where it is installed, else
+  nothing.
 """
 
 from __future__ import annotations
 
+import csv
 import sys
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 
 class EpochProgress:
@@ -55,3 +64,90 @@ class EpochProgress:
         if self.isatty and self._rendered:
             self.stream.write("\r\x1b[K")
             self.stream.flush()
+
+
+def save_metrics_to_csv(history: Dict[str, list], path: str) -> None:
+    epochs = len(history["train_loss"])
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["Epoch", "Train_Loss", "Train_Dice", "Train_IoU",
+                    "Test_Loss", "Test_Dice", "Test_IoU", "Learning_Rate"])
+        for i in range(epochs):
+            w.writerow([
+                i + 1,
+                f"{history['train_loss'][i]:.6f}",
+                f"{history['train_dice'][i]:.6f}",
+                f"{history['train_iou'][i]:.6f}",
+                f"{history['test_loss'][i]:.6f}",
+                f"{history['test_dice'][i]:.6f}",
+                f"{history['test_iou'][i]:.6f}",
+                f"{history['learning_rates'][i]:.8f}",
+            ])
+
+
+def plot_metrics(history: Dict[str, list], path: str, title: str = "") -> None:
+    """The 2x2 PNG; raises ImportError without ``matplotlib``."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    epochs = range(1, len(history["train_loss"]) + 1)
+    fig, axes = plt.subplots(2, 2, figsize=(14, 10))
+    if title:
+        fig.suptitle(title)
+    panels = [("Loss", "train_loss", "test_loss"),
+              ("Dice Coefficient", "train_dice", "test_dice"),
+              ("IoU Score", "train_iou", "test_iou")]
+    for ax, (name, tr, te) in zip(axes.flat, panels):
+        ax.plot(epochs, history[tr], "b-", label=f"Train {name}")
+        ax.plot(epochs, history[te], "r-", label=f"Test {name}")
+        ax.set_xlabel("Epoch")
+        ax.set_ylabel(name)
+        ax.set_title(f"Training and Test {name}")
+        ax.legend()
+        ax.grid(True)
+    ax = axes.flat[3]
+    ax.plot(epochs, history["learning_rates"], "g-", label="Learning Rate")
+    ax.set_xlabel("Epoch")
+    ax.set_ylabel("Learning Rate")
+    ax.set_title("Learning Rate Schedule")
+    ax.set_yscale("log")
+    ax.legend()
+    ax.grid(True)
+    fig.tight_layout()
+    fig.savefig(path, dpi=300)
+    plt.close(fig)
+
+
+class TensorBoardLogger:
+    """TensorBoard scalars of each epoch; does nothing without
+    ``tensorboardX``."""
+
+    def __init__(self, logdir: str):
+        try:
+            from tensorboardX import SummaryWriter
+            self.writer = SummaryWriter(logdir)
+        except ImportError:
+            self.writer = None
+
+    def log_epoch(self, epoch: int, train: Dict[str, float], test: Dict[str, float],
+                  lr: float) -> None:
+        if self.writer is None:
+            return
+        for k, v in train.items():
+            self.writer.add_scalar(f"train/{k}", v, epoch)
+        for k, v in test.items():
+            self.writer.add_scalar(f"test/{k}", v, epoch)
+        self.writer.add_scalar("learning_rate", lr, epoch)
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+
+
+def config_banner(config: Dict) -> str:
+    lines = ["=" * 50, "Training configuration", "=" * 50]
+    for k, v in config.items():
+        lines.append(f"  {k}: {v}")
+    lines.append("=" * 50)
+    return "\n".join(lines)

@@ -58,7 +58,12 @@ against the C entry's; two runs bitwise equal; and a key whose logit is 30
 above the rest.  Training beyond the binary step: the 4-class step (the
 head's F = 4 kernels, image-layout logits) with kernels on against off,
 ``grad_accum=2`` (equal and ragged micro-batches) against the full batch,
-and a tiny ``fit`` whose eval forwards launch no backward kernel.
+and a tiny ``fit`` whose eval forwards launch no backward kernel.  Data:
+augmentation on the card (TF32 switched on around it, which it must not
+use) within 1e-5 of float64 from the same draws and against the gather
+oracle, nearest masks exact; the augmented step's launches, the
+unaugmented step's; ``CheckpointStore.restore`` onto the card, the next step
+bit for bit; ``DataLoader`` through ``device_prefetch``.
 """
 
 import ctypes
@@ -964,10 +969,118 @@ def test_fit_on_card(dev):
     assert _launched() == TINY_FORWARD
     _build.reset_launches()
     history, step = engine.fit(model, opt, train, test, engine.FitConfig(
-        num_epochs=2, n_classes=CLASSES, plateau_patience=0, verbose=False))
+        num_epochs=2, n_classes=CLASSES, augment=None, plateau_patience=0, verbose=False))
     assert step == 4
     assert _launched() == {k: 4 * TINY_STEP[k] + 2 * TINY_FORWARD.get(k, 0) for k in TINY_STEP}
     assert all(len(v) == 2 and all(map(math.isfinite, v)) for v in history.values())
+
+
+# ---- data: augmentation on the card, checkpoints, the loader ----
+
+@pytest.mark.parametrize("nearest", [False, True], ids=["bilinear", "nearest"])
+@pytest.mark.parametrize("N,B", [(64, 4), (512, 2)])
+def test_augmentation_on_card(dev, N, B, nearest):
+    """The matrix form on the card, TF32 allowed globally (it must not be
+    used): within 1e-5 of float64 on the CPU from the same draws, nearest
+    class-id masks exact, and against the gather oracle; every k and flip
+    forced on the first samples."""
+    from cswin_simam_unet_tpu_torch.data import augment
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        cfg = augment.AugmentConfig(mask_nearest=nearest)
+        gen = torch.Generator(device=dev).manual_seed(N + B)
+        images = torch.rand(B, N, N, 3, generator=gen, device=dev)
+        masks = torch.randint(0, CLASSES, (B, N, N, 1), generator=gen, device=dev).float()
+        if not nearest:
+            masks = (masks > 1).float()
+        draws = list(augment.draw_params(gen, B, cfg))
+        draws[0][0], draws[1][0], draws[2][0] = True, False, 1
+        draws[0][1], draws[1][1], draws[2][1] = False, True, 3
+        got = augment.augment_from_params(images, masks, *draws, cfg=cfg)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ref = augment.augment_from_params(images.cpu().double(), masks.cpu().double(),
+                                      *[d.cpu() for d in draws], cfg=cfg)
+    gather = augment.augment_gather(images, masks, *draws, cfg=cfg)
+    assert float((got[0].cpu().double() - ref[0]).abs().max()) <= 1e-5
+    assert float((got[0] - gather[0]).abs().max()) <= 1e-5
+    if nearest:
+        assert torch.equal(got[1].cpu().double(), ref[1]) and torch.equal(got[1], gather[1])
+    else:
+        assert float((got[1].cpu().double() - ref[1]).abs().max()) <= 1e-5
+
+
+def test_augmented_step_launches_the_unaugmented_steps_kernels(dev):
+    from cswin_simam_unet_tpu_torch.data import AugmentConfig
+    for n_classes in (1, CLASSES):
+        model = CSWinUNet(**TINY, num_classes=n_classes, use_simam=True, device=dev, seed=11)
+        opt = engine.make_optimizer("adamw", 1e-3, 1e-4, model.parameters())
+        images, masks = _uint8_batch(2, 7, n_classes)
+        for aug in (None, AugmentConfig(mask_nearest=n_classes > 1)):
+            _build.reset_launches()
+            m = engine.make_train_step(model, opt, n_classes, augment=aug)(images, masks, rng=3)
+            torch.cuda.synchronize()
+            assert _launched() == TINY_STEP, (n_classes, aug)
+            assert math.isfinite(float(m["loss"])) and 0.0 <= float(m["dice"]) <= 1.0
+
+
+def test_checkpoint_restore_onto_the_card(dev, tmp_path, monkeypatch):
+    """Save a trained model's and AdamW's state on the card; restore into a
+    fresh model and optimizer on the card: equal, the moments on the card,
+    the step count on the host; the next step equal bit for bit with cuDNN's
+    deterministic algorithms (its default float32 convolution backward
+    differs by about 1e-9 between two calls on the same inputs)."""
+    from cswin_simam_unet_tpu_torch.train.checkpoint import CheckpointStore
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    models, opts = [], []
+    for seed in (12, 13):
+        models.append(CSWinUNet(**TINY, use_simam=True, device=dev, seed=seed))
+        opts.append(engine.make_optimizer("adamw", 1e-3, 1e-4, models[-1].parameters()))
+    images, masks = _uint8_batch(2, 8, 1)
+    engine.make_train_step(models[0], opts[0])(images, masks, rng=1)
+    store = CheckpointStore(str(tmp_path))
+    store.save_epoch(1, models[0], opts[0], None, {"x": [1.0]}, 0.5, global_step=1)
+    _, history, epoch, step = store.restore(models[1], opts[1])
+    assert (history, epoch, step) == ({"x": [1.0]}, 1, 1)
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        assert b.device.type == "cuda" and torch.equal(a, b)
+    for was, state in zip(opts[0].state.values(), opts[1].state.values()):
+        assert state["exp_avg"].device.type == "cuda" and state["step"].device.type == "cpu"
+        assert all(torch.equal(was[k], state[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
+    for model, opt in zip(models, opts):
+        engine.make_train_step(model, opt)(images, masks, rng=2)
+    assert all(torch.equal(a, b) for a, b in zip(models[0].parameters(), models[1].parameters()))
+
+
+def test_loader_to_card(dev):
+    """DataLoader batches through device_prefetch: on the card, in order,
+    equal to the host batches."""
+    from cswin_simam_unet_tpu_torch.data import DataLoader, device_prefetch
+
+    class Memory:
+        def __init__(self):
+            gen = torch.Generator().manual_seed(14)
+            self.x = torch.randint(0, 256, (7, 16, 16, 3), generator=gen,
+                                   dtype=torch.uint8).numpy()
+
+        def __len__(self):
+            return 7
+
+        def load(self, i):
+            return self.x[i], self.x[i, ..., :1]
+
+        def load_batch(self, idx):
+            return None
+
+    loader = DataLoader(Memory(), batch_size=3, shuffle=True, seed=1, num_workers=2)
+    host = list(loader)
+    loader.set_epoch(0)
+    on_card = list(device_prefetch(loader, dev))
+    assert len(on_card) == len(host) == 3
+    for (a, b), (x, y) in zip(on_card, host):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), torch.from_numpy(x))
+        assert torch.equal(b.cpu(), torch.from_numpy(y))
 
 
 # ---- long windows: the flash kernels and the tiled K-A / K-A' ----

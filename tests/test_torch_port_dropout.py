@@ -37,6 +37,17 @@ TINY = dict(img_size=64, embed_dim=16, depth=(1, 1, 1, 1), split_size=(1, 2, 2, 
 DROPS = dict(drop_rate=RATE, attn_drop_rate=RATE, drop_path_rate=RATE)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file's small CPU ops: the test workers
+    share the machine's cores, and torch's default of a thread a core in
+    each worker makes those ops wait on one another."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rand(shape, seed, scale=1.0):
     return (np.random.RandomState(seed).randn(*shape) * scale).astype(np.float32)
 

@@ -255,7 +255,8 @@ def test_fit_matches_jax(jax_fit):
     assert want["learning_rates"][-1] < want["learning_rates"][0]
     port = _port(variables)
     opt = engine.make_optimizer("adamw", LR, WD, port.parameters())
-    cfg = engine.FitConfig(num_epochs=2, n_classes=CLASSES, plateau_patience=0, verbose=False)
+    cfg = engine.FitConfig(num_epochs=2, n_classes=CLASSES, augment=None, plateau_patience=0,
+                           verbose=False)
     got, global_step = engine.fit(port, opt, train, test, cfg)
     assert global_step == 4 and set(got) == set(want)
     for key, series in want.items():
@@ -371,7 +372,8 @@ def test_fit_resumes_exactly(capsys):
     which changes nothing it computes."""
     rs = np.random.RandomState(7)
     train, test = _loaders(rs)
-    cfg = engine.FitConfig(num_epochs=2, n_classes=CLASSES, plateau_patience=0, verbose=False)
+    cfg = engine.FitConfig(num_epochs=2, n_classes=CLASSES, augment=None, plateau_patience=0,
+                           verbose=False)
     runs = []
     for split in (False, True):
         model = CSWinUNet(**TINY, num_classes=CLASSES, use_simam=True, device="cpu", seed=7,
@@ -418,8 +420,7 @@ def test_device_prefetch_keeps_order():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("augment", object(), 5), ("segmented", True, 10), ("seg_depth_split", 2, 10),
-    ("checkpoint_manager", object(), 6), ("tensorboard_dir", "tb", 6), ("mesh", object(), 9)])
+    ("segmented", True, 10), ("seg_depth_split", 2, 10), ("mesh", object(), 9)])
 def test_fit_rejects_what_is_not_ported(field, value, item):
     model = CSWinUNet(**TINY, use_simam=True, device="cpu")
     opt = engine.make_optimizer("adamw", LR, WD, model.parameters())

@@ -22,6 +22,23 @@ from cswin_simam_unet_tpu_torch.ops import carafe_head
 from cswin_simam_unet_tpu_torch.ops.simam import pooled_stats
 
 MIN_BLOCKS = 4 * 132
+
+
+# Heads with fewer 16-pixel chunks than MIN_BLOCKS, so that no launch can
+# give every SM 4 blocks: cswin_tiny_224's head at batch 2 has 392.  These
+# must still give every chunk a block of its own.
+UNDERFILLED = {"cswin_tiny_224"}
+
+
+def min_blocks(name, B, H, W):
+    """The blocks that the head of config ``name`` must launch at least."""
+    chunks = B * -(-H * W // 16)
+    if name in UNDERFILLED:
+        assert chunks < MIN_BLOCKS, (name, chunks)  # else drop it from UNDERFILLED
+        return chunks
+    return MIN_BLOCKS
+
+
 DTYPES = {"float32": (4, 4), "bfloat16": (8, 2)}  # (vec, element bytes)
 
 
@@ -88,7 +105,7 @@ def _chunk_coverage(g, B, HW, step=None):
 def test_k3_geometry_at_every_head(name):
     B, H, _ = _head(name)
     g = carafe_head.k3_geometry(B, H, H)
-    assert g["blocks"] >= MIN_BLOCKS, g
+    assert g["blocks"] >= min_blocks(name, B, H, H), g
     assert (_chunk_coverage(g, B, H * H) == 1).all()
 
 
@@ -101,7 +118,7 @@ def test_h2_geometry_at_every_head(name, dtype):
     vec, _ = DTYPES[dtype]
     for S in (2, 4):
         g = carafe_head.h2_geometry(B, H, H, C, S * S, vec)
-        assert g["blocks"] >= MIN_BLOCKS, g
+        assert g["blocks"] >= min_blocks(name, B, H, H), g
         assert g["one"] and g["lanes"] == C // vec and 32 % g["lanes"] == 0
         assert g["threads"] == S * S * g["lanes"] <= carafe_head.H2_THREADS
         assert (_chunk_coverage(g, B, H * H) == 1).all()
@@ -138,7 +155,7 @@ def test_h1_geometry_at_every_head(name, S, dtype):
     B, H, C = _head(name)
     vec, _ = DTYPES[dtype]
     g = carafe_head.h1_geometry(B, H, H, C, S, vec)
-    assert g["blocks"] >= MIN_BLOCKS, g
+    assert g["blocks"] >= min_blocks(name, B, H, H), g
     assert g["threads"] == g["pass_pixels"] * (C // vec) <= carafe_head.H1_THREADS
     assert g["smem"] == carafe_head.h1_smem_bytes(C, S, g["pass_pixels"]) \
         <= carafe_head.H1_SMEM

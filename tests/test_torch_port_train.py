@@ -446,10 +446,12 @@ def test_merge3_gap_is_float32_rounding(monkeypatch):
 def test_train_step_rejects_what_is_not_ported():
     port = CSWinUNet(**TINY, use_simam=True, device="cpu")
     opt = engine.make_optimizer("adamw", LR, WD, port.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.make_train_step(port, opt, augment=object())
     with pytest.raises(ValueError, match="grad_accum"):
         engine.make_train_step(port, opt, grad_accum=0)
     step = engine.make_train_step(port, opt)
     with pytest.raises(TypeError, match="uint8"):
         step(np.zeros((1, 64, 64, 3), np.float32), np.zeros((1, 64, 64, 1), np.uint8))
+    with pytest.raises(ValueError, match="rng"):  # augmentation draws from the step seed
+        engine.compute_gradients(port, np.zeros((1, 64, 64, 3), np.uint8),
+                                 np.zeros((1, 64, 64, 1), np.uint8),
+                                 augment=engine.AugmentConfig())
