@@ -115,7 +115,24 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    ``cswin_simam_512``: ``train --epochs 2``, ``train --resume --epochs 3``
    ("Resumed from epoch 2"), ``evaluate`` of the best weights on the test
    split within 1e-4 of the history's best epoch, ``predict`` of 24 masks
-   where cv2 or PIL can write them.
+   where cv2 or PIL can write them;
+8. the UNet family, which launches no kernel of the port: ``unet`` (448^2)
+   and ``unet_simam_256`` (256^2) at batch 1 on the card against the CPU
+   from the same weights (from SEED) and batch with TF32 off: the eval
+   logits, one Adam step's loss, Dice and IoU, and the running statistics
+   after it, each within 1e-4 x max(1, max|CPU|), and the float32
+   gradients' largest gap as a record; in float64 on both sides, every
+   gradient of that step within 1e-9 x its own max|g|; the
+   full-width steps of ``unet`` (batch 4) with cuDNN's TF32 off and on (and
+   the largest logit gap between the two) and of ``unet_simam_256`` (batch
+   4), 3 + 10 steps each: ms, device ms, peak memory, no launch; ``Server``
+   over ``unet`` at the buckets 1/2/4/8 with TF32 off and on, ms each;
+   ``fit`` of ``unet`` from the JPEG pairs, augmented and checkpointed,
+   resumed from epoch 1 into a fresh model and optimizer (cuDNN
+   deterministic), the parameters and the BatchNorm buffers within 1e-6 of
+   the unbroken run; the CLI as child processes at ``unet``: ``train
+   --epochs 2``, ``evaluate`` (against the history), ``predict`` and
+   ``export-torch``, whose ``.pth`` loads strictly into a fresh UNet.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -420,16 +437,17 @@ def disc_batch(torch, img: int, batch: int, dev, n_classes: int = 1):
 
 
 def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev,
-                want_bodies, augment=None) -> dict:
-    """Train a copy of ``model`` with ``make_train_step`` on one fixed batch:
-    the launch counts of one step (reset before, read after) must be
-    ``want_step``, and the attention kernels' body launches ``want_bodies``;
-    then 3 warm-up and 10 timed steps.  Returns the step's ms, images/s,
-    peak memory, launches and the losses.  With ``augment`` each step
-    augments the batch on the card (new draws each step), and the loss need
-    not fall."""
-    img = model.img_size
-    phase(f"training {label}, {img}^2, {model.dtype}, kernels on: {tcfg}")
+                want_bodies, augment=None, img=None, device_time=False) -> dict:
+    """Train a copy of ``model`` with ``make_train_step`` on one fixed batch
+    of ``img``^2 (the model's own size by default): the launch counts of one
+    step (reset before, read after) must be ``want_step``, and the attention
+    kernels' body launches ``want_bodies``; then 3 warm-up and 10 timed
+    steps.  Returns the step's ms, images/s, peak memory, launches and the
+    losses, and with ``device_time`` the step's device ms (``device_ms``).
+    With ``augment`` each step augments the batch on the card (new draws
+    each step), and the loss need not fall."""
+    img = img or model.img_size
+    phase(f"training {label}, {img}^2, {model.dtype}: {tcfg}")
     images_d, masks_d = disc_batch(torch, img, tcfg.batch_size, dev, model.num_classes)
     trained = copy.deepcopy(model)
     opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
@@ -472,15 +490,20 @@ def train_phase(torch, engine, _build, label, model, tcfg, want_step, dev,
     require(augment is not None or tail < hist[0]["loss"],
             f"{label}: the loss did not fall on a fixed batch")
     ips = tcfg.batch_size * 1e3 / step_ms
+    extra = {}
+    if device_time:
+        extra["device_step_ms"] = device_ms(torch, lambda: step(images_d, masks_d))
     log(f"training step {label}, batch {tcfg.batch_size}: {step_ms:.2f} ms, {ips:.1f} "
         f"images/s (mean of {TRAIN_STEPS}, host clock after synchronize, {TRAIN_WARMUP} "
         f"warm-up steps); peak device memory {peak_gib:.2f} GiB; loss {hist[0]['loss']:.4f} "
-        f"-> mean of last {LOSS_TAIL} {tail:.4f}")
+        f"-> mean of last {LOSS_TAIL} {tail:.4f}"
+        + (f"; device {extra['device_step_ms']:.3f} ms a step (behind a spin kernel)"
+           if device_time else ""))
     del trained, opt, step
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, images_per_s=ips, peak_gib=peak_gib, launches=one_step,
                 bodies=bodies, first_loss=hist[0]["loss"], last3_mean_loss=tail,
-                batch=tcfg.batch_size, img=img)
+                batch=tcfg.batch_size, img=img, **extra)
 
 
 def check_outputs_by_kernel(name, torch, kernel_fn, plain_fn, make, groups, scaled32,
@@ -1821,6 +1844,349 @@ def cli_phase(decoders) -> dict:
     return out
 
 
+# ---- 8. the UNet family ----
+
+TOL_UNET = 1e-4                     # x max(1, max|CPU|), float32 (TF32 off): the card
+                                    # against the CPU, logits, metrics, statistics
+TOL_UNET_GRAD = 1e-9                # float64 on both sides: each gradient x its own max|g|
+SERVE_REPEATS = 5                   # timed requests per bucket, after one warm-up
+UNET_IMG = 448                      # unet's resolution (unet_256 and unet_simam_256: 256)
+# conv biases before a BatchNorm: the batch mean takes them out, so their
+# gradient is rounding noise, held against their weight's max|g|
+UNET_NOISE_BIASES = ("double_conv.0.bias", "double_conv.3.bias")
+
+
+def unet_step_pair(torch, engine, _build, models, images, masks) -> list:
+    """One Adam step of each model on the same uint8 batch: its metrics,
+    gradients and buffers on the host, the port's launches and seconds."""
+    runs = []
+    for model in models:
+        opt = engine.make_optimizer("adam", 1e-3, 1e-4, model.parameters())
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        m = engine.make_train_step(model, opt, 1)(images, masks)
+        m = {k: float(v) for k, v in m.items()}
+        secs = time.perf_counter() - t0
+        launched = {k: n for k, n in _build.LAUNCHES.items() if n}
+        runs.append((m, {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                     {n: b.detach().cpu() for n, b in model.named_buffers()}, launched, secs))
+    return runs
+
+
+def unet_cpu_phase(torch, engine, _build, build_model, dev) -> dict:
+    """``unet`` at 448^2 and ``unet_simam_256`` at 256^2, batch 1, the same
+    weights (from SEED) and disc batch on the card and on the CPU, TF32 off.
+    In float32: the eval logits (running statistics), then one Adam step:
+    its loss, Dice and IoU and the running statistics it leaves, each within
+    TOL_UNET x max(1, max|CPU|); its largest gradient gap is printed, not
+    held (a ReLU input within rounding of 0 that takes the other side on one
+    device moves the gradients upstream of it by a few % of their max).  In
+    float64 on both sides (``Tensor.float`` widened for the step, as the
+    card tests do), where no such flip happens: every gradient within
+    TOL_UNET_GRAD x its own max|g| (the conv biases before a BatchNorm
+    against their weight's).  The card's steps launch no kernel of the
+    port."""
+    phase("the UNet family: the card against the CPU (batch 1, float32 and float64, TF32 off)")
+    out = {}
+    for name, img in (("unet", UNET_IMG), ("unet_simam_256", 256)):
+        cpu = build_model(name, device="cpu", seed=SEED)
+        card = copy.deepcopy(cpu).to(dev)
+        images, masks = disc_arrays(img, 1)
+        x = torch.from_numpy(images).float() / 255.0
+        with torch.no_grad():
+            want = cpu(x)
+            got = card(x.to(dev)).cpu()
+        logit_gap = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        (m_card, g_card, b_card, launched, s_card), (m_cpu, g_cpu, b_cpu, _, s_cpu) = \
+            unet_step_pair(torch, engine, _build, (card, cpu), images, masks)
+        metric_gap = max(abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu)
+        grad_name, grad_gap = max(((n, float((g_card[n] - g).abs().max())
+                                    / max(1.0, float(g.abs().max())))
+                                   for n, g in g_cpu.items()), key=lambda t: t[1])
+        stat_gap = max(float((b_card[n].double() - b.double()).abs().max())
+                       / max(1.0, float(b.double().abs().max())) for n, b in b_cpu.items())
+        log(f"{name}, {img}^2, batch 1, float32: eval logits gap {logit_gap:.3e}; step metrics "
+            f"card {m_card} vs CPU {m_cpu}, largest gap {metric_gap:.3e}; running statistics "
+            f"gap {stat_gap:.3e} (each x max(1, max|CPU|), tol {TOL_UNET:g}); largest gradient "
+            f"gap {grad_gap:.3e} ({grad_name}) over {len(g_cpu)} parameters (x max(1, "
+            f"max|CPU|), a record, not held); launches {launched or 'none'}; a step "
+            f"{s_card:.2f} s on the card (first), {s_cpu:.2f} s on the CPU")
+        require(not launched, f"{name}: the step launched {launched}")
+        for what, gap in (("eval logits", logit_gap), ("step metrics", metric_gap),
+                          ("running statistics", stat_gap)):
+            require(gap <= TOL_UNET, f"{name}: {what}, card vs CPU: {gap:.3e}")
+        del cpu, card
+
+        wide = build_model(name, device="cpu", seed=SEED).double()
+        wide.dtype = torch.float64
+        narrow = torch.Tensor.float
+        torch.Tensor.float = torch.Tensor.double
+        try:
+            (_, w_card, _, w_launched, w_s_card), (_, w_cpu, _, _, w_s_cpu) = unet_step_pair(
+                torch, engine, _build, (copy.deepcopy(wide).to(dev), wide), images, masks)
+        finally:
+            torch.Tensor.float = narrow
+        wide_gaps = {}
+        for n, g in w_cpu.items():
+            scale = w_cpu[n[:-4] + "weight"] if n.endswith(UNET_NOISE_BIASES) else g
+            wide_gaps[n] = float((w_card[n] - g).abs().max()) / max(float(scale.abs().max()),
+                                                                    1e-300)
+        wide_name = max(wide_gaps, key=wide_gaps.get)
+        log(f"{name}, float64: largest gradient gap {wide_gaps[wide_name]:.3e} ({wide_name}) x "
+            f"its own max|g| over {len(w_cpu)} parameters (tol {TOL_UNET_GRAD:g}); launches "
+            f"{w_launched or 'none'}; a step {w_s_card:.2f} s on the card, {w_s_cpu:.2f} s on "
+            f"the CPU")
+        require(not w_launched, f"{name}: the float64 step launched {w_launched}")
+        for n, gap in wide_gaps.items():
+            require(gap <= TOL_UNET_GRAD, f"{name}: float64 gradient of {n}, card vs CPU: "
+                    f"{gap:.3e} x its max|g|")
+        out[name] = dict(img=img, logit_gap=logit_gap, metric_gap=metric_gap,
+                         grad_gap_f32=grad_gap, grad_gap_f64=wide_gaps[wide_name],
+                         stats_gap=stat_gap, card=m_card, cpu=m_cpu)
+        del wide
+    torch.cuda.empty_cache()
+    return out
+
+
+def unet_timing_phase(torch, engine, _build, build_model, train_configs, dev,
+                      default_tf32) -> dict:
+    """The full-width steps: ``unet`` (448^2, batch 4) with cuDNN's TF32 off
+    and on, ``unet_simam_256`` (256^2, batch 4) with it off, 3 warm-up and
+    10 timed steps each (host ms, device ms, peak memory, no launch); the
+    largest logit gap between the two settings; then ``Server`` over
+    ``unet`` at the buckets 1/2/4/8 with TF32 off and on."""
+    from cswin_simam_unet_tpu_torch.serving import Server
+    runs = {}
+    unet = build_model("unet", device=dev, seed=SEED)
+    for label, tf32 in (("unet, TF32 off", False), ("unet, TF32 on", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            runs[label] = train_phase(torch, engine, _build, label, unet, train_configs["unet"],
+                                      {}, dev, {}, img=UNET_IMG, device_time=True)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    images_d, _ = disc_batch(torch, UNET_IMG, train_configs["unet"].batch_size, dev)
+    x = images_d.float() / 255.0
+    with torch.no_grad():
+        off = unet(x)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            on = unet(x)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    tf32_gap = float((on - off).abs().max())
+    log(f"unet logits, cuDNN TF32 on vs off (batch 4, eval): largest gap {tf32_gap:.3e} "
+        f"(max|logit| {float(off.abs().max()):.3f}); torch's defaults in a fresh process, "
+        f"which the CLI keeps: cudnn.allow_tf32={default_tf32['cudnn']}, "
+        f"cuda.matmul.allow_tf32={default_tf32['matmul']}")
+    simam = build_model("unet_simam_256", device=dev, seed=SEED)
+    runs["unet_simam_256, TF32 off"] = train_phase(
+        torch, engine, _build, "unet_simam_256, TF32 off", simam, train_configs["unet_simam_256"],
+        {}, dev, {}, img=256, device_time=True)
+    del simam
+
+    phase(f"serving unet at {UNET_IMG}^2, float32, cuDNN TF32 off and on: requests of 1, 2, "
+          f"4 and 8")
+    server = Server(unet)
+    images, _ = disc_arrays(UNET_IMG, 8)
+    serve = {}
+    _build.reset_launches()
+    for label, tf32 in (("TF32 off", False), ("TF32 on", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            serve[label] = {}
+            for n in (1, 2, 4, 8):
+                server(images[:n])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SERVE_REPEATS):
+                    probs = server(images[:n])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / SERVE_REPEATS * 1e3
+                require(tuple(probs.shape) == (n, UNET_IMG, UNET_IMG, 1)
+                        and bool(torch.isfinite(probs).all())
+                        and 0.0 <= float(probs.min()) <= float(probs.max()) <= 1.0,
+                        f"unet serving: request of {n}")
+                serve[label][n] = ms
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        log(f"unet requests, {label}, ms (host clock, mean of {SERVE_REPEATS} after a warm-up, "
+            "synchronize at both ends): " + ", ".join(
+                f"{n}: {ms:.2f} ({n * 1e3 / ms:.1f} images/s)" for n, ms in serve[label].items()))
+    launched = {k: n for k, n in _build.LAUNCHES.items() if n}
+    log(f"unet serving launches: {launched or 'none'}")
+    require(not launched, f"unet serving launched {launched}")
+    del unet, server
+    torch.cuda.empty_cache()
+    return dict(steps=runs, tf32_logit_gap=tf32_gap, default_tf32=default_tf32,
+                serving_ms=serve)
+
+
+def unet_fit_phase(torch, engine, _build, build_model, train_configs, decoders, dev) -> dict:
+    """``fit`` of ``unet`` (448^2, batch 4, Adam, augmented) for 2 epochs
+    from the 24 JPEG pairs (or in memory where no decoder was found), with a
+    ``CheckpointStore``, no kernel launched; then a fresh model and
+    optimizer restore epoch 1 and train epoch 2 (cuDNN deterministic): the
+    parameters and the BatchNorm buffers within TOL_RESUME of the unbroken
+    run, the history within TOL_RESUME_HISTORY, the schedule the same."""
+    from cswin_simam_unet_tpu_torch.data import (AugmentConfig, DataLoader,
+                                                 SegmentationDataSource, train_test_indices)
+    from cswin_simam_unet_tpu_torch.train.checkpoint import CheckpointStore
+    from cswin_simam_unet_tpu_torch.train.schedule import make_plateau_scheduler
+    tcfg = train_configs["unet"]
+    files = decoders["native"] or decoders["cv2"] or decoders["pil"]
+    phase(f"unet fit from {'files' if files else 'memory (no JPEG decoder)'}: {UNET_IMG}^2, "
+          f"batch {tcfg.batch_size}, augmented, checkpointed, resumed")
+    if files:
+        source = SegmentationDataSource(os.path.join(DATA_DIR, "images"),
+                                        os.path.join(DATA_DIR, "masks"), (UNET_IMG, UNET_IMG))
+    else:
+        source = MemorySource(24, UNET_IMG)
+    train_idx, test_idx = train_test_indices(len(source), tcfg.test_split, tcfg.seed)
+
+    def loaders():
+        return (DataLoader(source, train_idx, tcfg.batch_size, shuffle=True, seed=tcfg.seed),
+                DataLoader(source, test_idx, tcfg.batch_size, shuffle=False))
+
+    def fresh(seed):
+        net = build_model("unet", device=dev, seed=seed)
+        opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
+                                    net.parameters())
+        return net, opt, make_plateau_scheduler(opt, tcfg.plateau_factor, tcfg.plateau_patience,
+                                                tcfg.plateau_min_lr)
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_unet_")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        store = CheckpointStore(os.path.join(workdir, "ck"))
+        cfg = engine.FitConfig(num_epochs=2, augment=AugmentConfig(), seed=SEED, verbose=False,
+                               checkpoint_manager=store)
+        net, opt, sched = fresh(SEED)
+        train, test = loaders()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history, step = engine.fit(net, opt, train, test, cfg, scheduler=sched)
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) / 2 * 1e3
+        launched = {k: n for k, n in _build.LAUNCHES.items() if n}
+        require(not launched, f"unet fit launched {launched}")
+        require(store.all_epochs() == [1, 2], f"unet checkpoints {store.all_epochs()}")
+        for key, series in history.items():
+            require(len(series) == 2 and all(math.isfinite(v) for v in series),
+                    f"unet history {key}: {series}")
+        ck_mib = os.path.getsize(os.path.join(store.directory, "epoch_2.pt")) / 2 ** 20
+        log(f"unet fit: {epoch_ms:.1f} ms per epoch ({math.ceil(len(train_idx) / tcfg.batch_size)}"
+            f" training and {len(test)} test batches, checkpointed every epoch, {ck_mib:.1f} MiB "
+            f"each; host clock); history {json.dumps(history)}")
+
+        net2, opt2, sched2 = fresh(SEED + 7)
+        sched_state, hist2, epoch, step2 = store.restore(net2, opt2, epoch=1)
+        sched2.load_state_dict(sched_state)
+        train, test = loaders()
+        hist2, step2 = engine.fit(net2, opt2, train, test, cfg, history=hist2, scheduler=sched2,
+                                  start_epoch=epoch, global_step=step2)
+        torch.cuda.synchronize()
+        gaps = {n: float((a.double() - b.double()).abs().max()) for (n, a), b in
+                zip(net.state_dict().items(), net2.state_dict().values())}
+        param_names = {n for n, _ in net.named_parameters()}
+        param_gap = max(g for n, g in gaps.items() if n in param_names)
+        buffer_gap = max(g for n, g in gaps.items() if n not in param_names)
+        hist_gap = max(abs(a - b) for k in hist2 for a, b in zip(hist2[k], history[k]))
+        want_sched, got_sched = sched.state_dict(), sched2.state_dict()
+        sched_diff = sorted(k for k in want_sched if k != "best"
+                            and want_sched[k] != got_sched.get(k))
+        best_gap = abs(want_sched["best"] - got_sched["best"])
+        log(f"unet resumed from epoch 1: global step {step2} vs {step}; largest parameter gap "
+            f"{param_gap:.3e}, BatchNorm buffer gap {buffer_gap:.3e} (tol {TOL_RESUME:g}; "
+            f"bit-equal: {param_gap == buffer_gap == 0.0}); history gap {hist_gap:.3e} (tol "
+            f"{TOL_RESUME_HISTORY:g}); schedule fields that differ: {sched_diff or 'none'}")
+        require(step2 == step, "unet resumed fit: steps")
+        require(max(param_gap, buffer_gap) <= TOL_RESUME,
+                f"unet resumed fit: parameter gap {param_gap:.3e}, buffer gap {buffer_gap:.3e}")
+        require(hist_gap <= TOL_RESUME_HISTORY, f"unet resumed fit: history gap {hist_gap:.3e}")
+        require(not sched_diff and best_gap <= TOL_RESUME_HISTORY, "unet resumed fit: schedule")
+        out = dict(from_files=bool(files), epoch_ms_checkpointed=epoch_ms, checkpoint_mib=ck_mib,
+                   resume_param_gap=param_gap, resume_buffer_gap=buffer_gap,
+                   resume_history_gap=hist_gap)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def unet_cli_phase(torch, build_model, decoders, dev) -> dict:
+    """The CLI as child processes at ``unet`` (448^2, its default config),
+    with torch's default numerics: ``train --epochs 2``, ``evaluate`` of the
+    best weights on the test split against the history's best epoch,
+    ``predict`` of the 24 images, ``export-torch`` of the final weights,
+    whose ``.pth`` loads strictly into a fresh UNet and equals them."""
+    import re
+    from cswin_simam_unet_tpu_torch.compat.io import load_state_dict_file, load_state_dict_strict
+    phase("the CLI at unet: train, evaluate, predict, export-torch")
+    if not (decoders["native"] or decoders["cv2"] or decoders["pil"]):
+        log("no JPEG decoder on this machine: the CLI reads JPEG files only; not run")
+        return dict(ran=False)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_unet_cli_")
+    try:
+        dirs = ["--image-dir", os.path.join(DATA_DIR, "images"),
+                "--mask-dir", os.path.join(DATA_DIR, "masks")]
+        out, secs = {}, {}
+        t0 = time.perf_counter()
+        log_train = cli(["train", "--config", "unet", "--no-progress", *dirs, "--output-dir",
+                         workdir, "--epochs", "2"], "train --config unet --epochs 2")
+        secs["train"] = time.perf_counter() - t0
+        require("Epoch [2/2]" in log_train and "params: 31043521" in log_train,
+                "cli train --config unet")
+        ckpt = os.path.join(workdir, "unet_checkpoints")
+        with open(os.path.join(ckpt, "meta.json")) as f:
+            best = json.load(f)["best_epoch"]
+        history = torch.load(os.path.join(ckpt, "epoch_2.pt"), map_location="cpu",
+                             weights_only=True)["history"]
+        t0 = time.perf_counter()
+        log_eval = cli(["evaluate", "--config", "unet", *dirs, "--weights",
+                        os.path.join(ckpt, "best_weights.pth"), "--split", "test"], "evaluate")
+        secs["evaluate"] = time.perf_counter() - t0
+        m = re.search(r"Loss: (\S+), Dice: (\S+), IoU: (\S+)", log_eval)
+        require(m is not None, f"cli evaluate printed {log_eval!r}")
+        got = dict(zip(("loss", "dice", "iou"), map(float, m.groups())))
+        gaps = {k: abs(v - history[f"test_{k}"][best - 1]) for k, v in got.items()}
+        log(f"  evaluate of the best epoch ({best}): {got}; gaps to the history "
+            + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + f" (tol {TOL_CLI_EVAL:g})")
+        require(all(g <= TOL_CLI_EVAL for g in gaps.values()), "cli evaluate vs history")
+        out.update(ran=True, best_epoch=best, evaluate=got, evaluate_gaps=gaps)
+        if decoders["cv2"] or decoders["pil"]:
+            pred = os.path.join(workdir, "pred")
+            t0 = time.perf_counter()
+            log_pred = cli(["predict", "--config", "unet", "--image-dir", dirs[1], "--weights",
+                            ckpt, "--output-dir", pred], "predict")
+            secs["predict"] = time.perf_counter() - t0
+            n = len([p for p in os.listdir(pred) if p.endswith("_mask.png")])
+            require(n == 24 and "Wrote 24 masks" in log_pred, f"cli predict wrote {n} masks")
+            out["predicted_masks"] = n
+        final = os.path.join(workdir, "unet_final_weights.pth")
+        pth = os.path.join(workdir, "unet.pth")
+        t0 = time.perf_counter()
+        log_export = cli(["export-torch", "--config", "unet", "--weights", final, "--output",
+                          pth], "export-torch")
+        secs["export-torch"] = time.perf_counter() - t0
+        require("(136 tensors)" in log_export, f"cli export-torch printed {log_export!r}")
+        fresh = build_model("unet", device=dev, seed=SEED + 9)
+        load_state_dict_strict(fresh, load_state_dict_file(pth), source=pth)
+        saved = load_state_dict_file(final)
+        require(all(torch.equal(v.cpu(), saved[k]) for k, v in fresh.state_dict().items()),
+                "the exported .pth differs from the final weights")
+        log(f"  exported {pth}: 136 tensors, loaded strictly into a fresh UNet on the card, "
+            f"equal to the final weights; seconds: {secs}")
+        out["seconds"] = secs
+        del fresh
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1838,6 +2204,9 @@ def main() -> int:
     from cswin_simam_unet_tpu_torch.serving import Server
     from cswin_simam_unet_tpu_torch.train import engine
 
+    # torch's own defaults, which the CLI's processes keep
+    default_tf32 = {"cudnn": torch.backends.cudnn.allow_tf32,
+                    "matmul": torch.backends.cuda.matmul.allow_tf32}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2822,7 +3191,15 @@ def main() -> int:
                                     decoders)
     data_run["cli"] = cli_phase(decoders)
 
-    # ---- 8. results ----
+    # ---- 8. the UNet family ----
+    unet_run = {"card_vs_cpu": unet_cpu_phase(torch, engine, _build, build_model, dev)}
+    unet_run.update(unet_timing_phase(torch, engine, _build, build_model, TRAIN_CONFIGS, dev,
+                                      default_tf32))
+    unet_run["fit"] = unet_fit_phase(torch, engine, _build, build_model, TRAIN_CONFIGS,
+                                     decoders, dev)
+    unet_run["cli"] = unet_cli_phase(torch, build_model, decoders, dev)
+
+    # ---- 9. results ----
     sources = {
         "K-A": ("csu_stripe_attention_fwd", "cswin_simam_unet_tpu_torch/csrc/stripe_attention.cu",
                 "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:180"),
@@ -2996,6 +3373,7 @@ def main() -> int:
     log("data: " + json.dumps({k: ({m: v for m, v in r.items() if m not in ("launches", "bodies")}
                                    if isinstance(r, dict) else r)
                                for k, r in data_run.items()}))
+    log("unet: " + json.dumps(unet_run))
     log(f"f32 gradient gaps, kernels on vs off at drops 0.3: cswin_simam_512 {grad_gap:.3e}, "
         f"cswinunet {grad_gap448:.3e}; cswin_simam_2048 at depth (1,1,1,1), attention drop "
         f"0: {grad_gap2048:.3e}; cswin_simam_512_dp {grad_gap_dp:.3e}; K-A keep rate "

@@ -1,13 +1,16 @@
 """PyTorch/CUDA port of ``cswin_simam_unet_tpu`` for NVIDIA Hopper.
 
-CSWin-SimAM-UNet serves (``serving.py``: uint8 images in, probabilities
-out) and trains (``train/engine.py``: the binary and the multi-class step,
-gradient accumulation, AdamW or L2-coupled Adam, dropout and drop-path at
-the configs' rates, augmentation on the device, the eval step and ``fit``
-with its plateau schedule and checkpoints) at 224^2 to 2048^2
-(``configs.py``), from JPEG files (``data/``) or the command line
-(``cli.py``),
-through hand-written CUDA kernels, each an autograd Function whose CPU path
+Two model families, built by name (``configs.py``): CSWin-SimAM-UNet
+(``models/cswin.py``) and the reference's UNet with its SimAM variant
+(``models/unet.py``: cuDNN's convolutions and BatchNorm with flax's running
+statistics, no kernel of this port).  Both serve (``serving.py``: uint8
+images in, probabilities out) and train (``train/engine.py``: the binary
+and the multi-class step, gradient accumulation, AdamW or L2-coupled Adam,
+dropout and drop-path at the configs' rates, augmentation on the device,
+the eval step and ``fit`` with its plateau schedule and checkpoints) at
+224^2 to 2048^2, from JPEG files (``data/``) or the command line
+(``cli.py``).  CSWin-SimAM-UNet runs through hand-written CUDA kernels,
+each an autograd Function whose CPU path
 is its plain PyTorch version: stripe attention K-A / K-A'
 (``ops/stripe_attention.py``, windows that one block holds whole), the
 flash-attention family (``ops/flash_attention.py``: the tiled K-A / K-A' of

@@ -3,10 +3,12 @@ list-configs.
 
 Counterpart of ``cswin_simam_unet_tpu/cli.py``::
 
-    python -m cswin_simam_unet_tpu_torch.cli train --config cswin_simam_512 \\
+    python -m cswin_simam_unet_tpu_torch.cli train --config unet \\
         --image-dir data/images --mask-dir data/masks --output-dir runs
 
-trains from a directory of ``*.jpg`` images and same-named masks, split as
+trains the reference's UNet (the default config, as in JAX's CLI; every
+name of ``list-configs`` works, the UNet and the CSWin-UNet families alike)
+from a directory of ``*.jpg`` images and same-named masks, split as
 the reference splits them, with on-device augmentation, a checkpoint every
 epoch (``--resume`` goes on from the latest), the metrics CSV and plot and
 the final weights as a reference-named ``.pth``.  ``evaluate`` and
@@ -42,7 +44,7 @@ from .train.engine import FitConfig, evaluate, fit, make_eval_step, make_optimiz
 from .train.reporting import config_banner, plot_metrics, save_metrics_to_csv
 from .train.schedule import make_plateau_scheduler
 
-DEFAULT_CONFIG = "cswin_simam_512"
+DEFAULT_CONFIG = "unet"  # JAX's default: the reference's own run
 NOT_PORTED = {
     "pallas": "--pallas has no meaning here: the port always runs its CUDA kernels on the card",
     "remat": "--remat is an XLA compile-size device of the JAX package; not ported",
@@ -386,7 +388,7 @@ def main(argv=None) -> int:
     if args.command == "list-configs":
         for name in sorted(CONFIGS):
             m, t = CONFIGS[name], get_config(name).train
-            print(f"{name}: cswin img={m.img_size} bs={t.batch_size} opt={t.optimizer} "
+            print(f"{name}: {m.family} img={m.img_size} bs={t.batch_size} opt={t.optimizer} "
                   f"simam={m.use_simam} classes={m.num_classes} dtype={m.dtype}")
         return 0
     return {"train": run_train, "predict": run_predict, "evaluate": run_evaluate,

@@ -2,7 +2,7 @@
 parameters, and state dict files."""
 
 from .io import TORCH_SUFFIXES, load_state_dict_file, load_state_dict_strict
-from .weights import cswin_state_dict, layer_state_dict, load_flax_params
+from .weights import cswin_state_dict, layer_state_dict, load_flax_params, unet_state_dict
 
 __all__ = ["TORCH_SUFFIXES", "cswin_state_dict", "layer_state_dict", "load_flax_params",
-           "load_state_dict_file", "load_state_dict_strict"]
+           "load_state_dict_file", "load_state_dict_strict", "unet_state_dict"]

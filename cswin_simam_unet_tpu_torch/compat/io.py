@@ -46,8 +46,13 @@ def load_state_dict_strict(model: torch.nn.Module, state: Dict[str, torch.Tensor
                            source: Optional[str] = None) -> None:
     """Load ``state`` into ``model``: every name present and no other, every
     shape equal (a ValueError naming ``--config`` otherwise), each tensor
-    cast to the dtype of the model's own."""
+    cast to the dtype of the model's own.  A one-element vector fills a
+    0-d entry, as torch's own ``load_state_dict`` allows: the JAX package's
+    ``export-torch`` writes BatchNorm's ``num_batches_tracked`` as shape
+    (1,)."""
     own = model.state_dict()
+    state = {k: v.reshape(()) if own.get(k) is not None and own[k].ndim == 0
+             and tuple(v.shape) == (1,) else v for k, v in state.items()}
     where = f" from {source}" if source else ""
     if set(own) != set(state):
         missing = sorted(set(own) - set(state))[:5]

@@ -1,15 +1,20 @@
-"""Flax CSWinUNet parameters -> the port's state_dict.
+"""Flax CSWinUNet and UNet variables -> the port's state_dict.
 
 The port's own copy of ``cswin_simam_unet_tpu/compat/torch_export.py::
-export_cswin_variables``: flax params, given as nested dicts of numpy
-arrays (or anything ``numpy.asarray`` takes), become a flat name -> array
-dict with the reference scripts' names and layouts, which the port's
-``CSWinUNet`` loads with ``load_state_dict(strict=True)``.
+export_cswin_variables`` and ``export_unet_variables``: flax variables,
+given as nested dicts of numpy arrays (or anything ``numpy.asarray``
+takes), become a flat name -> array dict with the reference scripts' names
+and layouts, which the port's ``CSWinUNet`` and ``UNet`` load with
+``load_state_dict(strict=True)``.
 
 * HWIO conv kernel (kh, kw, I, O) -> (O, I, kh, kw)
+* transpose-conv kernel (kh, kw, I, O) -> (I, O, kh, kw), spatially
+  flipped (flax's transpose kernel is torch's, flipped)
 * depthwise kernel (kh, kw, 1, C) -> (C, 1, kh, kw)
 * Dense kernel (I, O)             -> (O, I)
-* LayerNorm scale / bias          -> weight / bias
+* LayerNorm / BatchNorm scale, bias -> weight, bias; BatchNorm
+  batch_stats mean, var -> running_mean, running_var, with
+  ``num_batches_tracked`` 0 (a strict load needs it)
 
 :func:`layer_state_dict` converts one standalone layer (a LayerNorm, a conv
 or head kernel, a CARAFE) the same way.
@@ -21,6 +26,8 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+
+from ..models import UNet
 
 
 def _np(x) -> np.ndarray:
@@ -42,6 +49,39 @@ def _linear(out, p: dict, prefix: str) -> None:
 def _norm(out, p: dict, prefix: str) -> None:
     out[f"{prefix}.weight"] = _np(p["scale"])
     out[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _bn_stats(out, s: dict, prefix: str) -> None:
+    out[f"{prefix}.running_mean"] = _np(s["mean"])
+    out[f"{prefix}.running_var"] = _np(s["var"])
+    out[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _double_conv(out, p: dict, s: dict, prefix: str) -> None:
+    """The reference's ``double_conv`` indices: 0 conv1, 1 bn1, 3 conv2, 4 bn2."""
+    for conv, bn, i in (("conv1", "bn1", 0), ("conv2", "bn2", 3)):
+        _conv(out, p[conv], f"{prefix}.{i}")
+        _norm(out, p[bn], f"{prefix}.{i + 1}")
+        _bn_stats(out, s[bn], f"{prefix}.{i + 1}")
+
+
+def unet_state_dict(variables: dict) -> Dict[str, np.ndarray]:
+    """Flax UNet variables {'params', 'batch_stats'} -> the reference UNet
+    state_dict as numpy arrays."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, np.ndarray] = {}
+    _double_conv(out, params["inc"], stats["inc"], "inc.double_conv")
+    for i in range(1, 5):
+        _double_conv(out, params[f"down{i}"]["conv"], stats[f"down{i}"]["conv"],
+                     f"down{i}.maxpool_conv.1.double_conv")
+    for i in range(1, 5):
+        up = params[f"up{i}"]
+        out[f"up{i}.up.weight"] = np.transpose(
+            _np(up["up"]["kernel"]), (2, 3, 0, 1))[:, :, ::-1, ::-1].copy()
+        out[f"up{i}.up.bias"] = _np(up["up"]["bias"])
+        _double_conv(out, up["conv"], stats[f"up{i}"]["conv"], f"up{i}.conv.double_conv")
+    _conv(out, params["outc"], "outc")
+    return out
 
 
 def _cswin_block(out, p: dict, prefix: str) -> None:
@@ -111,8 +151,13 @@ def cswin_state_dict(variables: dict,
 
 
 def load_flax_params(model: torch.nn.Module, variables: dict) -> None:
-    """Load flax CSWinUNet variables into the port's ``model`` (strict)."""
-    sd = cswin_state_dict(variables, model.depth)
+    """Load flax variables into the port's ``model`` (strict), converted
+    by the model's family: a ``UNet`` takes {'params', 'batch_stats'}, a
+    ``CSWinUNet`` {'params'}."""
+    if isinstance(model, UNet):
+        sd = unet_state_dict(variables)
+    else:
+        sd = cswin_state_dict(variables, model.depth)
     model.load_state_dict(
         {k: torch.from_numpy(np.array(v, dtype=np.float32))
          for k, v in sd.items()}, strict=True)

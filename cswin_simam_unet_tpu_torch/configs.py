@@ -36,6 +36,17 @@ and 4 (``configs.py:128-138``): a narrow shallow CSWin-UNet without SimAM
 and the full CSWin-SimAM-UNet at 224^2 (stripes [1,2,7,7], batch 8), both
 float32, AdamW lr 1e-4, drops 0.3.
 
+``unet``, ``unet_256`` and ``unet_simam_256`` are the JAX package's UNet
+entries (``configs.py:115-126``): the reference's own default run, the
+classic UNet at 448^2, batch 4 (``unet``), and BASELINE.json's configs 1
+and 2, the UNet at 256^2, batch 2, and the UNet with SimAM after each
+encoder block at 256^2, batch 4; all float32, binary, Adam with L2-coupled
+weight decay, lr 1e-3, weight decay 1e-4.  ``ModelConfig.family`` says
+which model a config builds (``unet`` or ``cswin``, as in JAX's
+``ModelConfig``); a UNet reads ``img_size`` (its training and serving
+resolution), ``in_chans``, ``num_classes``, ``use_simam`` and ``dtype``,
+and none of the CSWin-only fields.
+
 ``TrainConfig`` carries the run fields of JAX's ``TrainRunConfig``
 (``configs.py:53-85``): epochs, the plateau schedule, the split, the seed,
 the augmentation, the loader's workers, the checkpoint directory and the
@@ -54,14 +65,18 @@ import torch
 
 from . import resolve_device
 from .data.augment import AugmentConfig
-from .models import CSWinUNet
+from .models import CSWinUNet, UNet
 
 
 @dataclass(frozen=True)
 class ModelConfig:
+    family: str = "cswin"  # 'cswin' | 'unet'
     img_size: int = 512
     in_chans: int = 3
     num_classes: int = 1
+    use_simam: bool = True
+    dtype: str = "bfloat16"  # 'float32' | 'bfloat16' compute dtype
+    # cswin-only
     embed_dim: int = 64
     depth: tuple = (1, 2, 9, 1)
     split_size: tuple = (1, 2, 8, 8)
@@ -71,8 +86,6 @@ class ModelConfig:
     drop_rate: float = 0.0
     attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.0
-    use_simam: bool = True
-    dtype: str = "bfloat16"  # 'float32' | 'bfloat16' compute dtype
 
 
 @dataclass(frozen=True)
@@ -111,6 +124,10 @@ DROPS = dict(drop_rate=0.3, attn_drop_rate=0.3, drop_path_rate=0.3)
 NO_DROPS = dict(drop_rate=0.0, attn_drop_rate=0.0, drop_path_rate=0.0)
 
 CONFIGS = {
+    "unet": ModelConfig(family="unet", img_size=448, use_simam=False, dtype="float32"),
+    "unet_256": ModelConfig(family="unet", img_size=256, use_simam=False, dtype="float32"),
+    "unet_simam_256": ModelConfig(family="unet", img_size=256, use_simam=True,
+                                  dtype="float32"),
     "cswin_simam_512": ModelConfig(**DROPS),
     "cswinunet": ModelConfig(img_size=448, split_size=(1, 2, 7, 7), use_simam=False,
                              dtype="float32", **DROPS),
@@ -124,6 +141,9 @@ CONFIGS = {
                                    **DROPS),
 }
 TRAIN_CONFIGS = {name: TrainConfig(output_prefix=name, **kw) for name, kw in (
+    ("unet", dict(batch_size=4, optimizer="adam", learning_rate=1e-3)),
+    ("unet_256", dict(batch_size=2, optimizer="adam", learning_rate=1e-3)),
+    ("unet_simam_256", dict(batch_size=4, optimizer="adam", learning_rate=1e-3)),
     ("cswin_simam_512", {}),
     ("cswinunet", dict(batch_size=2)),
     ("cswin_simam_512_dp", dict(batch_size=16)),
@@ -152,9 +172,10 @@ def get_config(name: str, **overrides) -> RunConfig:
 
 
 def build_model(name="cswin_simam_512", *, device=None, seed: int = 0,
-                **overrides) -> CSWinUNet:
+                **overrides) -> torch.nn.Module:
     """The named configuration, or a ``ModelConfig`` (fields overridable),
-    with random weights from ``seed``, on ``device`` (None means CUDA)."""
+    with random weights from ``seed``, on ``device`` (None means CUDA): a
+    ``UNet`` or a ``CSWinUNet`` by the config's family."""
     if isinstance(name, ModelConfig):
         cfg = name
     elif name in CONFIGS:
@@ -163,6 +184,15 @@ def build_model(name="cswin_simam_512", *, device=None, seed: int = 0,
         raise KeyError(f"unknown config '{name}'; available: {sorted(CONFIGS)}")
     device = resolve_device(device)
     cfg = dataclasses.replace(cfg, **overrides)
+    if cfg.family == "unet":
+        if cfg.img_size % 16:
+            raise ValueError(f"img_size {cfg.img_size} must be divisible by 16 (the UNet's "
+                             f"four 2x2 max-pools)")
+        return UNet(n_channels=cfg.in_chans, n_classes=cfg.num_classes, use_simam=cfg.use_simam,
+                    dtype=_DTYPES[cfg.dtype], device=device, seed=seed)
+    if cfg.family != "cswin":
+        raise ValueError(f"unknown model family: {cfg.family}")
     kw = dataclasses.asdict(cfg)
+    del kw["family"]
     kw["dtype"] = _DTYPES[cfg.dtype]
     return CSWinUNet(**kw, device=device, seed=seed)

@@ -77,6 +77,9 @@ class CSWinUNet(nn.Module):
     """The full CSWin(-SimAM)-UNet.  Built on ``device`` (None means CUDA,
     which must be present) with parameters drawn from ``seed``."""
 
+    # forward(..., flat_logits=True) gives the head's pre-pixel-shuffle logits
+    supports_flat_logits = True
+
     def __init__(self, img_size: int = 224, in_chans: int = 3, num_classes: int = 1,
                  embed_dim: int = 64, depth: Sequence[int] = (1, 2, 9, 1),
                  split_size: Sequence[int] = (1, 2, 7, 7),

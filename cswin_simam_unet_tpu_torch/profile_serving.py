@@ -1,20 +1,24 @@
 """Where the time of serving, or of a training step, goes on the card.
 
     python -m cswin_simam_unet_tpu_torch.profile_serving [--batch 8] [--steps 5] [--repeats 3]
-        [--train] [--config cswin_simam_512] [--no-drops]
+        [--train] [--config cswin_simam_512] [--no-drops] [--no-tf32]
 
 Builds the configuration (``--config``, default ``cswin_simam_512``, random
 weights from seed 0; ``--no-drops`` sets its dropout, attention dropout and
-drop-path rates to 0, which only training uses) and warms up.  Then, ``--repeats`` times, it times ``--steps``
-forwards of one ``--batch`` request (with ``--train``: training steps of
-``make_train_step`` with the configuration's AdamW settings, classes and
-``grad_accum`` on one uint8 batch) on the host clock, untraced, and right
-after traces ``--steps`` more under ``torch.profiler`` (device activity
-only).  For each traced window it prints the device's busy and idle share of
-that same window: the window runs from the start of its first device
-activity to the end of its last, and busy time is the union of the activity
-intervals inside it.  Tracing slows the host, so that idle share overstates
-the untraced one.  The script therefore also prints the traced window's
+drop-path rates to 0, which only training uses; ``--no-tf32`` keeps cuDNN's
+float32 convolutions off TF32) and warms up.  Then, ``--repeats``
+times, it times ``--steps`` forwards of one ``--batch`` request (with
+``--train``: training steps of ``make_train_step`` with the
+configuration's optimizer settings, classes and ``grad_accum`` on one
+uint8 batch; the UNet configs too, whose device time is cuDNN's
+convolutions and the elementwise passes, no port kernel) on the host
+clock, untraced, and right after traces ``--steps`` more under
+``torch.profiler`` (device activity only).  For each traced window it
+prints the device's busy and idle share of that same window: the window
+runs from the start of its first device activity to the end of its last,
+and busy time is the union of the activity intervals inside it.  Tracing
+slows the host, so that idle share overstates the untraced one.  The
+script therefore also prints the traced window's
 host time beside the untraced loop's, and the idle share of the untraced
 loop's wall time, ``1 - busy / untraced wall``, with busy time from the
 trace that follows it (tracing slows the host, not the kernels).  Last, the
@@ -47,10 +51,15 @@ def _group(name: str) -> str:
     low = name.lower()
     if "memcpy" in low or "memset" in low:
         return "copies between host and device, memsets"
+    if "batch_norm" in low or "bn_fw" in low or "bn_bw" in low:
+        return "BatchNorm"
+    # cuDNN's convolutions: implicit GEMMs (fprop, dgrad, wgrad) and, for
+    # strict float32 under its default heuristics, FFTs with complex GEMMs
+    if any(k in low for k in ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad", "fft",
+                              "cf32")):
+        return "convolutions (cuDNN)"
     if "gemm" in low or "nvjet" in low or "sm90_xmma" in low or "cutlass" in low or "ampere" in low:
         return "matrix products (cuBLAS)"
-    if "conv" in low or "cudnn" in low or "implicit" in low:
-        return "convolutions (cuDNN)"
     if "multi_tensor_apply" in low:
         return "optimizer (AdamW, foreach)"
     if "reduce" in low:
@@ -61,7 +70,7 @@ def _group(name: str) -> str:
 
 
 def main() -> None:
-    from .configs import NO_DROPS, TRAIN_CONFIGS, build_model
+    from .configs import CONFIGS, NO_DROPS, TRAIN_CONFIGS, build_model
     from .serving import Server
     from .train import engine
 
@@ -72,10 +81,13 @@ def main() -> None:
     ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--config", default="cswin_simam_512")
     ap.add_argument("--no-drops", action="store_true", help="dropout rates 0")
+    ap.add_argument("--no-tf32", action="store_true",
+                    help="cuDNN's float32 convolutions without TF32 (torch's default allows it)")
     args = ap.parse_args()
+    torch.backends.cudnn.allow_tf32 = not args.no_tf32
 
     model = build_model(args.config, **(NO_DROPS if args.no_drops else {}))
-    img = model.img_size
+    img = CONFIGS[args.config].img_size
     rs = np.random.RandomState(0)
     images = rs.randint(0, 256, (args.batch, img, img, 3), np.uint8)
     if args.train:
@@ -127,7 +139,8 @@ def main() -> None:
                             events=events))
 
     print(f"card: {torch.cuda.get_device_name(0)}; {args.config}, drop rates "
-          f"{model.drop_rates}, {model.dtype}")
+          f"{getattr(model, 'drop_rates', 'none (UNet)')}, {model.dtype}; cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}")
     unit = "training step" if args.train else "forward"
     print(f"batch {args.batch}, {args.steps} {unit}s per window, ms per {unit}:")
     for i, w in enumerate(windows):

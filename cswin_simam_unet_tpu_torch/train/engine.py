@@ -19,9 +19,17 @@ argmax's mean per-class Dice and IoU.  The training forward is
 ``train=True``: dropout, attention dropout and drop-path act at the model's
 rates, with randomness from a host seed that the step hands down; the
 augmentation's draws come from a stream of the same seed of their own
-(:func:`augment_seed`), so dropout draws what it draws without them.  The
-module's ``training`` flag is never set or read.  Metrics stay on the
-device: ``evaluate`` and ``fit`` fetch them once at the end of a pass.
+(:func:`augment_seed`), so dropout draws what it draws without them.  A
+UNet's BatchNorm moves its running statistics in each training forward,
+micro-batch after micro-batch (JAX's carry of ``batch_stats``), and the
+eval step normalises with them.  The step and the eval step serve both
+families through one forward signature, the CSWin-UNet's: ``model(images,
+use_kernels=, flat_logits=, train=, rng=)``; the UNet takes the same
+keywords, with nothing for ``use_kernels`` and ``rng`` to act on, and asks
+for no flat logits (``supports_flat_logits`` False, see
+:func:`_flat_head`).  The module's ``training`` flag is never set or read.
+Metrics stay on the device: ``evaluate`` and ``fit`` fetch them once at the
+end of a pass.
 Data parallelism (ROADMAP queue A item 9) and the segmented step (item 10)
 are not ported yet.
 """
@@ -81,11 +89,12 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def _flat_head(n_classes: int) -> bool:
-    """Train and evaluate on the flat (pre-pixel-shuffle) logits?  Only the
-    binary head: softmax needs a whole class axis (flat lanes are
-    ``s * classes + c``)."""
-    return n_classes == 1
+def _flat_head(model: torch.nn.Module, n_classes: int) -> bool:
+    """Train and evaluate on the flat (pre-pixel-shuffle) logits?  Only a
+    model that has them (``supports_flat_logits``: the CSWin-UNet's head),
+    and only with one class: softmax needs a whole class axis (flat lanes
+    are ``s * classes + c``)."""
+    return n_classes == 1 and getattr(model, "supports_flat_logits", False)
 
 
 def _prepare_batch(images_u8: torch.Tensor, masks_u8: torch.Tensor, n_classes: int):
@@ -155,7 +164,9 @@ def _inputs(model: torch.nn.Module, images_u8, masks_u8, n_classes: int,
         generator.manual_seed(augment_seed(rng))
         images, masks = augment_batch(generator, images, masks, augment)
     targets = _finalize_targets(masks, n_classes)
-    return images, pixel_unshuffle(targets, FLAT_HEAD_FACTOR) if _flat_head(n_classes) else targets
+    if _flat_head(model, n_classes):
+        return images, pixel_unshuffle(targets, FLAT_HEAD_FACTOR)
+    return images, targets
 
 
 def compute_gradients(model: torch.nn.Module, images_u8, masks_u8, n_classes: int = 1,
@@ -169,7 +180,7 @@ def compute_gradients(model: torch.nn.Module, images_u8, masks_u8, n_classes: in
     binary head, image layout for several classes) and the targets,
     detached."""
     images, targets = _inputs(model, images_u8, masks_u8, n_classes, augment, rng)
-    logits = model(images, use_kernels=use_kernels, flat_logits=_flat_head(n_classes),
+    logits = model(images, use_kernels=use_kernels, flat_logits=_flat_head(model, n_classes),
                    train=True, rng=rng)
     loss = segmentation_loss(logits, targets, n_classes)
     (loss * weight).backward()
@@ -242,7 +253,7 @@ def make_eval_step(model: torch.nn.Module, n_classes: int = 1) -> Callable:
     @torch.no_grad()
     def step(images_u8, masks_u8) -> dict:
         images, targets = _inputs(model, images_u8, masks_u8, n_classes)
-        logits = model(images, flat_logits=_flat_head(n_classes), train=False)
+        logits = model(images, flat_logits=_flat_head(model, n_classes), train=False)
         loss = segmentation_loss(logits, targets, n_classes)
         dice, iou = _batch_metrics(logits, targets, n_classes)
         return {"loss": loss, "dice": dice, "iou": iou}

@@ -24,7 +24,9 @@ from cswin_simam_unet_tpu_torch.ops import carafe_head, carafe_kernels
 
 MIN_BLOCKS = 4 * 132
 DTYPES = {"float32": (4, 4), "bfloat16": (8, 2)}  # (vec, element bytes)
-BATCHES = [(name, TRAIN_CONFIGS[name].batch_size) for name in sorted(CONFIGS)] + [
+# the configs with CARAFEs (the UNet family has none)
+CSWIN = sorted(name for name, cfg in CONFIGS.items() if cfg.family == "cswin")
+BATCHES = [(name, TRAIN_CONFIGS[name].batch_size) for name in CSWIN] + [
     ("cswin_simam_1024", 1), ("cswin_simam_2048", 2)]
 
 

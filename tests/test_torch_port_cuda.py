@@ -63,9 +63,14 @@ augmentation on the card (TF32 switched on around it, which it must not
 use) within 1e-5 of float64 from the same draws and against the gather
 oracle, nearest masks exact; the augmented step's launches, the
 unaugmented step's; ``CheckpointStore.restore`` onto the card, the next step
-bit for bit; ``DataLoader`` through ``device_prefetch``.
+bit for bit; ``DataLoader`` through ``device_prefetch``.  The UNet family,
+which launches no kernel of the port: a training step (SimAM on and off, 1
+and 4 classes, ``grad_accum=2`` over a ragged batch) on the card against the
+CPU, in float32 and in float64; the eval step and ``Server`` after a step;
+and a resumed ``fit`` on the card bit for bit, running statistics included.
 """
 
+import copy
 import ctypes
 import math
 import subprocess
@@ -75,7 +80,7 @@ import torch
 
 from cswin_simam_unet_tpu_torch import _build
 from cswin_simam_unet_tpu_torch.configs import TRAIN_CONFIGS, build_model
-from cswin_simam_unet_tpu_torch.models import CSWinUNet
+from cswin_simam_unet_tpu_torch.models import CSWinUNet, UNet
 from cswin_simam_unet_tpu_torch.models.layers import FusedLayerNorm, FusedSimAMHead, LePEAttention
 from cswin_simam_unet_tpu_torch.ops import attention, carafe, carafe_head, dropout, layernorm
 from cswin_simam_unet_tpu_torch.ops import carafe_kernels, flash_attention, simam_head
@@ -2157,3 +2162,123 @@ def test_tiny_model_sixteen_classes(dev):
     assert counts == {stripe_attention.KERNEL: 14, carafe_kernels.KERNEL: 4}
     assert on.shape == (2, 64, 64, 16)
     torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
+
+
+# ---- the UNet family: no kernel of the port; the card against the CPU ----
+
+def _unet_pair(dev, use_simam, n_classes=1, dtype=torch.float32, seed=20):
+    """The same UNet (width 8) on the CPU and on the card, computing in
+    ``dtype``; its parameters and statistics float64 for float64, else
+    float32."""
+    cpu = UNet(n_classes=n_classes, base_features=8, use_simam=use_simam, device="cpu",
+               seed=seed, dtype=dtype)
+    if dtype == torch.float64:
+        cpu.double()
+    return cpu, copy.deepcopy(cpu).to(dev)
+
+
+def _unet_step(model, images, masks, n_classes, grad_accum=1):
+    opt = engine.make_optimizer("adam", 1e-3, 1e-4, model.parameters())
+    m = engine.make_train_step(model, opt, n_classes, grad_accum=grad_accum)(images, masks)
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+@pytest.mark.parametrize("use_simam,n_classes,accum", [(False, 1, 1), (True, 1, 2),
+                                                       (True, 4, 1)])
+def test_unet_step_on_card_matches_cpu(dev, monkeypatch, use_simam, n_classes, accum):
+    """One Adam step (``grad_accum`` 2 over a ragged batch of 3 among them)
+    on the card and on the CPU from the same weights and batch.  float32:
+    no kernel launched, the loss within 1e-5, Dice and IoU within 2e-3 (a
+    few thresholded pixels), the running statistics within 2e-4 x max(1,
+    |CPU|).  bf16 (``--bf16``; the statistics float32): the loss within
+    1e-3, Dice and IoU within 2e-2, the running statistics within 1e-2 x
+    max(1, |CPU|), float32 and finite gradients (bf16 against float32, in
+    the port and in JAX alike, moves the BatchNorm layers' gradients of a
+    random-init UNet by up to ~60 % in relative norm: no value check).
+    float64 (``Tensor.float`` widened, nothing rounds to float32): the
+    metrics, every gradient (x max|g|; the conv biases before a BatchNorm,
+    whose gradient is rounding noise, against their weight's), the running
+    statistics and the parameters within 1e-9."""
+    images, masks = _uint8_batch(3 if accum > 1 else 2, 21, n_classes)
+    for dtype, tol_loss, tol_counted, tol_stats in ((torch.float32, 1e-5, 2e-3, 2e-4),
+                                                    (torch.bfloat16, 1e-3, 2e-2, 1e-2)):
+        cpu, card = _unet_pair(dev, use_simam, n_classes, dtype)
+        _build.reset_launches()
+        got, g_card = _unet_step(card, images, masks, n_classes, accum)
+        assert not _launched()
+        want, _ = _unet_step(cpu, images, masks, n_classes, accum)
+        assert abs(got["loss"] - want["loss"]) <= tol_loss * max(1.0, abs(want["loss"])), dtype
+        assert all(abs(got[k] - want[k]) <= tol_counted for k in ("dice", "iou")), (got, want)
+        for (name, a), b in zip(card.named_buffers(), cpu.buffers()):
+            assert a.dtype == b.dtype and b.dtype in (torch.float32, torch.long), (name, b.dtype)
+            err = float((a.cpu().double() - b.double()).abs().max())
+            assert err <= tol_stats * max(1.0, float(b.double().abs().max())), (name, dtype, err)
+        for name, g in g_card.items():
+            assert g.dtype == torch.float32 and bool(g.isfinite().all()), (name, dtype)
+
+    monkeypatch.setattr(torch.Tensor, "float", torch.Tensor.double)
+    cpu, card = _unet_pair(dev, use_simam, n_classes, torch.float64)
+    got, g_card = _unet_step(card, images, masks, n_classes, accum)
+    want, g_cpu = _unet_step(cpu, images, masks, n_classes, accum)
+    assert all(abs(got[k] - want[k]) <= 1e-9 for k in got), (got, want)
+    for name, g in g_cpu.items():
+        scale = g_cpu[name[:-4] + "weight"] if name.endswith(("0.bias", "3.bias")) else g
+        err = float((g_card[name] - g).abs().max())
+        assert err <= 1e-9 * max(float(scale.abs().max()), 1e-30), (name, err)
+    for (name, a), b in zip(card.state_dict().items(), cpu.state_dict().values()):
+        assert float((a.cpu().double() - b.double()).abs().max()) <= 1e-9, name
+
+
+def test_unet_eval_and_serving_on_card_match_cpu(dev):
+    """After a training step on the CPU (running statistics moved), the
+    same weights and buffers on the card: the eval step's metrics, and
+    ``Server``'s probabilities for a request of 3 (padded to 4), on the
+    card against the CPU, float32, no kernel launched.  (Two devices'
+    Adam steps would not leave the same weights: see
+    ``test_unet_step_on_card_matches_cpu``.)"""
+    from cswin_simam_unet_tpu_torch.serving import Server
+    cpu, _ = _unet_pair(dev, True)
+    _unet_step(cpu, *_uint8_batch(2, 22, 1), 1)
+    card = copy.deepcopy(cpu).to(dev)
+    images, masks = _uint8_batch(3, 23, 1)
+    _build.reset_launches()
+    got = engine.make_eval_step(card, 1)(images, masks)
+    probs = Server(card)(images)
+    assert not _launched()
+    want = engine.make_eval_step(cpu, 1)(images, masks)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5
+    assert all(abs(float(got[k]) - float(want[k])) <= 2e-3 for k in ("dice", "iou"))
+    torch.testing.assert_close(probs.cpu(), Server(cpu)(images), rtol=0, atol=1e-4)
+
+
+def test_unet_fit_resumed_on_card(dev, tmp_path, monkeypatch):
+    """A 2-epoch augmented UNet ``fit`` on the card, checkpointed; a fresh
+    model and optimizer restore epoch 1 and train epoch 2: parameters,
+    running statistics and history bit for bit (cuDNN deterministic)."""
+    from cswin_simam_unet_tpu_torch.train.checkpoint import CheckpointStore
+    from cswin_simam_unet_tpu_torch.train.schedule import make_plateau_scheduler
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    train = [tuple(t.numpy() for t in _uint8_batch(2, s, 1)) for s in (24, 25)]
+    test = [tuple(t.numpy() for t in _uint8_batch(2, 26, 1))]
+    store = CheckpointStore(str(tmp_path))
+    runs = []
+    for seed in (30, 31):
+        model = UNet(base_features=8, use_simam=True, device=dev, seed=seed)
+        opt = engine.make_optimizer("adam", 1e-3, 1e-4, model.parameters())
+        sched = make_plateau_scheduler(opt, 0.5, 0, 1e-7)
+        runs.append((model, opt, sched))
+    cfg = engine.FitConfig(num_epochs=2, plateau_patience=0, verbose=False,
+                           checkpoint_manager=store)
+    model, opt, sched = runs[0]
+    _build.reset_launches()
+    history, step = engine.fit(model, opt, train, test, cfg, scheduler=sched)
+    assert not _launched() and step == 4
+    fresh, opt2, sched2 = runs[1]
+    sched_state, hist2, epoch, step2 = store.restore(fresh, opt2, epoch=1)
+    sched2.load_state_dict(sched_state)
+    hist2, step2 = engine.fit(fresh, opt2, train, test, cfg, history=hist2, scheduler=sched2,
+                              start_epoch=epoch, global_step=step2)
+    assert step2 == step and hist2 == history
+    for (name, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        assert b.device.type == "cuda" and torch.equal(a, b), name

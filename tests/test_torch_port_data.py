@@ -671,7 +671,7 @@ def test_get_config_matches_jax(name):
     over = configs.get_config(name, image_size=64, model_dtype="bfloat16", num_epochs=3)
     assert (over.image_size, over.model.dtype, over.train.num_epochs) == (64, "bfloat16", 3)
     with pytest.raises(KeyError, match="unknown config"):
-        configs.get_config("unet")
+        configs.get_config("no_such_config")
 
 
 def test_port_imports_no_jax():

@@ -106,6 +106,8 @@ def _flat_maps():
     maps = []
     for name in sorted(CONFIGS):
         cfg = CONFIGS[name]
+        if cfg.family != "cswin":  # the UNet family has no CARAFE head
+            continue
         r = cfg.img_size // 4
         for vec in (4, 8):
             maps.append((name, TRAIN_CONFIGS[name].batch_size, r, r, cfg.embed_dim, 16, vec))
