@@ -80,8 +80,9 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    agree) and the loss in bf16; and one batch-1 step of ``cswin_simam_2048``
    at full width and depth (1,1,1,1), float32, drops 0.3 with attention
    dropout 0 (the flash path's mask is not the plain path's).  Then the
-   multi-class step: ``cswin_simam_512_dp`` (4 classes, bf16, batch 16 on
-   one card, class-id disc masks) through the same training run and checks,
+   multi-class step: ``cswin_simam_512_dp`` (4 classes, batch 16 on one
+   card, class-id disc masks; the config computes in float32, timed here in
+   bf16, an explicit override) through the same training run and checks,
    and one batch-2 step's float32 gradients and bf16 loss with kernels on
    against off (the head's F = 4 kernels in a real step).  Then ``fit`` on
    ``cswin_simam_512`` (bf16, drops 0.3, batch 8): 2 epochs over in-memory
@@ -132,7 +133,23 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    deterministic), the parameters and the BatchNorm buffers within 1e-6 of
    the unbroken run; the CLI as child processes at ``unet``: ``train
    --epochs 2``, ``evaluate`` (against the history), ``predict`` and
-   ``export-torch``, whose ``.pth`` loads strictly into a fresh UNet.
+   ``export-torch``, whose ``.pth`` loads strictly into a fresh UNet;
+9. data parallelism: two ranks share the one card over gloo (the kernels
+   are built before they start), each running the kernels: the
+   ``cswin_simam_512_dp`` step in float32 at drops 0 on 4 images (2 a
+   rank) against one process on the same 4 (all-reduced gradients within
+   1e-3 x max|g|, loss, Dice and IoU within 1e-5, the ranks bit-identical,
+   each rank's launches a 1-process step's); its batch of 16 in bf16 at
+   drops 0.3, 3 + 10 steps (ms, images/s, each rank's peak memory, the ms
+   of an all-reduce of the parameters; the ranks bit-identical, rank 1
+   drawing other attention masks than rank 0, which draws one process's);
+   ``unet_256`` on 4 images against one process (BatchNorm's moments
+   summed over the ranks: metrics and running statistics within 1e-4, the
+   BatchNorm buffers bit-identical on both ranks, float64 gradients within
+   1e-9 x max|g|); the CLI under ``torch.distributed.run --nproc-per-node
+   2`` at ``unet_256`` for one epoch of the JPEG pairs (rank 0 alone prints
+   and writes; the weights load strictly).  Two ranks on one card read an
+   overhead, not a scaling.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -144,6 +161,7 @@ names its line instead of running into an outside time limit.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import faulthandler
@@ -151,6 +169,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1856,6 +1875,28 @@ UNET_IMG = 448                      # unet's resolution (unet_256 and unet_simam
 UNET_NOISE_BIASES = ("double_conv.0.bias", "double_conv.3.bias")
 
 
+def unet_from_seed(torch, build_model, name, dev, wide: bool = False):
+    """The UNet config ``name`` from SEED on ``dev``: float32, or float64
+    throughout (``wide``)."""
+    net = build_model(name, device=dev, seed=SEED)
+    if wide:
+        net = net.double()
+        net.dtype = torch.float64
+    return net
+
+
+@contextlib.contextmanager
+def float64_steps(torch):
+    """``Tensor.float`` widened to double, so that a float64 model's step
+    (the scaling of its uint8 batch, its loss and metrics) stays in float64."""
+    narrow = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.Tensor.float = narrow
+
+
 def unet_step_pair(torch, engine, _build, models, images, masks) -> list:
     """One Adam step of each model on the same uint8 batch: its metrics,
     gradients and buffers on the host, the port's launches and seconds."""
@@ -1917,15 +1958,10 @@ def unet_cpu_phase(torch, engine, _build, build_model, dev) -> dict:
             require(gap <= TOL_UNET, f"{name}: {what}, card vs CPU: {gap:.3e}")
         del cpu, card
 
-        wide = build_model(name, device="cpu", seed=SEED).double()
-        wide.dtype = torch.float64
-        narrow = torch.Tensor.float
-        torch.Tensor.float = torch.Tensor.double
-        try:
+        wide = unet_from_seed(torch, build_model, name, "cpu", wide=True)
+        with float64_steps(torch):
             (_, w_card, _, w_launched, w_s_card), (_, w_cpu, _, _, w_s_cpu) = unet_step_pair(
                 torch, engine, _build, (copy.deepcopy(wide).to(dev), wide), images, masks)
-        finally:
-            torch.Tensor.float = narrow
         wide_gaps = {}
         for n, g in w_cpu.items():
             scale = w_cpu[n[:-4] + "weight"] if n.endswith(UNET_NOISE_BIASES) else g
@@ -2181,6 +2217,321 @@ def unet_cli_phase(torch, build_model, decoders, dev) -> dict:
         log(f"  exported {pth}: 136 tensors, loaded strictly into a fresh UNet on the card, "
             f"equal to the final weights; seconds: {secs}")
         out["seconds"] = secs
+        del fresh
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+DP_WORLD = 2                        # phase 9: two ranks, both on the one card (gloo)
+DP_BATCH = 4                        # (a) and (c): the global batch, 2 a rank
+DP_RNG = 20260                      # the step seed of phase 9
+DP_ALLREDUCE_REPS = 5               # timed all-reduces of the flagship's parameters
+DP_TIMEOUT_S = 300                  # the ranks of phase 9 together
+DP_CLI_TIMEOUT_S = 240              # torch.distributed.run of the CLI
+METRIC_KEYS = ("loss", "dice", "iou")
+
+
+def dp_step(torch, engine, _build, net, opt, n_classes, images, masks, mesh=None,
+            grads_to_host=True) -> dict:
+    """One step of the global batch (``mesh``: this rank's share of it):
+    its metrics, the launches it made, and its (all-reduced) gradients and
+    buffers on the host."""
+    step = engine.make_train_step(net, opt, n_classes, mesh=mesh)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    m = step(images, masks, rng=DP_RNG)
+    torch.cuda.synchronize()
+    return dict(metrics={k: float(v) for k, v in m.items()},
+                launches={k: n for k, n in _build.LAUNCHES.items() if n},
+                grads={n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+                if grads_to_host else None,
+                buffers={n: b.detach().cpu() for n, b in net.named_buffers()})
+
+
+def dp_rank(rank: int) -> dict:
+    """One rank of phase 9 (spawned; the process group is formed): (a) the
+    dp config's step, float32, drops 0, on this rank's share of 4 images;
+    (b) its timed steps at batch 16 in bf16, drops 0.3, the all-reduce of
+    its parameters, and a forward at attention dropout only from this
+    rank's stream; (c) the UNet's step in float32 and in float64."""
+    import torch
+    from cswin_simam_unet_tpu_torch import _build
+    from cswin_simam_unet_tpu_torch.configs import NO_DROPS, TRAIN_CONFIGS, build_model
+    from cswin_simam_unet_tpu_torch.parallel import make_mesh, replicas_equal
+    from cswin_simam_unet_tpu_torch.parallel.mesh import state_tensors
+    from cswin_simam_unet_tpu_torch.train import engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh()
+    dev = mesh.device
+    torch.cuda.set_device(dev)
+    tcfg = TRAIN_CONFIGS["cswin_simam_512_dp"]
+    out = {"device": str(dev), "world": mesh.size}
+
+    def optimizer(net, cfg=tcfg):
+        return engine.make_optimizer(cfg.optimizer, cfg.learning_rate, cfg.weight_decay,
+                                     net.parameters())
+
+    # (a) the step of the global batch, against one process in the parent
+    net = build_model("cswin_simam_512_dp", device=dev, seed=SEED, **NO_DROPS)
+    opt = optimizer(net)
+    images, masks = disc_batch(torch, IMG, DP_BATCH, dev, net.num_classes)
+    out["a"] = dp_step(torch, engine, _build, net, opt, net.num_classes, images, masks, mesh,
+                       grads_to_host=rank == 0)
+    out["a"]["replicas_equal"] = replicas_equal(state_tensors(net, opt), mesh)
+    out["a"]["dtype"] = str(net.dtype)
+    n_params = sum(p.numel() for p in net.parameters())
+    del net, opt
+    torch.cuda.empty_cache()
+
+    # (b) the config's own settings: batch 16, bf16, drops 0.3
+    net = build_model("cswin_simam_512_dp", device=dev, seed=SEED, dtype="bfloat16")
+    opt = optimizer(net)
+    step = engine.make_train_step(net, opt, net.num_classes, seed=SEED, mesh=mesh)
+    images, masks = disc_batch(torch, IMG, tcfg.batch_size, dev, net.num_classes)
+    losses = [float(step(images, masks)["loss"]) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    timed = [step(images, masks) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    losses += [float(m["loss"]) for m in timed]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    equal = replicas_equal(state_tensors(net, opt), mesh)
+    del net, opt, step
+    torch.cuda.empty_cache()
+    flat = torch.ones(n_params, device=dev)
+    mesh.all_reduce_(flat)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(DP_ALLREDUCE_REPS):
+        mesh.all_reduce_(flat)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) / DP_ALLREDUCE_REPS * 1e3
+    del flat
+    probe = build_model("cswin_simam_512_dp", device=dev, seed=SEED, dtype="bfloat16",
+                        drop_rate=0.0, drop_path_rate=0.0)
+    x = disc_batch(torch, IMG, 1, dev, 4)[0].float() / 255.0
+    with torch.no_grad():
+        drawn = probe(x, train=True, rng=engine.rank_seed(DP_RNG, rank)).float().cpu()
+    out["b"] = dict(step_ms=step_ms, images_per_s=tcfg.batch_size * 1e3 / step_ms,
+                    peak_gib=peak_gib, losses=losses, replicas_equal=equal,
+                    allreduce_ms=allreduce_ms, allreduce_bytes=4 * n_params,
+                    attention_drop_logits=drawn)
+    del probe
+    torch.cuda.empty_cache()
+
+    # (c) the UNet, whose BatchNorm sums its moments over the ranks
+    ucfg = TRAIN_CONFIGS["unet_256"]
+    images, masks = disc_batch(torch, 256, DP_BATCH, dev)
+    for wide in (False, True):
+        net = unet_from_seed(torch, build_model, "unet_256", dev, wide)
+        opt = optimizer(net, ucfg)
+        with float64_steps(torch) if wide else contextlib.nullcontext():
+            res = dp_step(torch, engine, _build, net, opt, 1, images, masks, mesh,
+                          grads_to_host=rank == 0)
+        res["replicas_equal"] = replicas_equal(state_tensors(net, opt), mesh)
+        out["c64" if wide else "c32"] = res
+        del net, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_phase(torch, engine, _build, build_model, train_configs, want_step, decoders,
+             dev) -> dict:
+    """Phase 9: data parallelism, two ranks sharing the one card over gloo
+    (``parallel.run_ranks``, the ``spawn`` start method, a ``file://``
+    store); the kernels are built before the ranks start.  (a) the
+    ``cswin_simam_512_dp`` step (float32, its config's dtype; drops 0; 4
+    images, 2 a rank, kernels on) against one process on the same 4: every
+    all-reduced gradient within TOL_GRAD_F32 x max|g|, loss, Dice and IoU
+    within TOL_ACCUM, both ranks bit-identical after the step, each rank's
+    launches a 1-process step's; (b) the config's batch of 16 in bf16 at
+    drops 0.3, 3 + 10 steps: ms a step, images/s, each rank's peak memory,
+    the ms of one all-reduce of the parameters in float32; finite losses,
+    both ranks bit-identical, and a forward at attention dropout only
+    drawing other masks on rank 1 and one process's on rank 0; (c)
+    ``unet_256`` (float32, TF32 off, 4 images, 2 a rank) against one
+    process: loss, Dice and IoU within TOL_UNET, the running statistics
+    within TOL_UNET x max(1, max|.|), the BatchNorm buffers bit-identical
+    on both ranks; the float32 gradients' gap printed, and in float64 every
+    gradient within TOL_UNET_GRAD x its own max|g|; (d) the CLI under
+    ``torch.distributed.run --nproc-per-node 2`` at ``unet_256``, one epoch
+    from the JPEG pairs: rank 0 alone prints and writes, the weights load
+    strictly.  Two ranks on one card are no scaling measurement."""
+    from cswin_simam_unet_tpu_torch.compat.io import load_state_dict_file, load_state_dict_strict
+    from cswin_simam_unet_tpu_torch.configs import NO_DROPS
+    from cswin_simam_unet_tpu_torch.parallel import run_ranks
+    phase(f"data parallelism: {DP_WORLD} ranks on {torch.cuda.device_count()} card (gloo), "
+          f"against one process")
+    tcfg = train_configs["cswin_simam_512_dp"]
+    torch.cuda.empty_cache()
+
+    # the 1-process references of (a), (b) and (c), then the ranks
+    net = build_model("cswin_simam_512_dp", device=dev, seed=SEED, **NO_DROPS)
+    opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
+                                net.parameters())
+    images, masks = disc_batch(torch, IMG, DP_BATCH, dev, net.num_classes)
+    ref_a = dp_step(torch, engine, _build, net, opt, net.num_classes, images, masks)
+    require(ref_a["launches"] == want_step, f"1-process dp step launches {ref_a['launches']}")
+    del net, opt
+    probe = build_model("cswin_simam_512_dp", device=dev, seed=SEED, dtype="bfloat16",
+                        drop_rate=0.0, drop_path_rate=0.0)
+    x = disc_batch(torch, IMG, 1, dev, 4)[0].float() / 255.0
+    with torch.no_grad():
+        ref_drawn = probe(x, train=True, rng=DP_RNG).float().cpu()
+    del probe
+    ucfg = train_configs["unet_256"]
+    u_images, u_masks = disc_batch(torch, 256, DP_BATCH, dev)
+    ref_c = {}
+    for wide in (False, True):
+        net = unet_from_seed(torch, build_model, "unet_256", dev, wide)
+        opt = engine.make_optimizer(ucfg.optimizer, ucfg.learning_rate, ucfg.weight_decay,
+                                    net.parameters())
+        with float64_steps(torch) if wide else contextlib.nullcontext():
+            ref_c[wide] = dp_step(torch, engine, _build, net, opt, 1, u_images, u_masks)
+        del net, opt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(dp_rank, DP_WORLD, timeout_s=DP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    out = {"ranks_seconds": ranks_s}
+
+    # (a)
+    got = [r["a"] for r in ranks]
+    require(all(r["world"] == DP_WORLD for r in ranks), "the ranks' group size")
+    g_ref = ref_a["grads"]
+    gaps = {n: float((got[0]["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+            for n, g in g_ref.items()}
+    worst = max(gaps, key=gaps.get)
+    rel = [{k: abs(r["metrics"][k] - ref_a["metrics"][k]) / max(abs(ref_a["metrics"][k]),
+                                                                1e-30)
+            for k in METRIC_KEYS} for r in got]
+    log(f"(a) cswin_simam_512_dp, {got[0]['dtype']}, drops 0, {DP_BATCH} images ({DP_BATCH // DP_WORLD} "
+        f"a rank) on {ranks[0]['device']} x {DP_WORLD} vs one process: metrics "
+        f"{[r['metrics'] for r in got]} vs {ref_a['metrics']}, relative gaps {rel} (tol "
+        f"{TOL_ACCUM:g}); largest all-reduced gradient gap {gaps[worst]:.3e} x max|g| "
+        f"({worst}) over {len(gaps)} parameters (tol {TOL_GRAD_F32:g}); ranks bit-identical "
+        f"after the step: {[r['replicas_equal'] for r in got]}; launches of each rank "
+        f"{[r['launches'] == ref_a['launches'] for r in got]} equal to one process's")
+    require(gaps[worst] <= TOL_GRAD_F32, f"(a) gradient of {worst}: {gaps[worst]:.3e}")
+    require(all(v <= TOL_ACCUM for r in rel for v in r.values()), f"(a) metrics {rel}")
+    require(all(r["replicas_equal"] for r in got), "(a) the ranks differ after the step")
+    for r in got:
+        require(r["launches"] == ref_a["launches"], f"(a) rank launches {r['launches']}")
+    out["a"] = dict(grad_gap=gaps[worst], metric_gaps=rel, launches=got[0]["launches"])
+
+    # (b)
+    got = [r["b"] for r in ranks]
+    for r, b in enumerate(got):
+        require(all(math.isfinite(v) for v in b["losses"]), f"(b) rank {r}: non-finite loss")
+        require(b["replicas_equal"], "(b) the ranks differ after the timed steps")
+    # rank 0 draws one process's masks, rank 1 others: the logits of rank 1
+    # stand far further from rank 0's than rank 0's from one process's
+    d0, d1 = (b["attention_drop_logits"] for b in got)
+    same_as_one = float((d0 - ref_drawn).abs().max())
+    apart = float((d1 - d0).abs().max())
+    require(apart > 0.0 and apart >= 10 * same_as_one,
+            f"(b) attention masks: rank 1 apart from rank 0 by {apart:.3e}, rank 0 from one "
+            f"process by {same_as_one:.3e}")
+    step_ms = max(b["step_ms"] for b in got)
+    log(f"(b) cswin_simam_512_dp, bf16, drops 0.3, batch {tcfg.batch_size} "
+        f"({tcfg.batch_size // DP_WORLD} a rank): {step_ms:.2f} ms a step (the slower rank; "
+        f"{[round(b['step_ms'], 2) for b in got]}), {tcfg.batch_size * 1e3 / step_ms:.1f} "
+        f"images/s (mean of {TRAIN_STEPS} after {TRAIN_WARMUP}, host clock after "
+        f"synchronize); peak memory a rank {[round(b['peak_gib'], 2) for b in got]} GiB; "
+        f"all-reduce of the {got[0]['allreduce_bytes'] / 2 ** 20:.1f} MiB of float32 "
+        f"parameters {[round(b['allreduce_ms'], 2) for b in got]} ms (gloo through the host); "
+        f"losses {[round(v, 4) for v in got[0]['losses']]}; attention-dropout-only forward: "
+        f"rank 0 within {same_as_one:.3e} of one process, rank 1 apart by {apart:.3e}.  Two ranks share one "
+        f"card here: this is an overhead reading, not a scaling number")
+    out["b"] = {k: [b[k] for b in got] for k in ("step_ms", "images_per_s", "peak_gib",
+                                                 "allreduce_ms")}
+    out["b"].update(allreduce_bytes=got[0]["allreduce_bytes"], batch=tcfg.batch_size,
+                    losses=got[0]["losses"], rank0_vs_one_process=same_as_one,
+                    rank1_vs_rank0=apart)
+
+    # (c)
+    for wide in (False, True):
+        key = "c64" if wide else "c32"
+        got = [r[key] for r in ranks]
+        ref = ref_c[wide]
+        for r in got:
+            require(r["replicas_equal"], f"({key}) the ranks differ after the step")
+            require(not r["launches"], f"({key}) the UNet step launched {r['launches']}")
+        bufs_equal = all(torch.equal(v, got[1]["buffers"][n]) for n, v in got[0]["buffers"].items())
+        require(bufs_equal, f"({key}) the ranks' BatchNorm buffers differ")
+        metric_gap = max(abs(r["metrics"][k] - ref["metrics"][k]) / max(1.0, abs(ref["metrics"][k]))
+                         for r in got for k in METRIC_KEYS)
+        stat_gap = max(float((got[0]["buffers"][n].double() - b.double()).abs().max())
+                       / max(1.0, float(b.double().abs().max()))
+                       for n, b in ref["buffers"].items())
+        gaps = {}
+        for n, g in ref["grads"].items():
+            scale = ref["grads"][n[:-4] + "weight"] if n.endswith(UNET_NOISE_BIASES) else g
+            gaps[n] = float((got[0]["grads"][n] - g).abs().max()) / max(
+                float(scale.abs().max()), 1e-300)
+        worst = max(gaps, key=gaps.get)
+        log(f"(c) unet_256, {'float64' if wide else 'float32, TF32 off'}, {DP_BATCH} images "
+            f"({DP_BATCH // DP_WORLD} a rank) vs one process: metrics "
+            f"{[r['metrics'] for r in got]} vs {ref['metrics']}, largest gap {metric_gap:.3e}; "
+            f"running statistics gap {stat_gap:.3e} (x max(1, max|.|), tol {TOL_UNET:g}); "
+            f"BatchNorm buffers bit-identical on both ranks: {bufs_equal}; largest gradient gap "
+            f"{gaps[worst]:.3e} x its own max|g| ({worst})"
+            + (f" (tol {TOL_UNET_GRAD:g})" if wide else " (float32: a record, not held)"))
+        require(metric_gap <= TOL_UNET and stat_gap <= TOL_UNET,
+                f"({key}) metrics {metric_gap:.3e}, statistics {stat_gap:.3e}")
+        if wide:
+            require(gaps[worst] <= TOL_UNET_GRAD, f"(c) float64 gradient of {worst}")
+        out[key] = dict(metric_gap=metric_gap, stats_gap=stat_gap, grad_gap=gaps[worst])
+
+    # (d) the CLI under torch.distributed.run
+    if not (decoders["native"] or decoders["cv2"] or decoders["pil"]):
+        log("(d) no JPEG decoder on this machine: the CLI reads JPEG files only; not run")
+        out["d"] = dict(ran=False)
+        return out
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
+    try:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(DP_WORLD), "-m", "cswin_simam_unet_tpu_torch.cli",
+               "train", "--config", "unet_256", "--epochs", "1", "--no-progress",
+               "--image-dir", os.path.join(DATA_DIR, "images"),
+               "--mask-dir", os.path.join(DATA_DIR, "masks"), "--output-dir", workdir]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, process_group=0)
+        try:
+            stdout, stderr = proc.communicate(timeout=DP_CLI_TIMEOUT_S)
+        finally:  # torch.distributed.run and its ranks, whatever happened
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        secs = time.perf_counter() - t0
+        tail = "\n".join((stdout + stderr).strip().splitlines()[-15:])
+        require(proc.returncode == 0, f"(d) torch.distributed.run of the CLI failed:\n{tail}")
+        banners = stdout.count("Training configuration")
+        require(banners == 1 and stdout.count("Done.") == 1,
+                f"(d) rank 0 alone prints: {banners} banners\n{tail}")
+        require(f"mesh: {{'data': {DP_WORLD}}} ({DP_WORLD} ranks)" in stdout,
+                f"(d) the banner's mesh line:\n{tail}")
+        prefix = os.path.join(workdir, "unet_256")
+        ckpt = os.listdir(f"{prefix}_checkpoints")
+        require(sorted(ckpt) == ["best_weights.pth", "epoch_1.pt", "meta.json"],
+                f"(d) checkpoint files {ckpt}")
+        require(os.path.exists(f"{prefix}_training_metrics.csv"), "(d) no metrics CSV")
+        fresh = build_model("unet_256", device=dev, seed=SEED + 9)
+        load_state_dict_strict(fresh, load_state_dict_file(f"{prefix}_final_weights.pth"))
+        epoch = [line.strip() for line in stdout.splitlines() if line.startswith("Epoch [")]
+        log(f"(d) torch.distributed.run --nproc-per-node {DP_WORLD} ... cli train --config "
+            f"unet_256 --epochs 1: exit 0 in {secs:.1f} s ({'; '.join(epoch)}); one banner "
+            f"with the mesh {{'data': {DP_WORLD}}}, one 'Done.'; files {sorted(ckpt)}, the CSV and "
+            f"the final weights, which load strictly into a fresh UNet")
+        out["d"] = dict(ran=True, seconds=secs)
         del fresh
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3152,10 +3503,12 @@ def main() -> int:
     del g_on, g_off
 
     # the multi-class step: cswin_simam_512_dp, 4 classes, its global batch
-    # of 16 on one card; the head's F = 4 kernels in a real step
-    model_dp = build_model("cswin_simam_512_dp", device=dev, seed=SEED)
-    runs["cswin_simam_512_dp drops 0.3"] = train_phase(
-        torch, engine, _build, "cswin_simam_512_dp drops 0.3", model_dp,
+    # of 16 on one card; the head's F = 4 kernels in a real step.  The config
+    # computes in float32 (JAX's); timed in bf16, an explicit override, as
+    # the earlier readings were
+    model_dp = build_model("cswin_simam_512_dp", device=dev, seed=SEED, dtype="bfloat16")
+    runs["cswin_simam_512_dp bf16 drops 0.3"] = train_phase(
+        torch, engine, _build, "cswin_simam_512_dp bf16 drops 0.3", model_dp,
         TRAIN_CONFIGS["cswin_simam_512_dp"], per_step, dev, bodies512)
     phase("gradients, kernels on vs off, cswin_simam_512_dp (4 classes), drops 0.3")
     model_dp32 = build_model("cswin_simam_512_dp", device=dev, seed=SEED, dtype="float32")
@@ -3199,7 +3552,10 @@ def main() -> int:
                                      decoders, dev)
     unet_run["cli"] = unet_cli_phase(torch, build_model, decoders, dev)
 
-    # ---- 9. results ----
+    # ---- 9. data parallelism ----
+    dp_run = dp_phase(torch, engine, _build, build_model, TRAIN_CONFIGS, per_step, decoders, dev)
+
+    # ---- 10. results ----
     sources = {
         "K-A": ("csu_stripe_attention_fwd", "cswin_simam_unet_tpu_torch/csrc/stripe_attention.cu",
                 "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:180"),
@@ -3374,6 +3730,7 @@ def main() -> int:
                                    if isinstance(r, dict) else r)
                                for k, r in data_run.items()}))
     log("unet: " + json.dumps(unet_run))
+    log("data parallelism: " + json.dumps(dp_run))
     log(f"f32 gradient gaps, kernels on vs off at drops 0.3: cswin_simam_512 {grad_gap:.3e}, "
         f"cswinunet {grad_gap448:.3e}; cswin_simam_2048 at depth (1,1,1,1), attention drop "
         f"0: {grad_gap2048:.3e}; cswin_simam_512_dp {grad_gap_dp:.3e}; K-A keep rate "

@@ -16,6 +16,19 @@ the final weights as a reference-named ``.pth``.  ``evaluate`` and
 Everything runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` asks for the plain versions.
 
+``train`` is data-parallel under ``torch.distributed.run``, as JAX's is over
+its devices::
+
+    python -m torch.distributed.run --nproc-per-node N -m cswin_simam_unet_tpu_torch.cli train ...
+
+Rank r computes on ``cuda:{local rank % device count}``.  Where the config's
+``data_parallel`` is on (every config but ``cswin_simam_2048``) and N
+divides the batch, each rank trains on its share of every batch and the
+step is the global batch's (``parallel/``); rank 0 alone prints and writes
+the checkpoints, the CSV, the plot and the weights.  Otherwise rank 0 says
+why, as JAX does, and trains alone exactly as one process would, while the
+other ranks stand aside.
+
 Not ported: ``export-serving`` (``jax.export`` artifacts are JAX's own; the
 port serves in process, ``serving.Server``), ``--remat`` and
 ``--scan-stages`` (XLA's compile-size devices), ``--segmented`` (ROADMAP
@@ -33,12 +46,14 @@ from glob import glob
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import resolve_device
 from .compat.io import load_state_dict_strict
 from .configs import CONFIGS, build_model, get_config
 from .data import DataLoader, SegmentationDataSource, train_test_indices
 from .data.dataset import decode_resize
+from .parallel import batch_sharding, initialize_runtime, make_mesh, rank_device
 from .train.checkpoint import CheckpointStore, load_weights, save_weights
 from .train.engine import FitConfig, evaluate, fit, make_eval_step, make_optimizer
 from .train.reporting import config_banner, plot_metrics, save_metrics_to_csv
@@ -185,6 +200,15 @@ def load_weights_into(model: torch.nn.Module, weights: str) -> str:
 
 
 def run_train(args) -> int:
+    owns_group = not dist.is_initialized()
+    try:
+        return _train(args)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args) -> int:
     extra = {}
     if args.epochs is not None:
         extra["num_epochs"] = args.epochs
@@ -198,7 +222,26 @@ def run_train(args) -> int:
         extra["augment"] = None
     cfg = _config(args, **extra)
     run, n_classes = cfg.train, cfg.model.num_classes
-    device = resolve_device(args.device)
+    device = rank_device(args.device)  # cuda: this rank's card
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    rank, world = initialize_runtime(device=device)
+    say = print if rank == 0 else (lambda *a, **k: None)
+
+    # data parallelism as JAX's CLI decides it: the batch split over the
+    # ranks where it divides, else one rank trains as a single process would
+    mesh = None
+    if world > 1:
+        if run.data_parallel and run.batch_size % world == 0:
+            mesh = make_mesh(device=device)
+        else:
+            if run.data_parallel:
+                say(f"data_parallel requested but batch_size {run.batch_size} is not "
+                    f"divisible by {world} devices; training single-device")
+            else:
+                say(f"data_parallel is off for config '{cfg.name}'; training single-device")
+            if rank > 0:
+                return 0
     # class-id masks are resampled by nearest neighbour, on the host and in
     # the augmentation; binary masks keep the reference's bilinear path
     multiclass = n_classes > 1
@@ -208,22 +251,25 @@ def run_train(args) -> int:
     size = (cfg.image_size, cfg.image_size)
     source = SegmentationDataSource(args.image_dir, args.mask_dir, size,
                                     mask_nearest=multiclass)
-    if multiclass:
+    if multiclass and rank == 0:
         _warn_intensity_masks(source, cfg)
     train_idx, test_idx = train_test_indices(len(source), run.test_split, run.seed)
-    train_loader = DataLoader(source, train_idx, run.batch_size, shuffle=True,
-                              num_workers=run.num_workers, seed=run.seed,
-                              cache_decoded=args.cache_decoded)
+    train_loader = DataLoader(
+        source, train_idx, run.batch_size, shuffle=True, num_workers=run.num_workers,
+        seed=run.seed, cache_decoded=args.cache_decoded,
+        sharding=batch_sharding(mesh, grad_accum=run.grad_accum) if mesh else None)
     test_loader = DataLoader(source, test_idx, run.batch_size, shuffle=False,
                              num_workers=max(1, run.num_workers // 2),
-                             cache_decoded=args.cache_decoded)
+                             cache_decoded=args.cache_decoded,
+                             sharding=batch_sharding(mesh) if mesh else None)
 
     model = build_model(cfg.model, device=device, seed=run.seed)
     opt = make_optimizer(run.optimizer, run.learning_rate, run.weight_decay,
                          model.parameters())
-    print(config_banner({
+    say(config_banner({
         "config": cfg.name,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "mesh": f"{mesh.shape} ({world} ranks)" if mesh else "single-device",
         "dataset": f"{len(source)} images ({len(train_idx)} train / {len(test_idx)} test)",
         "image_size": cfg.image_size,
         "batch_size": run.batch_size,
@@ -247,25 +293,33 @@ def run_train(args) -> int:
         progress=not args.no_progress, log_every=args.log_every,
         tensorboard_dir=args.tensorboard_dir)
     if args.init_weights:
-        print(f"Initialised from {load_weights_into(model, args.init_weights)}")
+        say(f"Initialised from {load_weights_into(model, args.init_weights)}")
 
     scheduler = make_plateau_scheduler(opt, run.plateau_factor, run.plateau_patience,
                                        run.plateau_min_lr)
     history, start_epoch, global_step = None, 0, 0
-    if args.resume and store.latest_epoch() is not None:
+    latest = store.latest_epoch()
+    if mesh is not None:  # every rank has read the store before rank 0 may clear it
+        mesh.barrier()
+    if args.resume and latest is not None:
         sched_state, history, start_epoch, global_step = store.restore(model, opt)
         if sched_state is not None:
             scheduler.load_state_dict(sched_state)
-        print(f"Resumed from epoch {start_epoch}")
-    elif store.latest_epoch() is not None:
-        print(f"warning: {ckpt_dir} holds checkpoints from a previous run (latest epoch "
-              f"{store.latest_epoch()}); starting FRESH and clearing them - pass --resume to "
-              f"continue that run instead")
-        store.reset()
+        say(f"Resumed from epoch {start_epoch}")
+    elif latest is not None:
+        say(f"warning: {ckpt_dir} holds checkpoints from a previous run (latest epoch "
+            f"{latest}); starting FRESH and clearing them - pass --resume to "
+            f"continue that run instead")
+        if rank == 0:
+            store.reset()
 
     history, _ = fit(model, opt, train_loader, test_loader, fit_cfg, history=history,
-                     scheduler=scheduler, start_epoch=start_epoch, global_step=global_step)
+                     scheduler=scheduler, start_epoch=start_epoch, global_step=global_step,
+                     mesh=mesh)
 
+    if rank > 0:  # rank 0 writes the outputs; no rank leaves before they are written
+        mesh.barrier()
+        return 0
     os.makedirs(args.output_dir, exist_ok=True)
     prefix = os.path.join(args.output_dir, run.output_prefix)
     save_metrics_to_csv(history, f"{prefix}_training_metrics.csv")
@@ -283,6 +337,8 @@ def run_train(args) -> int:
           f"{prefix}_training_metrics.csv, {plot}{prefix}_final_weights.pth, "
           f"checkpoints in {ckpt_dir}")
     store.close()
+    if mesh is not None:
+        mesh.barrier()
     return 0
 
 

@@ -19,16 +19,17 @@ configs (``configs.py:154``, ``:171``): the flagship's geometry at 1024^2
 and 2048^2 (windows of 512 and 1024 tokens, a 4096-token global window on
 the flash path), AdamW lr 1e-4, weight decay 1e-4, batch 2 and 1.  What
 the JAX entries add is not ported: ``scan_stages`` (an XLA compile-size
-device), the segmented step (queue A item 10; the port trains 2048^2 in
-one eager step) and the augmentation pipeline (queue A item 5).
-``cswin_simam_1024`` trains with ``grad_accum=2``, as its JAX entry does.
+device) and the segmented step (queue A item 10; the port trains 2048^2 in
+one eager step).  ``cswin_simam_1024`` trains with ``grad_accum=2``, as its
+JAX entry does, and ``cswin_simam_2048`` without data parallelism, as its
+JAX entry does.
 
 ``cswin_simam_512_dp`` is the JAX package's multi-class entry
 (``configs.py:142-147``): the flagship's geometry with 4 classes, SimAM,
-drops 0.3, AdamW lr 1e-4, weight decay 1e-4, batch 16, in bf16 as the
-port's flagship computes (the JAX entry keeps its float32 default).  JAX
-splits its global batch of 16 over a data-parallel mesh; the port runs it
-on one card, since data parallelism is ROADMAP queue A item 9.
+drops 0.3, AdamW lr 1e-4, weight decay 1e-4, batch 16, in float32 as the
+JAX entry computes (``model_dtype="bfloat16"``, or the CLI's ``--bf16``,
+gives bf16).  Its global batch of 16 is split over the ranks of a
+data-parallel run (``parallel/``), as JAX splits it over its mesh.
 
 ``cswin_tiny_224`` and ``cswin_simam_224`` are the JAX package's configs 3
 and 4 (``configs.py:128-138``): a narrow shallow CSWin-UNet without SimAM
@@ -49,8 +50,10 @@ and none of the CSWin-only fields.
 
 ``TrainConfig`` carries the run fields of JAX's ``TrainRunConfig``
 (``configs.py:53-85``): epochs, the plateau schedule, the split, the seed,
-the augmentation, the loader's workers, the checkpoint directory and the
-prefix of the output files.  :func:`get_config` gives a config by name with
+the augmentation, the loader's workers, data parallelism (on by default, as
+in JAX: the CLI splits the batch over the ranks of
+``torch.distributed.run`` where it divides), the checkpoint directory and
+the prefix of the output files.  :func:`get_config` gives a config by name with
 fields overridden as JAX's does: ``model_<field>`` for the model's fields,
 ``image_size`` for its resolution, any other name for a run field.
 """
@@ -103,6 +106,7 @@ class TrainConfig:
     seed: int = 42
     augment: Optional[AugmentConfig] = AugmentConfig()
     num_workers: int = 4
+    data_parallel: bool = True  # split the batch over the ranks of the run
     checkpoint_dir: Optional[str] = None
     output_prefix: str = "cswin_simam_512"
 
@@ -131,7 +135,7 @@ CONFIGS = {
     "cswin_simam_512": ModelConfig(**DROPS),
     "cswinunet": ModelConfig(img_size=448, split_size=(1, 2, 7, 7), use_simam=False,
                              dtype="float32", **DROPS),
-    "cswin_simam_512_dp": ModelConfig(num_classes=4, **DROPS),
+    "cswin_simam_512_dp": ModelConfig(num_classes=4, dtype="float32", **DROPS),
     "cswin_simam_1024": ModelConfig(img_size=1024, **DROPS),
     "cswin_simam_2048": ModelConfig(img_size=2048, **DROPS),
     "cswin_tiny_224": ModelConfig(img_size=224, embed_dim=32, depth=(1, 2, 2, 1),
@@ -148,7 +152,7 @@ TRAIN_CONFIGS = {name: TrainConfig(output_prefix=name, **kw) for name, kw in (
     ("cswinunet", dict(batch_size=2)),
     ("cswin_simam_512_dp", dict(batch_size=16)),
     ("cswin_simam_1024", dict(batch_size=2, grad_accum=2)),
-    ("cswin_simam_2048", dict(batch_size=1)),
+    ("cswin_simam_2048", dict(batch_size=1, data_parallel=False)),
     ("cswin_tiny_224", dict(batch_size=2)),
     ("cswin_simam_224", dict(batch_size=8)),
 )}

@@ -174,11 +174,16 @@ def augment_from_params(images: torch.Tensor, masks: torch.Tensor, hflip, vflip,
 
 
 def augment_batch(generator: torch.Generator, images: torch.Tensor, masks: torch.Tensor,
-                  cfg: AugmentConfig = AugmentConfig()):
+                  cfg: AugmentConfig = AugmentConfig(), rows=None):
     """Augment a batch on its device: :func:`draw_params` from
-    ``generator``, then :func:`augment_from_params`."""
-    return augment_from_params(images, masks, *draw_params(generator, images.shape[0], cfg),
-                               cfg=cfg)
+    ``generator``, then :func:`augment_from_params`.  ``rows = (offset,
+    n)``: the batch is rows [offset, offset + B) of a batch of n (a rank's
+    share of a global batch), whose n draws are made and these rows'
+    applied."""
+    B = images.shape[0]
+    offset, n = rows or (0, B)
+    draws = [d[offset:offset + B] for d in draw_params(generator, n, cfg)]
+    return augment_from_params(images, masks, *draws, cfg=cfg)
 
 
 def augment_one(image, mask, hflip, vflip, k, scale, top_u, left_u,

@@ -3,11 +3,17 @@ host-to-device prefetch.
 
 Counterpart of ``cswin_simam_unet_tpu/data/pipeline.py``.  ``DataLoader``
 decodes and resizes in a thread pool (libjpeg, cv2 and PIL release the GIL)
-and yields uint8 numpy batches; ``device_prefetch`` (without JAX's
-``sharding`` argument: data parallelism is ROADMAP queue A item 9) moves
-them to the device through pinned memory with non-blocking copies, ``size``
-batches ahead of the consumer, so each copy overlaps the work on the batch
-before it.  Scaling and augmentation happen on the device, in the step.
+and yields uint8 numpy batches; ``device_prefetch`` moves them to the
+device through pinned memory with non-blocking copies, ``size`` batches
+ahead of the consumer, so each copy overlaps the work on the batch before
+it.  Scaling and augmentation happen on the device, in the step.
+
+Under data parallelism (a ``parallel.BatchSharding``) every rank walks the
+same global order and keeps its rows of each batch: ``DataLoader(...,
+sharding=)`` decodes only those rows, ``device_prefetch(..., sharding=)``
+takes them from a loader of global batches, and both yield ``(images,
+masks, global batch size)``, which the training and eval steps take.  A
+batch that does not split evenly is kept whole on every rank.
 """
 
 from __future__ import annotations
@@ -31,12 +37,14 @@ class DataLoader:
     ``fit`` calls, so a resumed run sees the unbroken run's order), the
     partial last batch kept unless ``drop_last``.  ``cache_decoded`` keeps
     the decoded samples in host memory after their first load (the same
-    values; later epochs skip the decode)."""
+    values; later epochs skip the decode).  With ``sharding`` (a
+    ``parallel.BatchSharding``) the loader loads this rank's rows of each
+    batch only and yields (images, masks, batch size)."""
 
     def __init__(self, source, indices: Optional[Sequence[int]] = None, batch_size: int = 4,
                  shuffle: bool = False, num_workers: int = 4, seed: int = 0,
                  drop_last: bool = False, prefetch: int = 2, use_native: bool = True,
-                 cache_decoded: bool = False):
+                 cache_decoded: bool = False, sharding=None):
         self.source = source
         self.indices = np.asarray(indices if indices is not None else np.arange(len(source)))
         self.batch_size = batch_size
@@ -48,6 +56,7 @@ class DataLoader:
         self.use_native = use_native
         self._cache: Optional[dict] = {} if cache_decoded else None
         self._epoch = 0
+        self.sharding = sharding
 
     def __len__(self) -> int:
         n = len(self.indices)
@@ -89,6 +98,8 @@ class DataLoader:
 
             def assemble(idx_batch):
                 idx = [int(i) for i in idx_batch]
+                if self.sharding is not None:
+                    idx = [idx[r] for r in self.sharding.rows(len(idx_batch))]
                 if self._cache is None:
                     samples = self._load_many(idx, decode_pool)
                 else:
@@ -96,7 +107,8 @@ class DataLoader:
                     if miss:
                         self._cache.update(zip(miss, self._load_many(miss, decode_pool)))
                     samples = [self._cache[i] for i in idx]
-                return (np.stack([s[0] for s in samples]), np.stack([s[1] for s in samples]))
+                arrays = (np.stack([s[0] for s in samples]), np.stack([s[1] for s in samples]))
+                return arrays if self.sharding is None else (*arrays, len(idx_batch))
 
             pending: collections.deque = collections.deque()
             it = iter(batches)
@@ -121,15 +133,34 @@ def _put(x, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def device_prefetch(iterator, device, size: int = 2):
+def _local(batch: tuple, sharding) -> tuple:
+    """(images, masks, global batch size) of this rank: a batch that
+    already carries its global size passes through (a sharded loader took
+    its rows), else this rank's rows of it are taken."""
+    if len(batch) == 3:
+        return batch
+    n = batch[0].shape[0]
+    rows = sharding.rows(n)
+    if len(rows) < n:
+        batch = tuple(x[rows] for x in batch)
+    return (*batch, n)
+
+
+def device_prefetch(iterator, device, size: int = 2, sharding=None):
     """Yield the batches of ``iterator`` (tuples of numpy arrays or tensors)
     on ``device``, in order, with up to ``size`` copies in flight.  Tensors
-    already on ``device`` pass through."""
+    already on ``device`` pass through.  With ``sharding`` (JAX's argument:
+    a ``parallel.BatchSharding``) each batch is this rank's rows of it and
+    its global size, ``(images, masks, n)``; only those rows are copied."""
     device = torch.device(device)
     queue: collections.deque = collections.deque()
     it = iter(iterator)
     for batch in it:
-        queue.append(tuple(_put(x, device) for x in batch))
+        if sharding is not None:
+            *arrays, n = _local(tuple(batch), sharding)
+            queue.append((*(_put(x, device) for x in arrays), n))
+        else:
+            queue.append(tuple(_put(x, device) for x in batch))
         if len(queue) > size:
             yield queue.popleft()
     while queue:

@@ -197,12 +197,16 @@ class CSWinUNet(nn.Module):
         return DropoutRng(rng, self.device)
 
     def forward(self, x: torch.Tensor, use_kernels: bool = True, flat_logits: bool = False,
-                train: bool = False, rng: int | None = None) -> torch.Tensor:
+                train: bool = False, rng: int | None = None,
+                stats_mesh=None) -> torch.Tensor:
         """x (B, img, img, in_chans) float -> logits (B, img, img, classes)
         in the compute dtype; with ``flat_logits`` the pre-pixel-shuffle
         (B, img/4, img/4, 16*classes) layout, lane ``s*classes + c``.
         ``train=True`` applies dropout, attention dropout and drop-path with
-        the randomness of ``rng`` (see :meth:`dropout_rng`)."""
+        the randomness of ``rng`` (see :meth:`dropout_rng`).  ``stats_mesh``
+        is the UNet's (BatchNorm over the ranks' global batch): the
+        CSWin-UNet normalises per token and per sample only, so it changes
+        nothing here."""
         r0, S = self.resos[0], FLAT_HEAD_FACTOR
         tokens = self.features(x, use_kernels, self.dropout_rng(train, rng))
         if use_kernels:

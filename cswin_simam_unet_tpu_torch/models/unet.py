@@ -19,10 +19,13 @@ variance and then moves the running statistics, under ``no_grad``, as flax
 does: ``running = 0.9 running + 0.1 batch`` with the *biased* batch
 variance (``nn.BatchNorm2d`` would store the unbiased one, n/(n-1) times
 larger), statistics in float32 whatever the compute dtype.  An eval
-forward normalises with the running statistics.  SimAM follows each
-encoder block (``inc``, ``down1``-``down4``) only.  The convolutions are
-cuDNN's (the JAX package leaves them to XLA, outside any Pallas kernel),
-so the model runs no kernel of this port.
+forward normalises with the running statistics.  Under data parallelism
+(``forward(..., stats_mesh=)``, which the training step passes when it
+splits a batch over the ranks) the batch's moments are the global batch's,
+summed over the ranks as flax's partitioned BatchNorm computes them.
+SimAM follows each encoder block (``inc``, ``down1``-``down4``) only.  The
+convolutions are cuDNN's (the JAX package leaves them to XLA, outside any
+Pallas kernel), so the model runs no kernel of this port.
 """
 
 from __future__ import annotations
@@ -61,21 +64,47 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
         self.momentum, self.eps = momentum, eps
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, stats_mesh=None) -> torch.Tensor:
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
-        # the batch's mean and 1/sqrt(biased var + eps), float32 for every
-        # input dtype; no running statistics in the call, so torch moves none
-        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True,
-                                                  0.0, self.eps)
+        if stats_mesh is not None and stats_mesh.size > 1:
+            y, mean, var = self._global_batch_norm(x, stats_mesh)
+        else:
+            # the batch's mean and 1/sqrt(biased var + eps), float32 for every
+            # input dtype; no running statistics in the call, so torch moves none
+            y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                      True, 0.0, self.eps)
+            var = None
         with torch.no_grad():
-            var = (invstd.float().pow(-2) - self.eps).clamp_min(0.0)
+            if var is None:
+                var = (invstd.float().pow(-2) - self.eps).clamp_min(0.0)
             m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean.float(), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.running_mean.mul_(1.0 - m).add_(mean.detach().float(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor, mesh):
+        """Normalise this rank's rows with the moments of the global batch,
+        flax's formula (``_compute_stats`` with ``use_fast_variance``): the
+        sums of x and x^2 (float32, or x's wider dtype) and the count over
+        every rank, then ``var = max(E[x^2] - E[x]^2, 0)``.  The sums are
+        all-reduced differentiably, so the gradients are the global
+        batch's."""
+        from ..parallel import all_reduce_sum
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = (0, 2, 3)
+        count = torch.full((1,), float(x.numel() // x.shape[1]), dtype=xf.dtype,
+                           device=x.device)
+        sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]), mesh)
+        C, n = x.shape[1], sums[-1]
+        mean, mean_sq = sums[:C] / n, sums[C:2 * C] / n
+        var = (mean_sq - mean * mean).clamp_min(0.0)
+        shape = (1, C, 1, 1)
+        scale = (self.weight.to(xf.dtype) * torch.rsqrt(var + self.eps)).reshape(shape)
+        y = (xf - mean.reshape(shape)) * scale + self.bias.to(xf.dtype).reshape(shape)
+        return y.to(x.dtype), mean, var
 
 
 class DoubleConv(nn.Module):
@@ -90,10 +119,10 @@ class DoubleConv(nn.Module):
             nn.Conv2d(cout, cout, 3, padding=1), BatchNorm(cout), nn.ReLU(inplace=True)])
         self.use_simam = use_simam
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, stats_mesh=None) -> torch.Tensor:
         for layer in self.double_conv:
             if isinstance(layer, BatchNorm):
-                x = layer(x, train)
+                x = layer(x, train, stats_mesh)
             elif isinstance(layer, nn.Conv2d):
                 x = _conv(x, layer)
             else:
@@ -110,9 +139,9 @@ class Down(nn.Module):
         super().__init__()
         self.maxpool_conv = nn.ModuleList([nn.MaxPool2d(2), DoubleConv(cin, cout, use_simam)])
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, stats_mesh=None) -> torch.Tensor:
         pool, conv = self.maxpool_conv
-        return conv(pool(x), train)
+        return conv(pool(x), train, stats_mesh)
 
 
 class Up(nn.Module):
@@ -124,8 +153,9 @@ class Up(nn.Module):
         self.up = nn.ConvTranspose2d(cin, cin // 2, 2, stride=2)
         self.conv = DoubleConv(cin, cout)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor, train: bool) -> torch.Tensor:
-        return self.conv(torch.cat([skip, _conv(x, self.up)], dim=1), train)
+    def forward(self, x: torch.Tensor, skip: torch.Tensor, train: bool,
+                stats_mesh=None) -> torch.Tensor:
+        return self.conv(torch.cat([skip, _conv(x, self.up)], dim=1), train, stats_mesh)
 
 
 class UNet(nn.Module):
@@ -180,10 +210,14 @@ class UNet(nn.Module):
         return self.outc.weight.device
 
     def forward(self, x: torch.Tensor, use_kernels: bool = True, flat_logits: bool = False,
-                train: bool = False, rng: int | None = None) -> torch.Tensor:
+                train: bool = False, rng: int | None = None,
+                stats_mesh=None) -> torch.Tensor:
         """x (B, H, W, n_channels) float -> logits (B, H, W, n_classes) in
         the compute dtype.  ``train=True`` normalises with the batch's
-        statistics and moves the running ones; else the running ones.  The
+        statistics and moves the running ones; else the running ones.  With
+        ``stats_mesh`` (a ``parallel.Mesh`` of several ranks, each holding
+        its rows of one global batch) the batch's statistics are the global
+        batch's, summed over the ranks.  The
         CSWin-UNet's signature, which the training and eval steps call: the
         UNet runs no kernel of the port and has no dropout, so
         ``use_kernels`` and ``rng`` change nothing, and it has no flat head
@@ -194,12 +228,12 @@ class UNet(nn.Module):
             raise ValueError(f"UNet: image {tuple(x.shape[1:3])} must divide by "
                              f"{2 ** DEPTH} on both sides")
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        skips = [self.inc(x, train)]
+        skips = [self.inc(x, train, stats_mesh)]
         for i in range(1, DEPTH + 1):
-            skips.append(getattr(self, f"down{i}")(skips[-1], train))
+            skips.append(getattr(self, f"down{i}")(skips[-1], train, stats_mesh))
         y = skips.pop()
         for i in range(1, DEPTH + 1):
-            y = getattr(self, f"up{i}")(y, skips.pop(), train)
+            y = getattr(self, f"up{i}")(y, skips.pop(), train, stats_mesh)
         return _conv(y, self.outc).permute(0, 2, 3, 1).contiguous()
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:

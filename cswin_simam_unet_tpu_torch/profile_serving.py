@@ -1,12 +1,13 @@
 """Where the time of serving, or of a training step, goes on the card.
 
     python -m cswin_simam_unet_tpu_torch.profile_serving [--batch 8] [--steps 5] [--repeats 3]
-        [--train] [--config cswin_simam_512] [--no-drops] [--no-tf32]
+        [--train] [--config cswin_simam_512] [--no-drops] [--no-tf32] [--bf16]
 
 Builds the configuration (``--config``, default ``cswin_simam_512``, random
 weights from seed 0; ``--no-drops`` sets its dropout, attention dropout and
 drop-path rates to 0, which only training uses; ``--no-tf32`` keeps cuDNN's
-float32 convolutions off TF32) and warms up.  Then, ``--repeats``
+float32 convolutions off TF32; ``--bf16`` computes in bf16 whatever the
+config's dtype) and warms up.  Then, ``--repeats``
 times, it times ``--steps`` forwards of one ``--batch`` request (with
 ``--train``: training steps of ``make_train_step`` with the
 configuration's optimizer settings, classes and ``grad_accum`` on one
@@ -83,10 +84,13 @@ def main() -> None:
     ap.add_argument("--no-drops", action="store_true", help="dropout rates 0")
     ap.add_argument("--no-tf32", action="store_true",
                     help="cuDNN's float32 convolutions without TF32 (torch's default allows it)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bfloat16 compute dtype (default: the config's own)")
     args = ap.parse_args()
     torch.backends.cudnn.allow_tf32 = not args.no_tf32
 
-    model = build_model(args.config, **(NO_DROPS if args.no_drops else {}))
+    model = build_model(args.config, **(NO_DROPS if args.no_drops else {}),
+                        **({"dtype": "bfloat16"} if args.bf16 else {}))
     img = CONFIGS[args.config].img_size
     rs = np.random.RandomState(0)
     images = rs.randint(0, 256, (args.batch, img, img, 3), np.uint8)

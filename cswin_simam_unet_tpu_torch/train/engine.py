@@ -30,8 +30,19 @@ for no flat logits (``supports_flat_logits`` False, see
 :func:`_flat_head`).  The module's ``training`` flag is never set or read.
 Metrics stay on the device: ``evaluate`` and ``fit`` fetch them once at the
 end of a pass.
-Data parallelism (ROADMAP queue A item 9) and the segmented step (item 10)
-are not ported yet.
+
+Data parallelism (``mesh``, a ``parallel.Mesh``): each rank takes its rows
+of the global batch (``parallel.batch_sharding``), and the step makes what
+JAX's partitioner would: after the last micro-batch one all-reduce a dtype
+averages the gradients over the ranks, the loss is the global batch's mean
+and Dice and IoU come from the summed counts; a UNet's BatchNorm sums its
+moments over the ranks.  A batch that does not split evenly is computed
+whole by every rank, and its gradients, loss and counts are averaged.
+Augmentation draws the global (micro-)batch's parameters and each rank
+applies its rows', so it equals one process; dropout, drop-path and the
+attention masks come from a stream of each rank's own (:func:`rank_seed`),
+whose rank 0 is the stream of a run without a mesh.  The segmented step
+(ROADMAP queue A item 10) is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from ..data.pipeline import device_prefetch
 from ..models.cswin import FLAT_HEAD_FACTOR
 from ..ops.dropout import mix_seed
 from ..ops.windows import pixel_unshuffle
+from ..parallel.mesh import batch_sharding, shard_state
 from .losses import segmentation_loss
 from .reporting import EpochProgress, TensorBoardLogger
 from .schedule import make_plateau_scheduler
@@ -56,6 +68,9 @@ METRICS = ("loss", "dice", "iou")
 # the counter of the augmentation's stream of a step seed: the attention
 # calls of a forward take the counters 1, 2, ... of the same seed
 AUGMENT_STREAM = 0x41554721
+# the counter of rank r's dropout stream of a step seed is RANK_STREAM + r
+# (rank 0 keeps the step seed itself)
+RANK_STREAM = 0x52414E4B
 
 
 def make_optimizer(kind: str, learning_rate: float, weight_decay: float,
@@ -138,22 +153,28 @@ def _metrics_from_sums(sums: torch.Tensor, smooth: float = 1e-6):
     return dice, iou
 
 
-def _batch_metrics(logits: torch.Tensor, targets: torch.Tensor, n_classes: int):
-    return _metrics_from_sums(_metric_sums(logits, targets, n_classes))
-
-
 def augment_seed(rng: int) -> int:
     """The seed of the augmentation's draws of one (micro-)batch, from the
     seed ``rng`` that its dropout uses."""
     return mix_seed(int(rng), AUGMENT_STREAM)
 
 
+def rank_seed(rng: int, rank: int) -> int:
+    """The seed of rank ``rank``'s dropout, drop-path and attention masks
+    in a step of seed ``rng``: ``rng`` itself on rank 0, so that rank 0 of
+    a mesh draws what a run without one draws."""
+    return int(rng) if rank == 0 else mix_seed(int(rng), RANK_STREAM + rank)
+
+
 def _inputs(model: torch.nn.Module, images_u8, masks_u8, n_classes: int,
-            augment: Optional[AugmentConfig] = None, rng: Optional[int] = None):
+            augment: Optional[AugmentConfig] = None, rng: Optional[int] = None,
+            draw_rows: Optional[tuple] = None):
     """uint8 batch -> (images, targets) on the model's device: scale,
     augment from :func:`augment_seed` (``rng``) where ``augment`` is given,
     finalise the targets, then unshuffle the binary head's (JAX's order:
-    the paired transform needs the masks at image resolution)."""
+    the paired transform needs the masks at image resolution).
+    ``draw_rows = (offset, n)``: the batch is rows [offset, offset + B) of
+    a global batch of n, whose n draws are made and this batch's applied."""
     device = model.device
     images, masks = _prepare_batch(_to_device(images_u8, device),
                                    _to_device(masks_u8, device), n_classes)
@@ -162,7 +183,7 @@ def _inputs(model: torch.nn.Module, images_u8, masks_u8, n_classes: int,
             raise ValueError("an augmented batch needs rng (an integer seed)")
         generator = torch.Generator(device=device)
         generator.manual_seed(augment_seed(rng))
-        images, masks = augment_batch(generator, images, masks, augment)
+        images, masks = augment_batch(generator, images, masks, augment, draw_rows)
     targets = _finalize_targets(masks, n_classes)
     if _flat_head(model, n_classes):
         return images, pixel_unshuffle(targets, FLAT_HEAD_FACTOR)
@@ -171,17 +192,22 @@ def _inputs(model: torch.nn.Module, images_u8, masks_u8, n_classes: int,
 
 def compute_gradients(model: torch.nn.Module, images_u8, masks_u8, n_classes: int = 1,
                       use_kernels: bool = True, rng=None, weight: float = 1.0,
-                      augment: Optional[AugmentConfig] = None):
+                      augment: Optional[AugmentConfig] = None, rank: int = 0,
+                      stats_mesh=None, draw_rows: Optional[tuple] = None):
     """Training forward (``train=True``, dropout randomness from the host
     seed ``rng``), loss and backward of ``weight`` x the loss on one uint8
     batch, augmented first where ``augment`` is given (draws from
     :func:`augment_seed` of ``rng``); the gradients are added to the
     parameters' ``.grad``.  Returns the loss, the logits (flat for the
     binary head, image layout for several classes) and the targets,
-    detached."""
-    images, targets = _inputs(model, images_u8, masks_u8, n_classes, augment, rng)
+    detached.  On rank ``rank`` of a mesh the batch is that rank's rows
+    ``draw_rows`` of the global batch (see :func:`_inputs`), its dropout
+    draws from :func:`rank_seed`, and a UNet's BatchNorm sums its moments
+    over ``stats_mesh``."""
+    images, targets = _inputs(model, images_u8, masks_u8, n_classes, augment, rng, draw_rows)
     logits = model(images, use_kernels=use_kernels, flat_logits=_flat_head(model, n_classes),
-                   train=True, rng=rng)
+                   train=True, rng=None if rng is None else rank_seed(rng, rank),
+                   stats_mesh=stats_mesh)
     loss = segmentation_loss(logits, targets, n_classes)
     (loss * weight).backward()
     return loss.detach(), logits.detach(), targets
@@ -199,10 +225,51 @@ def micro_batches(batch: int, grad_accum: int) -> list:
             for lo, hi in zip(bounds[:-1], bounds[1:])]
 
 
+def _local_rows(sharding, images_u8, masks_u8, global_batch: Optional[int]):
+    """(images, masks, global batch, split) of this rank: ``images_u8`` is
+    the global batch, or (``global_batch`` given) this rank's rows of one
+    already taken by ``sharding``; ``split`` whether the batch is split
+    over the ranks (else every rank holds it whole)."""
+    if sharding is None:
+        return images_u8, masks_u8, images_u8.shape[0], False
+    if global_batch is None:
+        global_batch = images_u8.shape[0]
+        rows = sharding.rows(global_batch)
+        if len(rows) < global_batch:
+            images_u8, masks_u8 = images_u8[rows], masks_u8[rows]
+    elif images_u8.shape[0] != len(sharding.rows(global_batch)):
+        raise ValueError(f"{images_u8.shape[0]} rows are not this rank's share of a global "
+                         f"batch of {global_batch}")
+    return images_u8, masks_u8, int(global_batch), sharding.splits(global_batch)
+
+
+def _reduce_over_ranks(mesh, grads: list, loss: torch.Tensor, sums: torch.Tensor,
+                       split: bool):
+    """One all-reduce a dtype over the ranks: the gradients (``grads``, in
+    place) and the loss averaged; the metric counts summed for a split
+    batch, averaged for one that every rank computed whole.  The loss and
+    counts travel in the float32 buffer."""
+    n = mesh.size
+    stats = torch.cat([loss.detach().float().reshape(1), sums.detach().float().reshape(-1)])
+    groups: dict = {torch.float32: []}
+    for g in grads:
+        groups.setdefault(g.dtype, []).append(g)
+    for dtype, group in groups.items():
+        parts = [g.reshape(-1) for g in group] + ([stats] if dtype == torch.float32 else [])
+        flat = mesh.all_reduce_(torch.cat(parts))
+        offset = 0
+        for g in group:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g)).div_(n)
+            offset += g.numel()
+        if dtype == torch.float32:
+            stats = flat[offset:]
+    return stats[0] / n, stats[1:].reshape(sums.shape) / (1 if split else n)
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     n_classes: int = 1, use_kernels: bool = True,
                     augment: Optional[AugmentConfig] = None, grad_accum: int = 1,
-                    seed: int = 0) -> Callable:
+                    seed: int = 0, mesh=None) -> Callable:
     """The step ``(images_u8 (B, H, W, C), masks_u8 (B, H, W, 1), rng=None)
     -> {'loss', 'dice', 'iou'}`` (0-d float32 tensors on the model's device;
     reading them synchronises).  One optimizer step per call.
@@ -217,27 +284,46 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``augment`` each micro-batch is augmented on the device from its own
     seed's augmentation stream (JAX folds the micro-batch index into its
     augmentation key the same way); class-id masks need
-    ``augment.mask_nearest``."""
+    ``augment.mask_nearest``.
+
+    With ``mesh`` (a ``parallel.Mesh``) the step is one step of the global
+    batch over the ranks (see the module's docstring): every rank calls it
+    with the same ``rng``, and with the global batch, or with its rows of
+    one (``global_batch=`` the global batch's size, the rows that
+    ``parallel.batch_sharding(mesh, grad_accum=A)`` gives this rank).  The
+    returned metrics and ``.grad`` are the global batch's on every rank."""
     accum = int(grad_accum)
     if accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if n_classes > 1 and augment is not None and not augment.mask_nearest:
         raise ValueError("class-id masks need augment.mask_nearest=True: bilinear "
                          "resampling blends neighbouring class ids")
+    sharding = batch_sharding(mesh, grad_accum=accum) if mesh is not None else None
+    rank = mesh.rank if mesh is not None else 0
     calls = [0]
 
-    def step(images_u8, masks_u8, rng: Optional[int] = None) -> dict:
+    def step(images_u8, masks_u8, rng: Optional[int] = None,
+             global_batch: Optional[int] = None) -> dict:
         if rng is None:
             rng = mix_seed(seed, calls[0])
             calls[0] += 1
+        images_u8, masks_u8, n_global, split = _local_rows(sharding, images_u8, masks_u8,
+                                                           global_batch)
+        stats_mesh = mesh if split else None
         optimizer.zero_grad(set_to_none=True)
         loss, sums = 0.0, 0.0
         for i, (lo, hi, w) in enumerate(micro_batches(images_u8.shape[0], accum)):
+            # rows [lo, hi) of this rank are its share of global micro-batch i
+            draw_rows = (rank * (hi - lo), n_global // accum) if split else None
             mloss, logits, targets = compute_gradients(
                 model, images_u8[lo:hi], masks_u8[lo:hi], n_classes, use_kernels,
-                rng if accum == 1 else mix_seed(rng, i), w, augment)
+                rng if accum == 1 else mix_seed(rng, i), w, augment, rank, stats_mesh,
+                draw_rows)
             loss = loss + w * mloss
             sums = sums + _metric_sums(logits, targets, n_classes)
+        if mesh is not None:
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            loss, sums = _reduce_over_ranks(mesh, grads, loss, sums, split)
         optimizer.step()
         dice, iou = _metrics_from_sums(sums)
         return {"loss": loss, "dice": dice, "iou": iou}
@@ -245,17 +331,25 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     return step
 
 
-def make_eval_step(model: torch.nn.Module, n_classes: int = 1) -> Callable:
+def make_eval_step(model: torch.nn.Module, n_classes: int = 1, mesh=None) -> Callable:
     """The eval step ``(images_u8, masks_u8) -> {'loss', 'dice', 'iou'}``:
     an eval forward (``train=False``, no dropout) on the kernels under
-    ``no_grad``."""
+    ``no_grad``.  With ``mesh`` each rank evaluates its rows, taken as the
+    training step takes them (``global_batch=`` likewise), and the metrics
+    are the global batch's on every rank."""
+    sharding = batch_sharding(mesh) if mesh is not None else None
 
     @torch.no_grad()
-    def step(images_u8, masks_u8) -> dict:
+    def step(images_u8, masks_u8, global_batch: Optional[int] = None) -> dict:
+        images_u8, masks_u8, _, split = _local_rows(sharding, images_u8, masks_u8,
+                                                    global_batch)
         images, targets = _inputs(model, images_u8, masks_u8, n_classes)
         logits = model(images, flat_logits=_flat_head(model, n_classes), train=False)
         loss = segmentation_loss(logits, targets, n_classes)
-        dice, iou = _batch_metrics(logits, targets, n_classes)
+        sums = _metric_sums(logits, targets, n_classes)
+        if mesh is not None:
+            loss, sums = _reduce_over_ranks(mesh, [], loss, sums, split)
+        dice, iou = _metrics_from_sums(sums)
         return {"loss": loss, "dice": dice, "iou": iou}
 
     return step
@@ -271,11 +365,14 @@ def _fetch_means(per_batch: list) -> Dict[str, float]:
     return {k: float(v) for k, v in zip(METRICS, means)}
 
 
-def evaluate(eval_step: Callable, loader, device) -> Dict[str, float]:
+def evaluate(eval_step: Callable, loader, device, sharding=None) -> Dict[str, float]:
     """Metrics over a whole loader, averaged uniformly over batches (the
     reference's weighting, partial last batch included).  Each batch's
-    scalars stay on the device; one copy fetches them all at the end."""
-    per_batch = [eval_step(images, masks) for images, masks in device_prefetch(loader, device)]
+    scalars stay on the device; one copy fetches them all at the end.  With
+    ``sharding`` (the eval step's mesh's ``batch_sharding``) each rank
+    moves and evaluates its rows only."""
+    per_batch = [eval_step(*batch) for batch in device_prefetch(loader, device,
+                                                                sharding=sharding)]
     return _fetch_means(per_batch)
 
 
@@ -333,49 +430,67 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
     ``CheckpointStore.restore`` gives them back) follows the trajectory of
     the run that was not stopped.  With ``cfg.checkpoint_manager`` the
     epochs that ``checkpoint_every`` names, and the last, are saved; with
-    ``cfg.tensorboard_dir`` each epoch's metrics are logged there."""
+    ``cfg.tensorboard_dir`` each epoch's metrics are logged there.
+
+    With ``mesh`` (a ``parallel.Mesh``; every rank calls ``fit`` with the
+    same loaders, or with loaders sharded by ``parallel.batch_sharding``)
+    the state is replicated from rank 0 (``shard_state``), each rank moves
+    and trains on its rows of every batch, and the histories, the schedule
+    and the learning rates are the same on every rank.  Rank 0 alone
+    prints, writes the checkpoints and logs to TensorBoard; every rank
+    waits for each checkpoint."""
     for name, what, item in _NOT_PORTED:
         if getattr(cfg, name):
             raise NotImplementedError(f"FitConfig.{name}: {what} is not ported yet "
                                       f"(ROADMAP queue A item {item})")
-    if mesh is not None:
-        raise NotImplementedError("fit(mesh=...): data parallelism is not ported yet "
-                                  "(ROADMAP queue A item 9)")
     device = model.device
+    train_sharding = eval_sharding = None
+    main = mesh is None or mesh.is_main
+    if mesh is not None:
+        if mesh.device != device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the model's {device}")
+        shard_state(model, optimizer, mesh)
+        train_sharding = batch_sharding(mesh, grad_accum=cfg.grad_accum)
+        eval_sharding = batch_sharding(mesh)
+    verbose = cfg.verbose and main
     train_step = make_train_step(model, optimizer, cfg.n_classes, augment=cfg.augment,
-                                 grad_accum=cfg.grad_accum)
-    eval_step = make_eval_step(model, cfg.n_classes)
+                                 grad_accum=cfg.grad_accum, mesh=mesh)
+    eval_step = make_eval_step(model, cfg.n_classes, mesh=mesh)
     if scheduler is None:
         scheduler = make_plateau_scheduler(optimizer, cfg.plateau_factor,
                                            cfg.plateau_patience, cfg.plateau_min_lr)
     history = history if history is not None else empty_history()
-    tb = TensorBoardLogger(cfg.tensorboard_dir) if cfg.tensorboard_dir else None
+    tb = TensorBoardLogger(cfg.tensorboard_dir) if cfg.tensorboard_dir and main else None
 
     for epoch in range(start_epoch, cfg.num_epochs):
         t0 = time.time()
         if hasattr(train_loader, "set_epoch"):
             train_loader.set_epoch(epoch)
         per_batch, n_images, progress = [], 0, None
-        if cfg.verbose and cfg.progress:
+        if verbose and cfg.progress:
             total = len(train_loader) if hasattr(train_loader, "__len__") else None
             progress = EpochProgress(epoch, cfg.num_epochs, total)
-        for images, masks in device_prefetch(train_loader, device):
-            m = train_step(images, masks, rng=mix_seed(cfg.seed, epoch * 1_000_000 + global_step))
+        for images, masks, *share in device_prefetch(train_loader, device,
+                                                     sharding=train_sharding):
+            global_batch = share[0] if share else None
+            m = train_step(images, masks, rng=mix_seed(cfg.seed, epoch * 1_000_000 + global_step),
+                           global_batch=global_batch)
             per_batch.append(m)
-            n_images += images.shape[0]
+            batch_images = global_batch or images.shape[0]
+            n_images += batch_images
             global_step += 1
             if progress is not None and len(per_batch) > 1:
                 # the previous batch's scalars: that batch is done, so reading
                 # them does not wait on the step just enqueued
-                progress.update(len(per_batch) - 1, n_images - images.shape[0], per_batch[-2])
-            if cfg.verbose and cfg.log_every and len(per_batch) % cfg.log_every == 0:
+                progress.update(len(per_batch) - 1, n_images - batch_images, per_batch[-2])
+            if verbose and cfg.log_every and len(per_batch) % cfg.log_every == 0:
                 live = {k: float(v) for k, v in per_batch[-1].items()}
                 print(f"  epoch {epoch + 1} batch {len(per_batch)}: "
                       f"loss {live['loss']:.4f} dice {live['dice']:.4f} iou {live['iou']:.4f}")
         if progress is not None:
             progress.close()
         train_metrics = _fetch_means(per_batch)
-        test_metrics = evaluate(eval_step, test_loader, device)
+        test_metrics = evaluate(eval_step, test_loader, device, eval_sharding)
         # torch's scheduler sets the optimizer's learning rate itself
         scheduler.step(test_metrics["loss"])
         lr = get_learning_rate(optimizer)
@@ -388,7 +503,7 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
             tb.log_epoch(epoch + 1, train_metrics, test_metrics, lr)
 
         dt = time.time() - t0
-        if cfg.verbose:
+        if verbose:
             print(f"Epoch [{epoch + 1}/{cfg.num_epochs}]  "
                   f"({dt:.1f}s, {n_images / max(dt, 1e-9):.1f} img/s)")
             print(f"  Train - Loss: {train_metrics['loss']:.4f}, "
@@ -400,9 +515,12 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
         is_last = epoch + 1 == cfg.num_epochs
         due = cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0
         if cfg.checkpoint_manager is not None and (due or is_last):
-            cfg.checkpoint_manager.save_epoch(epoch + 1, model, optimizer, scheduler, history,
-                                              test_dice=test_metrics["dice"],
-                                              global_step=global_step)
+            if main:
+                cfg.checkpoint_manager.save_epoch(epoch + 1, model, optimizer, scheduler,
+                                                  history, test_dice=test_metrics["dice"],
+                                                  global_step=global_step)
+            if mesh is not None:
+                mesh.barrier()
     if tb is not None:
         tb.close()
     return history, global_step

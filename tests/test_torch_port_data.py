@@ -653,8 +653,8 @@ def test_mismatched_config_fails_clearly(exported, tmp_path):
                                   "cswin_simam_512_dp", "cswin_simam_1024",
                                   "cswin_simam_2048"])
 def test_get_config_matches_jax(name):
-    """The model's and the run's fields of each config that JAX has too;
-    the port computes cswin_simam_512_dp in bf16 where JAX keeps float32."""
+    """The model's and the run's fields of each config that JAX has too,
+    the compute dtype and data parallelism among them."""
     ours, theirs = configs.get_config(name), jax_configs.get_config(name)
     m, jm = ours.model, theirs.model
     assert (ours.image_size, m.num_classes, m.in_chans) == (theirs.image_size, jm.n_classes,
@@ -662,10 +662,10 @@ def test_get_config_matches_jax(name):
     for f in ("embed_dim", "depth", "split_size", "num_heads", "mlp_ratio", "qkv_bias",
               "drop_rate", "attn_drop_rate", "drop_path_rate", "use_simam"):
         assert getattr(m, f) == getattr(jm, f), f
-    assert m.dtype == ("bfloat16" if name == "cswin_simam_512_dp" else jm.dtype)
+    assert m.dtype == jm.dtype
     for f in ("batch_size", "optimizer", "learning_rate", "weight_decay", "num_epochs",
               "plateau_factor", "plateau_patience", "plateau_min_lr", "test_split", "seed",
-              "num_workers", "grad_accum", "checkpoint_dir", "output_prefix"):
+              "num_workers", "grad_accum", "data_parallel", "checkpoint_dir", "output_prefix"):
         assert getattr(ours.train, f) == getattr(theirs, f), f
     assert dataclasses.asdict(ours.train.augment) == dataclasses.asdict(theirs.augment)
     over = configs.get_config(name, image_size=64, model_dtype="bfloat16", num_epochs=3)

@@ -33,6 +33,7 @@ from cswin_simam_unet_tpu.train.schedule import ReduceLROnPlateau as JaxPlateau
 from cswin_simam_unet_tpu_torch.compat import cswin_state_dict, load_flax_params
 from cswin_simam_unet_tpu_torch.data import device_prefetch
 from cswin_simam_unet_tpu_torch.models import CSWinUNet
+from cswin_simam_unet_tpu_torch.parallel import Mesh
 from cswin_simam_unet_tpu_torch.train import engine, losses, metrics
 from cswin_simam_unet_tpu_torch.train.schedule import make_plateau_scheduler
 
@@ -420,8 +421,11 @@ def test_device_prefetch_keeps_order():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("segmented", True, 10), ("seg_depth_split", 2, 10), ("mesh", object(), 9)])
+    ("segmented", True, 10), ("seg_depth_split", 2, 10),
+    ("mesh", Mesh(1, 0, torch.device("cpu"), ("data", "model")), 9)])
 def test_fit_rejects_what_is_not_ported(field, value, item):
+    """The segmented step (item 10) and a mesh with a tensor-parallel axis
+    (item 9d; the data axis is ported)."""
     model = CSWinUNet(**TINY, use_simam=True, device="cpu")
     opt = engine.make_optimizer("adamw", LR, WD, model.parameters())
     cfg, kw = engine.FitConfig(num_epochs=1, verbose=False), {}
