@@ -20,7 +20,10 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    and the bf16 one on the tensor-core body (``_build.BODY_LAUNCHES``), and
    timed at rate 0.3 beside rate 0 (library: SDPA with ``dropout_p``), with
    its device time, the CUDA-core body's time in float32 on the same inputs
-   and the SFU/ALU floor of its exps and hashes.  K-C (and K-C' in phase 4)
+   and the SFU/ALU floor of its exps and hashes; K-A (and K-A' in phase 4)
+   also at a window offset (the flagship's horizontal stripes on the last of
+   two H-slabs, the mask keyed on the whole image's windows, as phase 10
+   runs them) against the plain version at the same offset.  K-C (and K-C' in phase 4)
    at each of the three decoder CARAFEs, each output also against its own
    max|plain|, and timed on the device behind a spin kernel at the 512^2
    (batch 8), 2048^2 (batch 1) and ``cswinunet`` (448^2, batch 2, float32)
@@ -150,6 +153,22 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    2`` at ``unet_256`` for one epoch of the JPEG pairs (rank 0 alone prints
    and writes; the weights load strictly).  Two ranks on one card read an
    overhead, not a scaling.
+10. spatial sharding: two ranks share the card over gloo, each holding half
+   the rows of every image (``parallel.spatial_unet_apply`` and
+   ``spatial_cswin_apply`` over a ``('spatial',)`` mesh): ``unet`` at full
+   width (448^2, batch 2, float32) against one process, eval and train
+   logits within 1e-4 x max(1, max|ref|), float64 gradients within 1e-9 x
+   max|g| (the float32 gap printed); ``cswin_simam_512`` at full width
+   (batch 2) eval in float32 against one process's forward with the kernels
+   on within 1e-3, train mode at drops 0.3 on 2 ranks against the same
+   function on 1, float32 within 1e-3 (gradients x max|g|) and bf16 within
+   2e-2 (the logits, and every gradient together as one output; per
+   parameter a record), each rank's launches of K-A, K-A', K-C and K-C' non-zero and equal,
+   the fused head's kernels none; K-A at a window offset against the slab's
+   rows of the plain whole-image forward and its keep rate; a record of the
+   ms of a sharded forward and of a forward + backward, each rank's peak
+   memory against one process's and the ms of a halo exchange and an
+   all-gather.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -426,6 +445,23 @@ def attention_geometries(model) -> dict:
             key = (mod.resolution, mod.get_v.weight.shape[0], mod.num_heads, mod.hsp, mod.wsp)
             geoms[key] = geoms.get(key, 0) + 1
     return geoms
+
+
+def offset_geometries(geoms: dict, shards: int = 2) -> list:
+    """The horizontal-stripe branches of ``geoms`` (attention_geometries) on
+    the last of ``shards`` H-slabs, as phase 10's sharded path runs them:
+    (slab rows, reso, Cb, the keywords of the call at dropout 0.3 with the
+    slab's window offset among the whole image's windows)."""
+    out = []
+    for reso, Cb, heads, hsp, wsp in sorted(geoms):
+        if hsp == reso:  # vertical stripes and the global window are gathered
+            continue
+        rows = reso // shards
+        nwin = (rows // hsp) * (reso // wsp)
+        out.append((rows, reso, Cb, dict(H=rows, W=reso, hsp=hsp, wsp=wsp, num_heads=heads,
+                                         attn_drop=DROP, seed=DROP_SEED,
+                                         win0=(shards - 1) * nwin, nwin_global=shards * nwin)))
+    return out
 
 
 def disc_arrays(img: int, batch: int, n_classes: int = 1, seed: int = SEED + 1):
@@ -2538,6 +2574,362 @@ def dp_phase(torch, engine, _build, build_model, train_configs, want_step, decod
     return out
 
 
+# ---- 10. spatial sharding ----
+
+SP_WORLD = 2                        # phase 10: two ranks, both on the one card (gloo)
+SP_BATCH = 2                        # images of every phase-10 run
+SP_RNG = 20261                      # the dropout seed of phase 10's train-mode runs
+SP_REPS = 3                         # timed sharded forwards and forward + backward passes
+SP_COLL_REPS = 10                   # timed halo exchanges and all-gathers
+SP_TIMEOUT_S = 300                  # the ranks of phase 10 together
+TOL_SP = 1e-3                       # cswin_simam_512 f32: logits x max(1, max|ref|), gradients
+                                    # x max|g|
+# the kernels the sharded CSWin path runs (K-A, K-A', K-C, K-C'), and the
+# fused head's, which it must not (it pools SimAM's moments per image)
+SP_KERNELS = ("csu_stripe_attention_fwd", "csu_stripe_attention_bwd", "csu_carafe_fwd",
+              "csu_carafe_bwd")
+SP_HEAD_KERNELS = ("csu_carafe_head_fwd", "csu_simam_head_fwd", "csu_head_bwd1",
+                   "csu_carafe_head_bwd", "csu_head_bwd1_nogate", "csu_carafe_head_bwd_nogate")
+
+
+def sp_images(torch, img: int, dev):
+    """The phase's float images: SP_BATCH discs on noise in [0, 1]."""
+    return disc_batch(torch, img, SP_BATCH, dev)[0].float() / 255.0
+
+
+def summed_grads(torch, net, mesh, keep: bool) -> dict | None:
+    """The parameters' gradients summed over the ranks (one all-reduce of
+    them flattened), on the host where ``keep``."""
+    params = [(n, p) for n, p in net.named_parameters() if p.grad is not None]
+    flat = torch.cat([p.grad.reshape(-1) for _, p in params])
+    if mesh is not None:
+        mesh.all_reduce_(flat)
+    if not keep:
+        return None
+    flat, out, at = flat.cpu(), {}, 0
+    for n, p in params:
+        out[n] = flat[at:at + p.numel()].view(p.shape)
+        at += p.numel()
+    return out
+
+
+def sp_pass(torch, fn, net, x, mesh, keep: bool) -> dict:
+    """One train-mode forward of ``fn(net, x)`` and the backward of sum(o cos
+    o) (float32 sums): the logits (gathered where ``mesh``) and the
+    gradients summed over the ranks."""
+    from cswin_simam_unet_tpu_torch.parallel import gather_rows
+    net.zero_grad(set_to_none=True)
+    o = fn(net, x)
+    of = o.to(torch.promote_types(o.dtype, torch.float32))
+    (of * torch.cos(of)).sum().backward()
+    logits = (o if mesh is None else gather_rows(o, mesh)).detach()
+    logits = logits.to(of.dtype).cpu() if keep else None
+    return dict(logits=logits, grads=summed_grads(torch, net, mesh, keep))
+
+
+def sp_timing(torch, net, x, mesh) -> dict:
+    """ms of an eval forward and of a train-mode forward + backward of the
+    sharded CSWin function (host clock after ``synchronize``, the ranks
+    started together), and the peak memory of the latter."""
+    from cswin_simam_unet_tpu_torch.parallel import spatial_cswin_apply
+
+    def fwd():
+        with torch.no_grad():
+            spatial_cswin_apply(net, x, mesh)
+
+    def step():
+        o = spatial_cswin_apply(net, x, mesh, train=True, seed=SP_RNG)
+        o.float().sum().backward()
+        net.zero_grad(set_to_none=True)
+
+    out = {}
+    for name, fn in (("forward_ms", fwd), ("step_ms", step)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(SP_REPS):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / SP_REPS * 1e3
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def sp_rank(rank: int) -> dict:
+    """One rank of phase 10 (spawned; the process group is formed), its
+    H-slab of every image: (a) ``unet`` (float32, TF32 off) eval and train
+    logits, and the train-mode gradients of sum(o cos o) in float32 and
+    float64; (b) ``cswin_simam_512`` eval in float32, train mode at drops
+    0.3 in float32 and in bf16 (the launches of the bf16 pass counted), then
+    the timings of (d) and the ms of a halo exchange and an all-gather."""
+    import torch
+    from cswin_simam_unet_tpu_torch import _build
+    from cswin_simam_unet_tpu_torch.configs import build_model
+    from cswin_simam_unet_tpu_torch.parallel import (gather_rows, halo_pad, make_mesh, shard_rows,
+                                                     spatial_cswin_apply, spatial_unet_apply)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((SP_WORLD,), ("spatial",))
+    dev = mesh.device
+    torch.cuda.set_device(dev)
+    keep = rank == 0
+    out = {"device": str(dev), "world": mesh.size, "axes": mesh.axis_names}
+
+    # (a) the UNet at full width
+    slab = shard_rows(sp_images(torch, UNET_IMG, dev), mesh)
+    a = {}
+    for wide in (False, True):
+        net = unet_from_seed(torch, build_model, "unet", dev, wide)
+        x = slab.double() if wide else slab
+        if not wide:
+            with torch.no_grad():
+                a["eval"] = gather_rows(spatial_unet_apply(net, x, mesh), mesh).cpu()
+        run = sp_pass(torch, lambda n, x: spatial_unet_apply(n, x, mesh, train=True), net, x,
+                      mesh, keep)
+        if not wide:
+            a["train"] = run["logits"]
+        a["g64" if wide else "g32"] = run["grads"]
+        del net, run
+        torch.cuda.empty_cache()
+    out["a"] = a
+
+    # (b) cswin_simam_512 at full width
+    slab = shard_rows(sp_images(torch, IMG, dev), mesh)
+    net = build_model("cswin_simam_512", device=dev, seed=SEED, dtype="float32")
+    with torch.no_grad():
+        b = {"eval": gather_rows(spatial_cswin_apply(net, slab, mesh), mesh).cpu()}
+    train = lambda n, x: spatial_cswin_apply(n, x, mesh, train=True, seed=SP_RNG)  # noqa: E731
+    b["train32"] = sp_pass(torch, train, net, slab, mesh, keep)
+    del net
+    net = build_model("cswin_simam_512", device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    b["train16"] = sp_pass(torch, train, net, slab, mesh, keep)
+    torch.cuda.synchronize()
+    b["launches"] = {k: n for k, n in _build.LAUNCHES.items() if n}
+    b["bodies"] = {k: n for k, n in _build.BODY_LAUNCHES.items() if n}
+    out["b"] = b
+    torch.cuda.empty_cache()
+
+    # (d) a record: ms, peak memory, the collectives
+    d = sp_timing(torch, net, slab, mesh)
+    del net
+    torch.cuda.empty_cache()
+    # stage 1's token slab (64 channels), which is also the size of the K and
+    # V (32 channels each) that its vertical branch gathers
+    tokens = torch.randn(SP_BATCH, IMG // 4 // SP_WORLD, IMG // 4, 64, device=dev,
+                         dtype=torch.bfloat16)
+    for name, fn in (("halo_ms", lambda: halo_pad(tokens, 1, mesh)),
+                     ("all_gather_ms", lambda: gather_rows(tokens, mesh))):
+        fn()
+        torch.cuda.synchronize()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(SP_COLL_REPS):
+            fn()
+        torch.cuda.synchronize()
+        d[name] = (time.perf_counter() - t0) / SP_COLL_REPS * 1e3
+    d["halo_bytes"] = 2 * tokens[:, :1].numel() * tokens.element_size()
+    d["all_gather_bytes"] = tokens.numel() * tokens.element_size()
+    out["d"] = d
+    return out
+
+
+def sp_gap(got: dict, want: dict, scale_of=None) -> tuple[float, str]:
+    """The largest |got - want| over max|want| (or over ``scale_of(name)``'s
+    max) of the tensors, and its name."""
+    worst = (0.0, "")
+    for n, w in want.items():
+        s = w if scale_of is None else want[scale_of(n)]
+        scale = max(float(s.double().abs().max()), 1e-300)
+        worst = max(worst, (float((got[n].double() - w.double()).abs().max()) / scale, n))
+    return worst
+
+
+def spatial_phase(torch, _build, build_model, dropout, attention, stripe_attention,
+                  dev) -> dict:
+    """Phase 10: spatial sharding, two ranks sharing the one card over gloo,
+    each holding half the rows of every image (``parallel.spatial_unet_apply``
+    and ``spatial_cswin_apply`` over a ``('spatial',)`` mesh; the halo
+    exchanges and the K/V all-gathers are gloo all-gathers, the moments
+    all-reduces).  (a) ``unet`` at full width (448^2, batch 2, float32, TF32
+    off) against one process's ``UNet.forward``: eval and train-mode logits
+    within TOL_UNET x max(1, max|ref|); the train-mode gradients of sum(o cos
+    o) in float64 within TOL_UNET_GRAD x their own max|g| (a conv bias before
+    a BatchNorm against its weight's), the float32 gap printed.  (b)
+    ``cswin_simam_512`` at full width (batch 2): eval in float32 against one
+    process's forward with the kernels on (the fused head) within TOL_SP x
+    max(1, max|ref|); train mode at drops 0.3 in float32, 2 ranks against
+    the same function on 1 rank, the logits within TOL_SP x max(1, max|ref|)
+    and every gradient within TOL_SP x its max|g|; the same in bf16 within
+    TOL_BF16 x max(1, max|ref|), the gradients held together as one output
+    (per parameter they differ by a few bf16 ulps of the partial sums and
+    activations: printed, not held); each rank's launches of K-A, K-A', K-C and
+    K-C' non-zero and equal between the ranks, the fused head's kernels
+    none.  (c) K-A and K-A' at a window offset (rank 1's slab of the
+    stage-1 horizontal stripes): the slab's rows of the plain whole-image
+    forward, and the keep rate read back.  (d) a record: ms of a sharded
+    eval forward and of a forward + backward (bf16), each rank's peak memory
+    against one process's, the ms of a halo exchange and of an all-gather.
+    Two ranks on one card read an overhead, not a scaling."""
+    from cswin_simam_unet_tpu_torch.parallel import make_mesh, run_ranks, spatial_cswin_apply
+    phase(f"spatial sharding: {SP_WORLD} ranks on {torch.cuda.device_count()} card (gloo), "
+          f"H split over the ranks, against one process")
+    torch.cuda.empty_cache()
+    one = make_mesh((1,), ("spatial",))
+    out = {}
+
+    # the 1-process references of (a) and (b), then the ranks
+    x = sp_images(torch, UNET_IMG, dev)
+    ref_a = {}
+    for wide in (False, True):
+        net = unet_from_seed(torch, build_model, "unet", dev, wide)
+        xx = x.double() if wide else x
+        if not wide:
+            with torch.no_grad():
+                ref_a["eval"] = net(xx).cpu()
+        run = sp_pass(torch, lambda n, x: n(x, train=True), net, xx, None, True)
+        if not wide:
+            ref_a["train"] = run["logits"]
+        ref_a["g64" if wide else "g32"] = run["grads"]
+        del net, run
+    torch.cuda.empty_cache()
+    x = sp_images(torch, IMG, dev)
+    net = build_model("cswin_simam_512", device=dev, seed=SEED, dtype="float32")
+    with torch.no_grad():
+        ref_b = {"eval": net(x).cpu()}
+    train = lambda n, x: spatial_cswin_apply(n, x, one, train=True, seed=SP_RNG)  # noqa: E731
+    ref_b["train32"] = sp_pass(torch, train, net, x, None, True)
+    del net
+    net = build_model("cswin_simam_512", device=dev, seed=SEED)
+    ref_b["train16"] = sp_pass(torch, train, net, x, None, True)
+    ref_d = sp_timing(torch, net, x, one)
+    del net
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(sp_rank, SP_WORLD, timeout_s=SP_TIMEOUT_S)
+    out["ranks_seconds"] = time.perf_counter() - t0
+    require(all(r["world"] == SP_WORLD and tuple(r["axes"]) == ("spatial",) for r in ranks),
+            "the ranks' mesh")
+
+    # (a)
+    got = ranks[0]["a"]
+    fwd = {m: float((got[m] - ref_a[m]).abs().max()) / max(1.0, float(ref_a[m].abs().max()))
+           for m in ("eval", "train")}
+    noise = lambda n: n[:-4] + "weight" if n.endswith(UNET_NOISE_BIASES) else n  # noqa: E731
+    g64, w64 = sp_gap(got["g64"], ref_a["g64"], scale_of=noise)
+    g32, w32 = sp_gap(got["g32"], ref_a["g32"], scale_of=noise)
+    same = all(torch.equal(r["a"]["eval"], got["eval"]) for r in ranks)
+    log(f"(a) unet 448^2, batch {SP_BATCH}, {SP_WORLD} slabs of {UNET_IMG // SP_WORLD} rows vs "
+        f"one process: eval logits {fwd['eval']:.3e}, train-mode logits {fwd['train']:.3e} "
+        f"x max(1, max|ref|) (tol {TOL_UNET:g}); float64 gradients {g64:.3e} x their own max|g| "
+        f"({w64}; tol {TOL_UNET_GRAD:g}); float32 gradients {g32:.3e} ({w32}; a record, not "
+        f"held); both ranks gathered the same logits: {same}")
+    require(all(v <= TOL_UNET for v in fwd.values()), f"(a) logits {fwd}")
+    require(g64 <= TOL_UNET_GRAD, f"(a) float64 gradient of {w64}: {g64:.3e}")
+    require(same, "(a) the ranks gathered different logits")
+    out["a"] = dict(logits=fwd, grad64=g64, grad32=g32)
+
+    # (b)
+    got = ranks[0]["b"]
+    ev = float((got["eval"] - ref_b["eval"]).abs().max()) / max(1.0, float(
+        ref_b["eval"].abs().max()))
+    res = {}
+    for key in ("train32", "train16"):
+        w, g = ref_b[key], got[key]
+        res[key] = dict(
+            logits=float((g["logits"] - w["logits"]).abs().max()) / max(1.0, float(
+                w["logits"].abs().max())),
+            own=sp_gap(g["grads"], w["grads"]),
+            norm=max((float((g["grads"][n] - v).norm() / max(float(v.norm()), 1e-30)), n)
+                     for n, v in w["grads"].items()),
+            # every parameter's gradient together as one output, as check_pair
+            # holds a kernel's: max|got - want| over max(1, max|want|)
+            whole=max(float((g["grads"][n] - v).abs().max()) for n, v in w["grads"].items())
+            / max([1.0] + [float(v.abs().max()) for v in w["grads"].values()]),
+            whole_norm=float(sum(float((g["grads"][n] - v).double().square().sum())
+                                 for n, v in w["grads"].items()) ** 0.5
+                             / max(sum(float(v.double().square().sum())
+                                       for v in w["grads"].values()) ** 0.5, 1e-30)))
+    launches = [r["b"]["launches"] for r in ranks]
+    bodies = [r["b"]["bodies"] for r in ranks]
+    r32, r16 = res["train32"], res["train16"]
+    log(f"(b) cswin_simam_512 512^2, batch {SP_BATCH}, {SP_WORLD} slabs: eval f32 vs one "
+        f"process's forward (kernels on, fused head) {ev:.3e} x max(1, max|ref|) (tol "
+        f"{TOL_SP:g}); train mode, drops 0.3, vs the same function on 1 rank: f32 logits "
+        f"{r32['logits']:.3e} (tol {TOL_SP:g}), gradients {r32['own'][0]:.3e} x max|g| "
+        f"({r32['own'][1]}; tol {TOL_SP:g}; relative norm {r32['norm'][0]:.3e} "
+        f"({r32['norm'][1]})); bf16 logits {r16['logits']:.3e} (tol "
+        f"{TOL_BF16:g}), every gradient together {r16['whole']:.3e} x max(1, max|g|) (tol "
+        f"{TOL_BF16:g}; relative norm {r16['whole_norm']:.3e}; per parameter, a record: "
+        f"{r16['own'][0]:.3e} x its own max|g| "
+        f"({r16['own'][1]}), relative norm {r16['norm'][0]:.3e} ({r16['norm'][1]})); launches "
+        f"of a bf16 train pass a rank {launches}, bodies {bodies}")
+    require(ev <= TOL_SP, f"(b) eval logits {ev:.3e}")
+    require(r32["logits"] <= TOL_SP and r32["own"][0] <= TOL_SP,
+            f"(b) float32 train mode: logits {r32['logits']:.3e}, gradient of {r32['own'][1]} "
+            f"{r32['own'][0]:.3e}")
+    require(r16["logits"] <= TOL_BF16 and r16["whole"] <= TOL_BF16,
+            f"(b) bf16 train mode: logits {r16['logits']:.3e}, gradients {r16['whole']:.3e}")
+    for name in SP_KERNELS:
+        require(launches[0].get(name, 0) > 0, f"(b) {name} not launched: {launches[0]}")
+    for name in SP_HEAD_KERNELS:
+        require(all(not r.get(name) for r in launches), f"(b) {name} launched: {launches}")
+    require(launches[0] == launches[1], f"(b) the ranks' launches differ: {launches}")
+    out["b"] = dict(eval=ev, train32=r32, train16=r16, launches=launches[0], bodies=bodies[0])
+
+    # (c) the masks on the card: K-A, K-A' on rank 1's slab of the stage-1
+    # horizontal stripes (1 x 128 windows of the 128^2 grid), numbered among
+    # the whole image's
+    reso, Cb = IMG // 4, 32
+    Hl = reso // SP_WORLD
+    nwin = Hl
+    kwo = dict(H=Hl, W=reso, hsp=1, wsp=reso, num_heads=1, attn_drop=DROP, seed=DROP_SEED,
+               win0=nwin, nwin_global=SP_WORLD * nwin)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    q, k, v = (torch.randn(SP_BATCH, reso * reso, Cb, generator=gen, device=dev) * 0.5
+               for _ in range(3))
+    w = torch.randn(3, 3, 1, Cb, generator=gen, device=dev) / 3
+    whole = attention.stripe_attention(q, k, v, w, **dict(kwo, H=reso, win0=0, nwin_global=None))
+    rows = slice(Hl * reso, reso * reso)
+    sl = [t[:, rows].contiguous() for t in (q, k, v)]
+    slab_err = max_err(stripe_attention.stripe_attention(*sl, w, **kwo), whole[:, rows])
+    zeros = torch.zeros(TIME_BATCH, Hl * reso, Cb, device=dev)
+    kept = stripe_attention.stripe_attention(zeros, zeros, torch.ones_like(zeros),
+                                             torch.zeros_like(w), **kwo)
+    n_scores = TIME_BATCH * Hl * reso * reso
+    p_keep = 1 - dropout.u32_threshold(DROP) / 2 ** 32
+    keep_rate = float(kept[..., 0].double().mean()) * (1 - DROP)
+    sigma = (p_keep * (1 - p_keep) / n_scores) ** 0.5
+    log(f"(c) K-A at window offset {nwin} of {SP_WORLD * nwin} (rank 1's slab of the stage-1 "
+        f"horizontal stripes, f32, dropout {DROP}): its rows of the plain whole-image forward "
+        f"within {slab_err:.3e} (tol {TOL_F32:g}); keep rate {keep_rate:.6f} over {n_scores} "
+        f"scores (expected {p_keep:.6f}, 4 sigma {4 * sigma:.2e}); K-A and K-A' against their "
+        f"plain versions at an offset: phases 3 and 4")
+    require(slab_err <= TOL_F32, f"(c) K-A at an offset: {slab_err:.3e}")
+    require(abs(keep_rate - p_keep) <= 4 * sigma, f"(c) keep rate {keep_rate}")
+    out["c"] = dict(slab_err=slab_err, keep_rate=keep_rate)
+    del q, k, v, whole, zeros, kept
+
+    # (d)
+    d = [r["d"] for r in ranks]
+    log(f"(d) cswin_simam_512 bf16, batch {SP_BATCH}, {SP_WORLD} slabs (a record): sharded eval "
+        f"forward {[round(x['forward_ms'], 2) for x in d]} ms, forward + backward (train mode) "
+        f"{[round(x['step_ms'], 2) for x in d]} ms, peak memory a rank "
+        f"{[round(x['peak_gib'], 3) for x in d]} GiB; the same function on one process: "
+        f"{ref_d['forward_ms']:.2f}, {ref_d['step_ms']:.2f} ms, {ref_d['peak_gib']:.3f} GiB; a "
+        f"halo exchange of 1 row ({d[0]['halo_bytes'] / 2 ** 10:.0f} KiB sent and received) "
+        f"{[round(x['halo_ms'], 3) for x in d]} ms, an all-gather of a "
+        f"{d[0]['all_gather_bytes'] / 2 ** 20:.2f} MiB slab (stage 1's K and V) "
+        f"{[round(x['all_gather_ms'], 3) for x in d]} ms (host clock).  Two ranks share one "
+        f"card: an overhead, not a scaling")
+    out["d"] = dict(ranks=d, one_process=ref_d)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2737,6 +3129,23 @@ def main() -> int:
     require(abs(keep_rate - p_keep) <= 4 * sigma, f"K-A keep rate {keep_rate}")
     ka["keep_rate"] = keep_rate
     del zeros, out
+    # at a window offset: the flagship's horizontal stripes on the last of 2
+    # H-slabs (phase 10's path), the mask keyed on the whole image's windows
+    ka.update(err32_offset=0.0, err16_offset=0.0)
+    for rows, reso, Cb, kwo in offset_geometries(geoms):
+        def make(B, dtype, L=rows * reso, Cb=Cb):
+            qkv = randn(B, L, 6 * Cb, scale=0.5, dtype=dtype)
+            return (qkv[..., :Cb], qkv[..., 2 * Cb:3 * Cb], qkv[..., 4 * Cb:5 * Cb],
+                    randn(3, 3, 1, Cb, scale=1 / 3, dtype=dtype))
+
+        errs = check_pair(
+            f"K-A reso {reso} slab of {rows} rows window {kwo['hsp']}x{kwo['wsp']} Cb {Cb} "
+            f"dropout 0.3 at window offset {kwo['win0']} of {kwo['nwin_global']}", torch,
+            lambda q, k, v, w, kw=kwo: stripe_attention.stripe_attention(q, k, v, w, **kw),
+            lambda q, k, v, w, kw=kwo: attention.stripe_attention(q, k, v, w, **kw), make,
+            own=True)
+        for key, val in zip(("err32_offset", "err16_offset"), errs):
+            ka[key] = max(ka[key], val)
 
     # K-C at the three decoder CARAFEs, each output also at its own scale
     kc = dict(ms=0.0, plain_ms=0.0, device_ms=0.0, err32=0.0, err16=0.0, own32=0.0,
@@ -3072,6 +3481,13 @@ def main() -> int:
                  ("err32_drop", "err16_drop", "abs32_drop"))
         fold_bwd(check_bwd_own(name, kwd, make_bwd(reso * reso, Cb))[2:],
                  ("rel32_drop", "rel16_drop"))
+    # at a window offset, as K-A in phase 3
+    kab.update(err32_offset=0.0, err16_offset=0.0)
+    for rows, reso, Cb, kwo in offset_geometries(geoms):
+        fold_bwd(check_bwd(f"K-A' reso {reso} slab of {rows} rows window {kwo['hsp']}x"
+                           f"{kwo['wsp']} Cb {Cb} dropout 0.3 at window offset {kwo['win0']} of "
+                           f"{kwo['nwin_global']}", kwo, make_bwd(rows * reso, Cb))[:2],
+                 ("err32_offset", "err16_offset"))
     table["K-A'"] = kab
 
     # K-C' at the three decoder CARAFEs, dx and denc also at their own scale
@@ -3555,7 +3971,10 @@ def main() -> int:
     # ---- 9. data parallelism ----
     dp_run = dp_phase(torch, engine, _build, build_model, TRAIN_CONFIGS, per_step, decoders, dev)
 
-    # ---- 10. results ----
+    # ---- 10. spatial sharding ----
+    sp_run = spatial_phase(torch, _build, build_model, dropout, attention, stripe_attention, dev)
+
+    # ---- results ----
     sources = {
         "K-A": ("csu_stripe_attention_fwd", "cswin_simam_unet_tpu_torch/csrc/stripe_attention.cu",
                 "cswin_simam_unet_tpu/ops/pallas_attention_v2.py:180"),
@@ -3653,6 +4072,9 @@ def main() -> int:
                           if k in row})
         if "own16" in row:
             entry.update(err_over_max_plain=row["own32"], err_over_max_plain_bf16=row["own16"])
+        if "err32_offset" in row:  # the mask at a window offset (phase 10's slabs)
+            entry.update(max_abs_err_window_offset=row["err32_offset"],
+                         max_abs_err_bf16_window_offset=row["err16_offset"])
         if label == "flash fwd":
             entry.update({k: row[k] for k in ("device_ms_window", "device_ms_flash",
                                               "bands_window_ms", "bands_flash_ms")})
@@ -3731,6 +4153,7 @@ def main() -> int:
                                for k, r in data_run.items()}))
     log("unet: " + json.dumps(unet_run))
     log("data parallelism: " + json.dumps(dp_run))
+    log("spatial sharding: " + json.dumps(sp_run))
     log(f"f32 gradient gaps, kernels on vs off at drops 0.3: cswin_simam_512 {grad_gap:.3e}, "
         f"cswinunet {grad_gap448:.3e}; cswin_simam_2048 at depth (1,1,1,1), attention drop "
         f"0: {grad_gap2048:.3e}; cswin_simam_512_dp {grad_gap_dp:.3e}; K-A keep rate "

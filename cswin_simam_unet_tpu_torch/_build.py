@@ -38,9 +38,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U = ctypes.c_uint32
 _SIGNATURES = {
     # dtype, q, k, v, lepe_w, out, lse, ldq, ldk, ldv, ldo,
-    # B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, stream
+    # B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, win0,
+    # nwin_global, stream
     "csu_stripe_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
-                                 _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _U, _U, _P],
     # dtype, x, enc, out, B, H, W, C, S, vec, pass pixels, pc, stream
     "csu_carafe_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, enc, bias, fb, s1, s2, B, H, W, C, S, vec, pass pixels, pc, stream
@@ -50,9 +51,11 @@ _SIGNATURES = {
     "csu_simam_head_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _I, _I, _P],
     # dtype, q, k, v, lepe_w, dout, lse, delta, dq, dk, dv, dw_part, ldq, ldk, ldv,
-    # ldg, B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, stream
+    # ldg, B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, win0,
+    # nwin_global, stream
     "csu_stripe_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
-                                 _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
+                                 _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _U, _U,
+                                 _P],
     # dtype, x, enc, dacc, dx, denc, B, H, W, C, S, vec, px, rows, stream
     "csu_carafe_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, fb, dy, mu, var, w, part, B, H, W, C, G, F, vec, lam, pc, stream
@@ -64,18 +67,19 @@ _SIGNATURES = {
     # dtype, fb, dy, part, B, H, W, C, G, F, vec, pc, stream
     "csu_head_bwd1_nogate": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, q, k, v, lepe_w, out, lse, ldq, ldk, ldv, B, H, W, hsp, wsp, heads,
-    # head_dim, scale, mask_tile, seed, threshold, inv_keep, stream
+    # head_dim, scale, mask_tile, seed, threshold, inv_keep, win0, nwin_global, stream
     "csu_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,
-                                _I, _I, _F, _I, _U, _U, _F, _P],
+                                _I, _I, _F, _I, _U, _U, _F, _U, _U, _P],
     # dtype, q, k, v, dout, lse, delta, delta_given, dq, ldq, ldk, ldv, ldg, B, H,
-    # W, hsp, wsp, heads, head_dim, scale, mask_tile, seed, threshold, inv_keep, stream
+    # W, hsp, wsp, heads, head_dim, scale, mask_tile, seed, threshold, inv_keep, win0,
+    # nwin_global, stream
     "csu_flash_attention_dq": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _L, _L, _L, _L, _I, _I,
-                               _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P],
+                               _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _U, _P],
     # dtype, q, k, v, lepe_w, dout, lse, delta, dk, dv, dw_part, ldq, ldk, ldv, ldg,
     # B, H, W, hsp, wsp, heads, head_dim, scale, mask_tile, seed, threshold,
-    # inv_keep, stream
+    # inv_keep, win0, nwin_global, stream
     "csu_flash_attention_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
-                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _U, _P],
     # dtype, x, enc, dy, w, dx, denc, db_part, B, H, W, C, S, F, vec, px, rows, stream
     "csu_carafe_head_bwd_nogate": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _P],

@@ -84,7 +84,7 @@ __device__ __forceinline__ void attention_fwd(const bf16* __restrict__ q,
   int row[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) row[r] = i0 + warp * 16 + (lane >> 2) + 8 * r;
-  const uint32_t wh = win_head_id(win, head);
+  const uint32_t wh = win_head_id(a.drop, win, head);
   const KeepFixed fixed[2] = {KeepFixed(row[0], a.mask_tile), KeepFixed(row[1], a.mask_tile)};
 
   cp_async_wait<0>();

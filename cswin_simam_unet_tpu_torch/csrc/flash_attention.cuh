@@ -112,8 +112,9 @@ __device__ __forceinline__ bool flash_keep(const AttnDrop& d, uint32_t win_head,
                    d.threshold);
 }
 
-__device__ __forceinline__ uint32_t win_head_id(int win, int head) {
-  return (uint32_t)win * 1000003u + (uint32_t)head;
+// The (window, head) part of the tile id, the window numbered by drop_window.
+__device__ __forceinline__ uint32_t win_head_id(const AttnDrop& d, int win, int head) {
+  return drop_window(d, win) * 1000003u + (uint32_t)head;
 }
 
 // x . y over DL columns, y in shared memory (16-byte aligned, broadcast).

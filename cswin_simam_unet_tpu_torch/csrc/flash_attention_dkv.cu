@@ -66,7 +66,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   load_row<T, DL>(vr, v, tj, a.ldv, c0 + d0);
 #pragma unroll
   for (int d = 0; d < DL; ++d) ak[d] = av[d] = 0.f;
-  const uint32_t wh = win_head_id(win, head);
+  const uint32_t wh = win_head_id(a.drop, win, head);
   const MaskPos col(live ? j : 0, a.mask_tile);
 
   for (int i0 = 0; i0 < N; i0 += TQ) {
@@ -239,7 +239,7 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   int key[2];
   for (int r = 0; r < 2; ++r) key[r] = j0 + warp * 16 + (lane >> 2) + 8 * r;
-  const uint32_t wh = win_head_id(win, head);
+  const uint32_t wh = win_head_id(a.drop, win, head);
   const KeepFixed fixed[2] = {KeepFixed(key[0], a.mask_tile), KeepFixed(key[1], a.mask_tile)};
   float ak[NT][4], av[NT][4];
 #pragma unroll
@@ -524,10 +524,11 @@ CSU_EXPORT int csu_flash_attention_dkv(int dtype, const void* q, const void* k,
                                        int64_t ldg, int B, int H, int W, int hsp, int wsp,
                                        int heads, int head_dim, float scale, int mask_tile,
                                        uint32_t seed, uint32_t threshold, float inv_keep,
-                                       void* stream) {
+                                       uint32_t win0, uint32_t nwin_global, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const csu::FlashArgs a{H, W, hsp, wsp, heads, mask_tile, scale,
-                         csu::AttnDrop{seed, threshold, inv_keep}, ldq, ldk, ldv, ldg};
+                         csu::attn_drop(seed, threshold, inv_keep, H, W, hsp, wsp, win0,
+                                        nwin_global), ldq, ldk, ldv, ldg};
   if (dtype == csu::kFloat32)
     return (int)csu::dispatch_flash_dkv<float>(head_dim, q, k, v, lepe_w, dout, lse, delta,
                                                dk, dv, dw_part, B, a, s);

@@ -65,7 +65,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     acc[d] = 0.f;
   }
   const float L = lse[stat];
-  const uint32_t wh = win_head_id(win, head);
+  const uint32_t wh = win_head_id(a.drop, win, head);
   const MaskPos row(live ? i : 0, a.mask_tile);
 
   // the scores and masked dp of key jj of the staged tile
@@ -204,7 +204,7 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     nl2[r] = live ? -lse[stat[r]] * kLog2e : 0.f;
     dl[r] = live && delta_given ? delta[stat[r]] : 0.f;
   }
-  const uint32_t wh = win_head_id(win, head);
+  const uint32_t wh = win_head_id(a.drop, win, head);
   const KeepFixed fixed[2] = {KeepFixed(row[0], a.mask_tile), KeepFixed(row[1], a.mask_tile)};
 
   cp_async_wait<0>();
@@ -383,10 +383,12 @@ CSU_EXPORT int csu_flash_attention_dq(int dtype, const void* q, const void* k, c
                                       int64_t ldv, int64_t ldg, int B, int H, int W, int hsp,
                                       int wsp, int heads, int head_dim, float scale,
                                       int mask_tile, uint32_t seed, uint32_t threshold,
-                                      float inv_keep, void* stream) {
+                                      float inv_keep, uint32_t win0, uint32_t nwin_global,
+                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const csu::FlashArgs a{H, W, hsp, wsp, heads, mask_tile, scale,
-                         csu::AttnDrop{seed, threshold, inv_keep}, ldq, ldk, ldv, ldg};
+                         csu::attn_drop(seed, threshold, inv_keep, H, W, hsp, wsp, win0,
+                                        nwin_global), ldq, ldk, ldv, ldg};
   if (dtype == csu::kFloat32)
     return (int)csu::dispatch_flash_dq<float>(head_dim, q, k, v, dout, lse, delta,
                                               delta_given, dq, B, a, s);

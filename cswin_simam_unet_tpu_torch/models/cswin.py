@@ -93,7 +93,7 @@ class CSWinUNet(nn.Module):
         validate_heads(embed_dim, num_heads)
         device = resolve_device(device)
         self.img_size, self.num_classes = img_size, num_classes
-        self.depth = tuple(depth)
+        self.depth, self.split_size = tuple(depth), tuple(split_size)
         self.dtype = dtype
         self.drop_rates = (drop_rate, attn_drop_rate, drop_path_rate)
         E = embed_dim

@@ -18,7 +18,9 @@ Counterpart of ``cswin_simam_unet_tpu/ops/dropout.py::fast_dropout``,
   storing a mask.  The mask is tiled as ``hash_keep_mask`` tiles it: one
   N x N tile per window for the whole-window attention (K-A, K-A' and the
   tiled kernels of such windows), tiles of ``_pick_tile(N)`` in band order
-  for the flash path.
+  for the flash path.  A window is keyed on its number in the whole image
+  (:func:`mask_windows`), so that an H-slab of an image (the spatial
+  sharding of ``parallel/spatial_cswin.py``) draws its windows' bits.
 * :class:`DropoutRng`: the randomness of one training forward, made from one
   host seed: the generator for the two above and a fresh 32-bit seed per
   attention call, derived on the host so that no step reads the device.
@@ -93,27 +95,62 @@ def hash_keep_mask(seed: int, window: torch.Tensor, head: torch.Tensor, row: tor
     return hash_bits(seed, window, head, row, col, tile) >= threshold
 
 
+def mask_windows(n_windows: int, nwin: int | None = None, win0: int = 0,
+                 nwin_global: int | None = None, device=None) -> torch.Tensor:
+    """The numbers the keep mask gives ``n_windows`` windows, numbered
+    b * nwin + w in ``windows.img2windows`` order over ``nwin`` windows an
+    image: window b * nwin_global + win0 + w of the whole image, as
+    ``common.cuh::drop_window`` numbers them.  An H-slab holding windows
+    [win0, win0 + nwin) of an image of ``nwin_global`` windows so draws the
+    bits of those windows.  The defaults (win0 0, nwin_global = nwin) give
+    0 .. n_windows - 1."""
+    ids = torch.arange(n_windows, device=device)
+    if win0 == 0 and nwin_global in (None, nwin):
+        return ids
+    if nwin is None or n_windows % nwin:
+        raise ValueError(f"{n_windows} windows do not split into images of nwin={nwin}")
+    return ids // nwin * nwin_global + win0 + ids % nwin
+
+
 def window_keep_mask(seed: int, n_windows: int, heads: int, n: int, threshold: int,
-                     device=None) -> torch.Tensor:
+                     device=None, *, nwin: int | None = None, win0: int = 0,
+                     nwin_global: int | None = None) -> torch.Tensor:
     """The keep mask of every score of a partitioned branch, (n_windows,
     heads, n, n), windows numbered as ``windows.img2windows`` orders them
     (batch-major, then window rows, then window columns) and tokens
-    row-major within a window."""
+    row-major within a window.  ``nwin``, ``win0``, ``nwin_global``: the
+    windows are windows [win0, win0 + nwin) of each image of
+    ``nwin_global`` (:func:`mask_windows`), the rows of the mask of that
+    whole image."""
     ar = lambda m: torch.arange(m, device=device)  # noqa: E731
-    return hash_keep_mask(seed, ar(n_windows)[:, None, None, None],
+    windows = mask_windows(n_windows, nwin, win0, nwin_global, device)
+    return hash_keep_mask(seed, windows[:, None, None, None],
                           ar(heads)[None, :, None, None], ar(n)[None, None, :, None],
                           ar(n)[None, None, None, :], threshold, n)
 
 
-def kernel_drop_args(attn_drop: float, seed: int | None) -> tuple[int, int, float]:
-    """(seed, u32 threshold, 1 / (1 - rate)) of an attention call for the
-    kernels; threshold 0 is no dropout."""
+def kernel_drop_args(attn_drop: float, seed: int | None, win0: int = 0,
+                     nwin_global: int | None = None) -> tuple[int, int, float, int, int]:
+    """(seed, u32 threshold, 1 / (1 - rate), win0, nwin_global) of an
+    attention call for the kernels; threshold 0 is no dropout, nwin_global
+    0 the launch's own window count (``common.cuh::attn_drop``)."""
     threshold = u32_threshold(attn_drop)
     if not threshold:
-        return 0, 0, 1.0
+        return 0, 0, 1.0, 0, 0
     if seed is None:
         raise ValueError("attention dropout needs a seed")
-    return int(seed) & MASK32, threshold, 1.0 / (1.0 - attn_drop)
+    return (int(seed) & MASK32, threshold, 1.0 / (1.0 - attn_drop), int(win0),
+            int(nwin_global or 0))
+
+
+def keep_mask(shape, rate: float, generator: torch.Generator | None = None,
+              device=None) -> torch.Tensor:
+    """:func:`fast_dropout`'s keep mask of ``shape``: 16 uniform bits from
+    ``generator`` >= u16_threshold(rate)."""
+    # int16 bits b stand for the u16 value b + 2^15
+    bits = torch.randint(-32768, 32768, tuple(shape), dtype=torch.int16, device=device,
+                         generator=generator)
+    return bits >= u16_threshold(rate) - 32768
 
 
 def fast_dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None = None,
@@ -125,10 +162,7 @@ def fast_dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None
     if rate <= 0.0:
         return x
     if keep is None:
-        # int16 bits b stand for the u16 value b + 2^15
-        bits = torch.randint(-32768, 32768, x.shape, dtype=torch.int16, device=x.device,
-                             generator=generator)
-        keep = bits >= u16_threshold(rate) - 32768
+        keep = keep_mask(x.shape, rate, generator, x.device)
     scale = _in_dtype(1.0 / (1.0 - rate), x.dtype)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
 

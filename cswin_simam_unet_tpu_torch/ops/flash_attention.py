@@ -44,7 +44,7 @@ import torch
 
 from .. import _build
 from . import attention
-from .dropout import hash_keep_mask, kernel_drop_args, u32_threshold
+from .dropout import hash_keep_mask, kernel_drop_args, mask_windows, u32_threshold
 
 FWD_KERNEL = "csu_flash_attention_fwd"
 DQ_KERNEL = "csu_flash_attention_dq"
@@ -136,7 +136,7 @@ def _taps(mode: str, lepe_kernel, dtype):
 
 
 def kernel_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None,
-               attn_drop=0.0, seed=None, mode):
+               attn_drop=0.0, seed=None, mode, win0=0, nwin_global=None):
     """The forward kernel on CUDA tensors: (out (B, L, C) in q's dtype, L
     (B * windows, N, heads) float32)."""
     head_dim = check_args(q, k, v, lepe_kernel, H, W, hsp, wsp, num_heads)
@@ -155,13 +155,14 @@ def kernel_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None,
     _build.launch(FWD_KERNEL, q.device, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), None if taps is None else taps.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), ldq, ldk, ldv, B, H, W, hsp, wsp, num_heads, head_dim,
-                  float(scale), _mask_tile(mode, N), *kernel_drop_args(attn_drop, seed),
+                  float(scale), _mask_tile(mode, N),
+                  *kernel_drop_args(attn_drop, seed, win0, nwin_global),
                   mode=mode, body=body)
     return out, lse
 
 
 def _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp, num_heads, scale,
-              attn_drop, seed, mode):
+              attn_drop, seed, mode, win0, nwin_global):
     """Validated arguments shared by the dq and dk/dv kernels: (q, k, v and
     dout with strides the body takes, the shape arguments, the row strides,
     the body)."""
@@ -182,7 +183,7 @@ def _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp, num_heads,
     if scale is None:
         scale = head_dim ** -0.5
     shape = (q.shape[0], H, W, hsp, wsp, num_heads, head_dim, float(scale),
-             _mask_tile(mode, N), *kernel_drop_args(attn_drop, seed))
+             _mask_tile(mode, N), *kernel_drop_args(attn_drop, seed, win0, nwin_global))
     if body == "mma":
         q, k, v, dout = (rows_aligned(t) for t in (q, k, v, dout))
     strides = _build.token_strides((q, "q"), (k, "k"), (v, "v"), (dout, "dout"))
@@ -190,7 +191,7 @@ def _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp, num_heads,
 
 
 def kernel_dq(q, k, v, lse, dout, *, H, W, hsp, wsp, num_heads, scale=None, attn_drop=0.0,
-              seed=None, delta=None, mode):
+              seed=None, delta=None, mode, win0=0, nwin_global=None):
     """The dq kernel on CUDA tensors: (dq contiguous in q's dtype, delta).
     Flash mode takes ``delta`` = rowsum(dO * O) per head, (B * windows, N,
     heads) float32; window mode computes it here and returns it for
@@ -199,7 +200,7 @@ def kernel_dq(q, k, v, lse, dout, *, H, W, hsp, wsp, num_heads, scale=None, attn
         raise ValueError("flash mode takes delta; window mode computes it")
     q, k, v, dout, shape, strides, body = _bwd_args(q, k, v, None, lse, dout, delta, H, W,
                                                     hsp, wsp, num_heads, scale, attn_drop,
-                                                    seed, mode)
+                                                    seed, mode, win0, nwin_global)
     delta_given = delta is not None
     if delta is None:
         delta = torch.empty_like(lse)
@@ -211,13 +212,13 @@ def kernel_dq(q, k, v, lse, dout, *, H, W, hsp, wsp, num_heads, scale=None, attn
 
 
 def kernel_dkv(q, k, v, lepe_kernel, lse, delta, dout, *, H, W, hsp, wsp, num_heads,
-               scale=None, attn_drop=0.0, seed=None, mode):
+               scale=None, attn_drop=0.0, seed=None, mode, win0=0, nwin_global=None):
     """The dk/dv kernel on CUDA tensors: (dk, dv) contiguous in q's dtype
     and, in window mode, dw (3, 3, 1, C) in lepe_kernel's dtype (None in
     flash mode)."""
     q, k, v, dout, shape, strides, body = _bwd_args(q, k, v, lepe_kernel, lse, dout, delta,
                                                     H, W, hsp, wsp, num_heads, scale,
-                                                    attn_drop, seed, mode)
+                                                    attn_drop, seed, mode, win0, nwin_global)
     taps = _taps(mode, lepe_kernel, q.dtype)
     B, L, C = q.shape
     dk, dv = (torch.empty(B, L, C, dtype=q.dtype, device=q.device) for _ in range(2))
@@ -264,16 +265,17 @@ def _scaled_q(qb: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
 
 
 def _tile_keep(attn_drop: float, seed: int | None, G: int, heads: int, N: int, T: int,
-               device):
+               device, windows: torch.Tensor | None = None):
     """A function of the key tile's first column giving the keep mask of
     that tile's columns for all rows, (G, heads, N, T) bool, and the
-    rescale; None without dropout."""
+    rescale; None without dropout.  ``windows``: the mask's number of each
+    band (0 .. G - 1 by default)."""
     threshold = u32_threshold(attn_drop)
     if not threshold:
         return None
     if seed is None:
         raise ValueError("attention dropout needs a seed")
-    g = torch.arange(G, device=device)[:, None, None, None]
+    g = (torch.arange(G, device=device) if windows is None else windows)[:, None, None, None]
     h = torch.arange(heads, device=device)[None, :, None, None]
     rows = torch.arange(N, device=device)[None, None, :, None]
 
@@ -291,15 +293,17 @@ def flash_delta(out: torch.Tensor, dout: torch.Tensor, heads: int) -> torch.Tens
 
 
 def flash_attention_reference(qb, kb, vb, *, heads: int, scale: float | None = None,
-                              attn_drop: float = 0.0, seed: int | None = None):
+                              attn_drop: float = 0.0, seed: int | None = None,
+                              windows: torch.Tensor | None = None):
     """``_flash_fwd_bands`` in plain PyTorch on bands (G, N, Cb): (O (G, N,
     Cb) in the compute dtype, L (G, N, heads) float32), the online softmax
-    swept over key tiles of :func:`pick_tile`."""
+    swept over key tiles of :func:`pick_tile`; ``windows`` as
+    :func:`_tile_keep` takes it."""
     G, N, Cb = qb.shape
     if scale is None:
         scale = (Cb // heads) ** -0.5
     T = pick_tile(N)
-    drop = _tile_keep(attn_drop, seed, G, heads, N, T, qb.device)
+    drop = _tile_keep(attn_drop, seed, G, heads, N, T, qb.device, windows)
     qs, kh, vh = _scaled_q(qb, heads, scale), _heads(kb, heads), _heads(vb, heads)
     m = torch.full((G, heads, N, 1), -torch.inf, device=qb.device)
     l = torch.zeros_like(m)
@@ -321,7 +325,8 @@ def flash_attention_reference(qb, kb, vb, *, heads: int, scale: float | None = N
 
 def flash_attention_bwd_reference(qb, kb, vb, out, lse, dout, *, heads: int,
                                   scale: float | None = None, attn_drop: float = 0.0,
-                                  seed: int | None = None):
+                                  seed: int | None = None,
+                                  windows: torch.Tensor | None = None):
     """``_flash_bwd_bands`` in plain PyTorch: (dq, dk, dv) (G, N, Cb) in the
     compute dtype from the forward's O and L and the cotangent ``dout``;
     delta = rowsum(dO * O) per head, p = exp(s - L)."""
@@ -329,7 +334,7 @@ def flash_attention_bwd_reference(qb, kb, vb, out, lse, dout, *, heads: int,
     if scale is None:
         scale = (Cb // heads) ** -0.5
     T = pick_tile(N)
-    drop = _tile_keep(attn_drop, seed, G, heads, N, T, qb.device)
+    drop = _tile_keep(attn_drop, seed, G, heads, N, T, qb.device, windows)
     L = lse.permute(0, 2, 1)[..., None]
     delta = flash_delta(out, dout, heads).permute(0, 2, 1)[..., None]
     qs, qu = _scaled_q(qb, heads, scale), _heads(qb, heads)
@@ -363,11 +368,18 @@ def _bands(x: torch.Tensor, geometry: dict) -> torch.Tensor:
     return x.reshape(B * (geometry["H"] // geometry["hsp"]), geometry["hsp"] * geometry["W"], C)
 
 
+def _band_windows(x: torch.Tensor, geometry: dict) -> torch.Tensor:
+    """The mask's number of each band of ``_bands(x, geometry)``."""
+    bands = geometry["H"] // geometry["hsp"]
+    return mask_windows(x.shape[0] * bands, bands, geometry.get("win0", 0),
+                        geometry.get("nwin_global"), x.device)
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention without LePE over full-width bands of (B, H*W, C) tokens
-    (``geometry``: H, W, hsp, wsp == W, num_heads, scale, attn_drop, seed):
-    the flash kernels on CUDA tensors, the plain flash versions on CPU
-    tensors."""
+    (``geometry``: H, W, hsp, wsp == W, num_heads, scale, attn_drop, seed,
+    win0, nwin_global): the flash kernels on CUDA tensors, the plain flash
+    versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, geometry):
@@ -376,7 +388,8 @@ class FlashAttention(torch.autograd.Function):
             out, lse = flash_attention_reference(
                 _bands(q, geometry), _bands(k, geometry), _bands(v, geometry),
                 heads=geometry["num_heads"], scale=geometry["scale"],
-                attn_drop=geometry["attn_drop"], seed=geometry["seed"])
+                attn_drop=geometry["attn_drop"], seed=geometry["seed"],
+                windows=_band_windows(q, geometry))
             out = out.reshape(q.shape)
         else:
             out, lse = kernel_fwd(q, k, v, None, **geometry, mode="flash")
@@ -391,7 +404,7 @@ class FlashAttention(torch.autograd.Function):
             grads = flash_attention_bwd_reference(
                 *(_bands(t, geo) for t in (q, k, v, out)), lse, _bands(dout, geo),
                 heads=geo["num_heads"], scale=geo["scale"], attn_drop=geo["attn_drop"],
-                seed=geo["seed"])
+                seed=geo["seed"], windows=_band_windows(q, geo))
             return (*(g.reshape(q.shape) for g in grads), None)
         delta = flash_delta(_bands(out, geo), _bands(dout, geo), geo["num_heads"])
         dq, dk, dv, _ = kernel_bwd(q, k, v, None, lse, dout, **geo, delta=delta,
@@ -414,10 +427,13 @@ def band_geometry(H: int, W: int, hsp: int, wsp: int) -> tuple[bool, int, int, i
 def stripe_attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lepe_kernel: torch.Tensor, *, H: int, W: int, hsp: int,
                            wsp: int, num_heads: int, scale: float | None = None,
-                           attn_drop: float = 0.0, seed: int | None = None) -> torch.Tensor:
+                           attn_drop: float = 0.0, seed: int | None = None, win0: int = 0,
+                           nwin_global: int | None = None) -> torch.Tensor:
     """``stripe_attention_pallas_flash``: flash attention over the band
     layout, plus the LePE of the plain depthwise conv; (B, L, C) tokens in
-    and out, lepe_kernel (3, 3, 1, C); differentiable."""
+    and out, lepe_kernel (3, 3, 1, C); differentiable.  The bands are the
+    windows of ``img2windows``'s order, numbered in the mask from ``win0``
+    among ``nwin_global`` an image."""
     B, L, C = q.shape
     flip, Ht, Wt, wht = band_geometry(H, W, hsp, wsp)
 
@@ -431,7 +447,7 @@ def stripe_attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = (C // num_heads) ** -0.5
     geometry = dict(H=Ht, W=Wt, hsp=wht, wsp=Wt, num_heads=num_heads, scale=float(scale),
-                    attn_drop=attn_drop, seed=seed)
+                    attn_drop=attn_drop, seed=seed, win0=win0, nwin_global=nwin_global)
     attn = FlashAttention.apply(q, k, v_b, geometry)
     if flip:
         attn = transpose(attn, Ht, Wt)

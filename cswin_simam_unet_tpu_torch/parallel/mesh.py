@@ -1,4 +1,4 @@
-"""The data-parallel mesh: which rows of a batch each rank takes, the
+"""The mesh of a multi-rank run: which rows of a batch each rank takes, the
 replicated training state, and the collectives the step makes.
 
 Counterpart of ``cswin_simam_unet_tpu/parallel/mesh.py``.  JAX builds a
@@ -13,8 +13,11 @@ size, this rank, this rank's device) rather than torch's ``DeviceMesh``:
 the data axis needs one group and nothing of DTensor, and ``DeviceMesh``
 would also bind one device to each rank, which two ranks sharing one card
 (the only multi-rank run this repository can make on its one H100) do not
-have.  Only the ``('data',)`` axis exists: the tensor-parallel rules
-(``parallel/sharding.py``) are ROADMAP queue A item 9d.
+have.  A mesh has one axis: ``('data',)``, or ``('spatial',)``, over which
+``parallel/spatial.py`` and ``parallel/spatial_cswin.py`` shard an image's
+height (each rank holds an H-slab of every image; the training step and
+``fit`` take no such mesh, as JAX trains on none).  The tensor-parallel
+rules (``parallel/sharding.py``) are ROADMAP queue A item 9d.
 """
 
 from __future__ import annotations
@@ -29,13 +32,15 @@ import torch.distributed as dist
 from .distributed import rank_device
 
 DATA_AXIS = "data"
+SPATIAL_AXIS = "spatial"
 _TP_ITEM = "tensor-parallel sharding is not ported yet (ROADMAP queue A item 9d)"
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """The ranks of the default process group along the data axis.
-    Collectives over a mesh of one rank are no-ops."""
+    """The ranks of the default process group along the mesh's one axis
+    (``data`` or ``spatial``).  Collectives over a mesh of one rank are
+    no-ops."""
     size: int
     rank: int
     device: torch.device
@@ -70,14 +75,14 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
               axis_names: Sequence[str] = (DATA_AXIS,), device=None) -> Mesh:
     """The mesh over every rank of the process group (one rank where there
     is none), on this rank's device (``device``, else
-    ``distributed.rank_device()``).  Only a 1-axis ``('data',)`` mesh over
-    the whole group exists."""
+    ``distributed.rank_device()``).  A 1-axis mesh over the whole group,
+    ``('data',)`` or ``('spatial',)``."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     shape = (world,) if shape is None else tuple(shape)
-    if len(shape) != 1 or tuple(axis_names) != (DATA_AXIS,):
+    if len(shape) != 1 or tuple(axis_names) not in ((DATA_AXIS,), (SPATIAL_AXIS,)):
         raise NotImplementedError(f"mesh {shape} over {tuple(axis_names)}: only the "
-                                  f"('data',) axis exists; {_TP_ITEM}")
+                                  f"('data',) and ('spatial',) axes exist; {_TP_ITEM}")
     if shape[0] != world:
         raise ValueError(f"mesh shape {shape} needs {shape[0]} processes, have {world}")
     return Mesh(world, rank, rank_device(device), tuple(axis_names))
@@ -111,13 +116,26 @@ class BatchSharding:
                                for i in range(self.grad_accum)])
 
 
+def require_data_axis(mesh: Mesh) -> None:
+    """Raise unless ``mesh`` is a ``('data',)`` mesh, the one the training
+    step, the eval step and ``fit`` take: a ``('spatial',)`` mesh shards an
+    image's height, which only the spatial forwards take (JAX trains on no
+    spatial mesh either)."""
+    names = tuple(mesh.axis_names)
+    if names == (SPATIAL_AXIS,):
+        raise ValueError("a ('spatial',) mesh shards the image's height: run it through "
+                         "parallel.spatial_unet_apply or parallel.spatial_cswin_apply; the "
+                         "training step, the eval step and fit take a ('data',) mesh")
+    if names != (DATA_AXIS,):
+        raise NotImplementedError(f"a mesh over {names}: {_TP_ITEM}")
+
+
 def batch_sharding(mesh: Mesh, ndim: int = 4, axis: str = DATA_AXIS,
                    grad_accum: int = 1) -> BatchSharding:
     """Shard the leading (batch) dimension over the data axis, in shares of
     each of ``grad_accum`` micro-batches (``ndim`` is JAX's argument: every
     dimension after the first is whole)."""
-    if tuple(mesh.axis_names) != (DATA_AXIS,):
-        raise NotImplementedError(f"a mesh over {tuple(mesh.axis_names)}: {_TP_ITEM}")
+    require_data_axis(mesh)
     if axis != DATA_AXIS:
         raise ValueError(f"axis {axis!r} is not an axis of the mesh {mesh.axis_names}")
     return BatchSharding(mesh, int(grad_accum), axis)

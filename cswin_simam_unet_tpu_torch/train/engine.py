@@ -41,8 +41,10 @@ whole by every rank, and its gradients, loss and counts are averaged.
 Augmentation draws the global (micro-)batch's parameters and each rank
 applies its rows', so it equals one process; dropout, drop-path and the
 attention masks come from a stream of each rank's own (:func:`rank_seed`),
-whose rank 0 is the stream of a run without a mesh.  The segmented step
-(ROADMAP queue A item 10) is not ported yet.
+whose rank 0 is the stream of a run without a mesh.  A ``('spatial',)``
+mesh, which shards an image's height (``parallel.spatial_unet_apply``,
+``parallel.spatial_cswin_apply``), is refused, as JAX trains on none.  The
+segmented step (ROADMAP queue A item 10) is not ported yet.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ from ..data.pipeline import device_prefetch
 from ..models.cswin import FLAT_HEAD_FACTOR
 from ..ops.dropout import mix_seed
 from ..ops.windows import pixel_unshuffle
-from ..parallel.mesh import batch_sharding, shard_state
+from ..parallel.mesh import batch_sharding, require_data_axis, shard_state
 from .losses import segmentation_loss
 from .reporting import EpochProgress, TensorBoardLogger
 from .schedule import make_plateau_scheduler
@@ -292,6 +294,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     one (``global_batch=`` the global batch's size, the rows that
     ``parallel.batch_sharding(mesh, grad_accum=A)`` gives this rank).  The
     returned metrics and ``.grad`` are the global batch's on every rank."""
+    if mesh is not None:
+        require_data_axis(mesh)
     accum = int(grad_accum)
     if accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -337,6 +341,8 @@ def make_eval_step(model: torch.nn.Module, n_classes: int = 1, mesh=None) -> Cal
     ``no_grad``.  With ``mesh`` each rank evaluates its rows, taken as the
     training step takes them (``global_batch=`` likewise), and the metrics
     are the global batch's on every rank."""
+    if mesh is not None:
+        require_data_axis(mesh)
     sharding = batch_sharding(mesh) if mesh is not None else None
 
     @torch.no_grad()
@@ -447,6 +453,7 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
     train_sharding = eval_sharding = None
     main = mesh is None or mesh.is_main
     if mesh is not None:
+        require_data_axis(mesh)
         if mesh.device != device:
             raise ValueError(f"the mesh's device {mesh.device} is not the model's {device}")
         shard_state(model, optimizer, mesh)

@@ -801,6 +801,55 @@ def test_attention_dropout_rate_zero_launches_unchanged(dev):
                                                       seed=3))
 
 
+
+# H-slabs of 2 shards: (H global, W, hsp, C, heads); 256 tokens a window
+# (whole-window K-A / K-A') and 512 (the tiled pair)
+OFFSET_GEOMS = [(128, 128, 2, 64, 2), (64, 512, 1, 64, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,hsp,C,heads", OFFSET_GEOMS)
+def test_attention_dropout_window_offset(dev, dtype, H, W, hsp, C, heads):
+    """K-A and K-A' (or the tiled pair) on each H-slab of 2 shards, the
+    mask keyed on the slab's windows in the whole image (``win0``,
+    ``nwin_global``), against the plain versions at the same numbering and
+    against the slab's rows of the plain whole-image forward; the defaults
+    draw the mask of windows 0 .. n - 1, as before."""
+    B, n = 2, 2
+    Hl = H // n
+    nwin = Hl // hsp  # full-width stripes
+    q, k, v = (_randn(dev, B, H * W, C, scale=0.5, seed=i).to(dtype) for i in range(3))
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=3).to(dtype)
+    g = _randn(dev, B, H * W, C, seed=4).to(dtype)
+    kw = dict(W=W, hsp=hsp, wsp=W, num_heads=heads, attn_drop=0.3, seed=2 ** 31 + 11)
+    whole = attention.stripe_attention(*(t.float() for t in (q, k, v, lk)), H=H, **kw)
+    tiled = not stripe_attention.whole_window(hsp * W, C // heads)
+    for r in range(n):
+        rows = slice(r * Hl * W, (r + 1) * Hl * W)
+        sl = [t[:, rows].contiguous() for t in (q, k, v, g)]
+        at = dict(kw, H=Hl, win0=r * nwin, nwin_global=n * nwin)
+        _build.reset_launches()
+        if tiled:
+            out, lse = stripe_attention.tiled_fwd(*sl[:3], lk, **at)
+            grads = stripe_attention.tiled_bwd(*sl[:3], lk, lse, sl[3], **at)
+        else:
+            out = stripe_attention.attention_fwd(*sl[:3], lk, **at)
+            grads = _ka_bwd(*sl[:3], lk, sl[3], **at)
+        assert sum(_build.LAUNCHES.values()) >= 2
+        f32 = [t.float() for t in sl]
+        _check(out, attention.stripe_attention(*f32[:3], lk.float(), **at), dtype)
+        _check(out, whole[:, rows], dtype)
+        want = attention.stripe_attention_bwd_reference(*f32[:3], lk.float(), f32[3], **at)
+        for a, b in zip(grads, want):
+            _check_scaled(a, b, dtype)
+        if r == 1:  # another numbering draws other bits
+            at0 = dict(at, win0=0, nwin_global=None)
+            plain0 = attention.stripe_attention(*f32[:3], lk.float(), **at0)
+            assert float((plain0 - out.float()).abs().max()) > 1e-2
+    m = dropout.window_keep_mask(7, 6, 2, 16, dropout.u32_threshold(0.3))
+    assert torch.equal(m, dropout.window_keep_mask(7, 6, 2, 16, dropout.u32_threshold(0.3),
+                                                   nwin=3, win0=0, nwin_global=3))
+
 # ---- gradients of a tiny model through the kernels ----
 
 TINY = dict(img_size=64, embed_dim=16, depth=(1, 1, 1, 1), split_size=(1, 2, 2, 2),
