@@ -169,6 +169,23 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    ms of a sharded forward and of a forward + backward, each rank's peak
    memory against one process's and the ms of a halo exchange and an
    all-gather.
+11. the segmented step (``train/segmented.py``): ``cswin_simam_2048`` at
+   full width, batch 1, bf16, drops 0.3, ``seg_depth_split=3``, the
+   monolithic step and the segmented step with every segment recomputed,
+   "auto" and a forced 4 GiB budget (a mixed policy), from the same weights
+   and seed: the loss within 1e-2 and every gradient within 2e-2 x max(1,
+   max|g|) of the monolithic step's; each run's policy, launches (a
+   recomputed segment launches its forward kernels twice), peak memory (the
+   all-recompute peak below the monolithic one), host ms and the device's
+   busy ms in a step traced by ``utils.trace``; float32 at depth (1,1,1,1),
+   all recomputed, every gradient within 1e-5 x max|g|;
+   ``cswin_simam_2048_dp``'s batch of 8 in this process ("auto": the
+   policy, the peak, ms a step, 3 finite losses, ``ThroughputMeter``); two
+   ranks sharing the card over gloo at a global batch of 2, drops 0,
+   against one process; ``train --segmented`` through the CLI at
+   ``cswin_simam_512`` for 1 epoch; the trace files hold the port's
+   kernels, and ``enable_debug_checks`` names the module whose output first
+   holds a planted NaN.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1830,7 +1847,8 @@ def files_phase(torch, engine, _build, build_model, model, tcfg, want_step, want
 
 
 def cli(args: list, label: str) -> str:
-    """Run the port's CLI in a child process; its output, or fail."""
+    """Run the port's CLI in a child process; its output (standard output,
+    then standard error), or fail."""
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "cswin_simam_unet_tpu_torch.cli", *args],
                          cwd=HERE, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
@@ -1840,7 +1858,7 @@ def cli(args: list, label: str) -> str:
     log(f"  cli {label}: exit {res.returncode} in {secs:.1f} s" + (
         f" ({'; '.join(epochs)})" if epochs else ""))
     require(res.returncode == 0, f"cli {label} failed:\n{tail}")
-    return res.stdout
+    return res.stdout + res.stderr
 
 
 def cli_phase(decoders) -> dict:
@@ -2930,6 +2948,321 @@ def spatial_phase(torch, _build, build_model, dropout, attention, stripe_attenti
     return out
 
 
+# ---- 11. the segmented step ----
+
+SEG_RNG = 20262                     # the step seed of phase 11
+SEG_STEPS = 3                       # host-timed steps of each phase-11 run, after the counted one
+SEG_MIXED_BUDGET = 4 * 2 ** 30      # a residual budget that leaves cswin_simam_2048 mixed
+SEG_DP_BATCH = 2                    # (c): the global batch, 1 a rank
+SEG_WORLD = 2                       # (c): two ranks, both on the one card (gloo)
+SEG_TIMEOUT_S = 300                 # the ranks of (c) together
+TOL_SEG_F32 = 1e-5                  # x max|g| per parameter, float32, segmented vs monolithic
+
+
+def seg_run(torch, _build, trace, net, step, images, masks, tracedir, steps=SEG_STEPS) -> dict:
+    """One training step function on one batch: a warm-up call (which
+    resolves an "auto" policy and makes the optimizer's state), one call
+    with the launch counts set to 0 just before and read just after (its
+    metrics, gradients and peak memory), ``steps`` calls on the host clock,
+    then one call traced by ``utils.trace`` (its trace file under
+    ``tracedir``): the device's busy ms in it and its idle share."""
+    step(images, masks, rng=SEG_RNG)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    box = []
+    launched = launches_of(torch, _build, lambda: box.append(step(images, masks, rng=SEG_RNG)))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: float(v) for k, v in box[0].items()}
+    grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(images, masks, rng=SEG_RNG)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    from cswin_simam_unet_tpu_torch.utils import device_span_and_busy
+    with trace(tracedir) as prof:
+        step(images, masks, rng=SEG_RNG)
+    span_us, busy_us = device_span_and_busy(prof)
+    policy = getattr(step, "residual_policy", lambda: None)()
+    return dict(metrics=metrics, grads=grads, launches=launched, peak_gib=peak_gib,
+                host_ms=host_ms, device_busy_ms=busy_us / 1e3, idle_share=1 - busy_us / span_us,
+                policy=policy)
+
+
+def grad_gaps(ref: dict, got: dict) -> tuple[float, float, str]:
+    """(largest |gap| / max(1, max|ref|), largest |gap| / max|ref|, its
+    parameter) over every parameter."""
+    floor1, own, name = 0.0, 0.0, ""
+    for n, g in ref.items():
+        gap, scale = float((got[n] - g).abs().max()), float(g.abs().max())
+        floor1 = max(floor1, gap / max(1.0, scale))
+        if gap / max(scale, 1e-30) > own:
+            own, name = gap / max(scale, 1e-30), n
+    return floor1, own, name
+
+
+def seg_rank(rank: int) -> dict:
+    """One rank of phase 11 (c) (spawned; the process group is formed):
+    ``cswin_simam_2048_dp`` at drops 0, bf16, this rank's image of a global
+    batch of SEG_DP_BATCH, one segmented step ("auto") under the data mesh."""
+    import torch
+    from cswin_simam_unet_tpu_torch import _build
+    from cswin_simam_unet_tpu_torch.configs import NO_DROPS, TRAIN_CONFIGS, build_model
+    from cswin_simam_unet_tpu_torch.parallel import make_mesh
+    from cswin_simam_unet_tpu_torch.train import engine, segmented
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh()
+    dev = mesh.device
+    torch.cuda.set_device(dev)
+    tcfg = TRAIN_CONFIGS["cswin_simam_2048_dp"]
+    net = build_model("cswin_simam_2048_dp", device=dev, seed=SEED, **NO_DROPS)
+    opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
+                                net.parameters())
+    step = segmented.make_segmented_train_step(net, opt, depth_split=tcfg.seg_depth_split,
+                                               mesh=mesh)
+    images, masks = disc_batch(torch, IMG2048, SEG_DP_BATCH, dev)
+    torch.cuda.reset_peak_memory_stats()
+    box = []
+    launched = launches_of(torch, _build, lambda: box.append(step(images, masks, rng=SEG_RNG)))
+    return dict(metrics={k: float(v) for k, v in box[0].items()}, launches=launched,
+                policy=step.residual_policy(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                grads={n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+                if rank == 0 else None)
+
+
+def segmented_phase(torch, engine, _build, build_model, train_configs, per_step2048,
+                    per_forward2048, decoders, dev) -> dict:
+    """Phase 11: the segmented step (``train/segmented.py``).  (a)
+    ``cswin_simam_2048`` at full width, batch 1, bf16, drops 0.3,
+    ``seg_depth_split=3``: the monolithic step and the segmented step with
+    every segment recomputed, "auto" and a forced small budget (a mixed
+    policy), from the same weights (AdamW at lr 0 keeps them) and seed:
+    the loss within TOL_LOSS_BF16 and every gradient within TOL_BF16 x
+    max(1, max|g|) of the monolithic step's; each run's policy, launches
+    (backward kernels a monolithic step's, forward kernels that plus the
+    recomputed segments' forwards: every recompute doubles them), peak
+    memory (the all-recompute peak below the monolithic one), host ms and
+    the device's busy ms of a traced step; then float32 at depth
+    (1,1,1,1), all recomputed, every gradient within TOL_SEG_F32 x max|g|.
+    (b) ``cswin_simam_2048_dp``'s batch of 8 in this process, "auto": the
+    policy, peak memory, ms a step, 3 finite losses.  (c) two ranks sharing
+    the card over gloo, ``cswin_simam_2048_dp`` at drops 0 on a global
+    batch of 2, against this process's segmented step at batch 2.  (d)
+    ``train --segmented`` through the CLI at ``cswin_simam_512``, 1 epoch.
+    (e) the utils: the traces of (a) hold the port's kernels,
+    ``ThroughputMeter`` reports (b)'s steps, ``enable_debug_checks`` names
+    the first module whose output holds a planted NaN."""
+    from cswin_simam_unet_tpu_torch.configs import NO_DROPS
+    from cswin_simam_unet_tpu_torch.parallel import run_ranks
+    from cswin_simam_unet_tpu_torch.train import segmented
+    from cswin_simam_unet_tpu_torch.utils import ThroughputMeter, enable_debug_checks, trace
+    phase("the segmented step: cswin_simam_2048 (batch 1) and cswin_simam_2048_dp (batch 8), "
+          "two ranks, the CLI, the utils")
+    out: dict = {}
+    tcfg = train_configs["cswin_simam_2048"]
+    tracedir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    torch.cuda.empty_cache()
+    try:
+        # (a) the three policies against the monolithic step, bf16, drops 0.3
+        net = build_model("cswin_simam_2048", device=dev, seed=SEED)
+        opt = engine.make_optimizer("adamw", 0.0, 0.0, net.parameters())
+        images, masks = disc_batch(torch, IMG2048, tcfg.batch_size, dev)
+
+        def seg(**kw):
+            return segmented.make_segmented_train_step(
+                net, opt, depth_split=tcfg.seg_depth_split, **kw)
+
+        runs = {"monolithic": seg_run(torch, _build, trace, net,
+                                      engine.make_train_step(net, opt), images, masks,
+                                      tracedir)}
+        require(runs["monolithic"]["launches"] == per_step2048,
+                f"(a) monolithic launches {runs['monolithic']['launches']}")
+        for label, kw in (("recompute", dict(save_residuals=False)), ("auto", {}),
+                          ("mixed", dict(residual_budget_bytes=SEG_MIXED_BUDGET))):
+            runs[label] = seg_run(torch, _build, trace, net, seg(**kw), images, masks, tracedir)
+        mono = runs["monolithic"]
+        for label, r in runs.items():
+            if label == "monolithic":
+                continue
+            policy = r["policy"]
+            saved = [n for n, s in policy.items() if s]
+            floor1, own, worst = grad_gaps(mono["grads"], r["grads"])
+            dloss = abs(r["metrics"]["loss"] - mono["metrics"]["loss"])
+            extra = {k: n - per_step2048.get(k, 0) for k, n in r["launches"].items()
+                     if n != per_step2048.get(k, 0)}
+            log(f"(a) {label}: save {saved}, recompute "
+                f"{[n for n, s in policy.items() if not s]}; launches {r['launches']} (beyond "
+                f"the monolithic step's: {extra}); loss {r['metrics']['loss']:.6f} vs "
+                f"{mono['metrics']['loss']:.6f}; gradients: largest gap {floor1:.3e} x max(1, "
+                f"max|g|) (tol {TOL_BF16:g}), {own:.3e} x its own max|g| ({worst}); peak "
+                f"{r['peak_gib']:.3f} GiB vs {mono['peak_gib']:.3f}; {r['host_ms']:.2f} ms a "
+                f"step vs {mono['host_ms']:.2f} (host clock, mean of {SEG_STEPS}); device busy "
+                f"{r['device_busy_ms']:.2f} ms vs {mono['device_busy_ms']:.2f}, idle share "
+                f"{r['idle_share']:.3f} vs {mono['idle_share']:.3f} (one traced step)")
+            require(dloss <= TOL_LOSS_BF16, f"(a) {label}: loss gap {dloss}")
+            require(floor1 <= TOL_BF16, f"(a) {label}: gradient gap {floor1} ({worst})")
+            for k in set(per_step2048) | set(r["launches"]):
+                got, base = r["launches"].get(k, 0), per_step2048.get(k, 0)
+                hi = base + per_forward2048.get(k, 0)
+                require(base <= got <= hi, f"(a) {label}: {got} launches of {k}")
+                if all(policy.values()):
+                    require(got == base, f"(a) {label} saves all: {got} launches of {k}")
+                if not any(policy.values()):
+                    require(got == hi, f"(a) {label} recomputes all: {got} launches of {k}")
+            r.update(loss_gap=dloss, grad_gap=floor1, grad_gap_own=own, launches_beyond=extra)
+        require(runs["recompute"]["peak_gib"] < mono["peak_gib"],
+                "(a) the all-recompute peak is not below the monolithic step's")
+        mixed = runs["mixed"]["policy"]
+        require(any(mixed.values()) and not all(mixed.values()), f"(a) mixed: {mixed}")
+        # every traced step's file holds the port's kernels
+        files = sorted(os.listdir(tracedir))
+        require(len(files) == len(runs) and all(f.endswith(".pt.trace.json") for f in files),
+                f"(e) trace files {files}")
+        with open(os.path.join(tracedir, files[0])) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+        n_port = sum("csu" in n for n in names)
+        mib = sum(os.path.getsize(os.path.join(tracedir, f)) for f in files) / 2 ** 20
+        log(f"(e) utils.trace: {len(files)} trace files, {mib:.1f} MiB; the monolithic "
+            f"step's: {len(names)} kernel events, {n_port} of them the port's kernels")
+        require(n_port > 0, "(e) the trace holds no kernel of the port")
+        out["a"] = {k: {m: v for m, v in r.items() if m != "grads"} for k, r in runs.items()}
+        out["e"] = dict(trace_files=len(files), kernel_events=len(names), port_kernels=n_port)
+        del runs, mono, net, opt
+        torch.cuda.empty_cache()
+
+        # (a') float32 at depth (1,1,1,1): the same draws, float32 rounding apart
+        phase("segmented step (a'): float32, depth (1,1,1,1)")
+        net = build_model("cswin_simam_2048", device=dev, seed=SEED, dtype="float32",
+                          depth=(1, 1, 1, 1))
+        opt = engine.make_optimizer("adamw", 0.0, 0.0, net.parameters())
+        mono = seg_run(torch, _build, trace, net, engine.make_train_step(net, opt), images,
+                       masks, tracedir, steps=1)
+        rec = seg_run(torch, _build, trace, net, seg(save_residuals=False), images, masks,
+                      tracedir, steps=1)
+        _, own, worst = grad_gaps(mono["grads"], rec["grads"])
+        log(f"(a) float32, depth (1,1,1,1), drops 0.3, all recomputed: loss "
+            f"{rec['metrics']['loss']:.7f} vs {mono['metrics']['loss']:.7f}; largest gradient "
+            f"gap {own:.3e} x its own max|g| ({worst}; tol {TOL_SEG_F32:g}); peak "
+            f"{rec['peak_gib']:.3f} vs {mono['peak_gib']:.3f} GiB")
+        require(own <= TOL_SEG_F32, f"(a) float32 gradient gap {own} ({worst})")
+        out["a_f32"] = dict(grad_gap_own=own, loss=rec["metrics"]["loss"],
+                            loss_monolithic=mono["metrics"]["loss"], peak_gib=rec["peak_gib"],
+                            peak_gib_monolithic=mono["peak_gib"])
+        del net, opt, mono, rec
+        torch.cuda.empty_cache()
+
+        # (b) cswin_simam_2048_dp's global batch of 8 in one process, "auto"
+        phase("segmented step (b): cswin_simam_2048_dp, batch 8, one process")
+        dcfg = train_configs["cswin_simam_2048_dp"]
+        net = build_model("cswin_simam_2048_dp", device=dev, seed=SEED)
+        opt = engine.make_optimizer(dcfg.optimizer, dcfg.learning_rate, dcfg.weight_decay,
+                                    net.parameters())
+        step = segmented.make_segmented_train_step(net, opt, depth_split=dcfg.seg_depth_split)
+        images8, masks8 = disc_batch(torch, IMG2048, dcfg.batch_size, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        meter = ThroughputMeter()
+        losses, ms = [], []
+        for _ in range(SEG_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(images8, masks8)["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            meter.update(dcfg.batch_size)
+        peak8 = torch.cuda.max_memory_allocated() / 2 ** 30
+        policy8 = step.residual_policy()
+        log(f"(b) cswin_simam_2048_dp, bf16, drops 0.3, batch {dcfg.batch_size} in one process, "
+            f"auto: save {[n for n, s in policy8.items() if s]}, recompute "
+            f"{[n for n, s in policy8.items() if not s]}; peak {peak8:.3f} GiB of "
+            f"{torch.cuda.get_device_properties(dev).total_memory / 2 ** 30:.1f}; ms a step "
+            f"{[round(x, 1) for x in ms]} (host clock, the first resolves the policy); losses "
+            f"{losses}; ThroughputMeter: {meter.summary()} over {meter.n_chips} card(s)")
+        require(all(math.isfinite(x) for x in losses), f"(b) losses {losses}")
+        require(meter.n_chips == torch.cuda.device_count() and meter.images_per_sec > 0,
+                "(b) ThroughputMeter")
+        out["b"] = dict(policy=policy8, peak_gib=peak8, step_ms=ms, losses=losses,
+                        meter=meter.summary())
+        del net, opt, step, images8, masks8
+        torch.cuda.empty_cache()
+
+        # (c) two ranks sharing the card, against this process at batch 2
+        phase(f"segmented step (c): {SEG_WORLD} ranks on one card (gloo) vs one process")
+        net = build_model("cswin_simam_2048_dp", device=dev, seed=SEED, **NO_DROPS)
+        opt = engine.make_optimizer(dcfg.optimizer, dcfg.learning_rate, dcfg.weight_decay,
+                                    net.parameters())
+        step = segmented.make_segmented_train_step(net, opt, depth_split=dcfg.seg_depth_split)
+        images2, masks2 = disc_batch(torch, IMG2048, SEG_DP_BATCH, dev)
+        ref = {k: float(v) for k, v in step(images2, masks2, rng=SEG_RNG).items()}
+        ref_grads = {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+        del net, opt, step, images2, masks2
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks(seg_rank, SEG_WORLD, timeout_s=SEG_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        floor1, own, worst = grad_gaps(ref_grads, ranks[0]["grads"])
+        gaps = [{k: abs(r["metrics"][k] - ref[k]) for k in METRIC_KEYS} for r in ranks]
+        log(f"(c) cswin_simam_2048_dp, bf16, drops 0, {SEG_DP_BATCH} images ({SEG_WORLD} ranks "
+            f"on one card, gloo) vs one process: metrics {[r['metrics'] for r in ranks]} vs "
+            f"{ref}; gradients: largest gap {floor1:.3e} x max(1, max|g|) (tol {TOL_BF16:g}), "
+            f"{own:.3e} x its own max|g| ({worst}); policies "
+            f"{[sorted(n for n, s in r['policy'].items() if not s) for r in ranks]} "
+            f"recomputed; peak a rank {[round(r['peak_gib'], 3) for r in ranks]} GiB; launches "
+            f"a rank (the first call: the step and the policy's sizing forward) "
+            f"{ranks[0]['launches']}; {ranks_s:.1f} s for the ranks")
+        require(all(g[k] <= TOL_LOSS_BF16 for g in gaps for k in METRIC_KEYS),
+                f"(c) metric gaps {gaps}")
+        require(floor1 <= TOL_BF16, f"(c) gradient gap {floor1} ({worst})")
+        want = {k: per_step2048.get(k, 0) + per_forward2048.get(k, 0)
+                for k in set(per_step2048) | set(per_forward2048)}
+        for r in ranks:
+            if all(r["policy"].values()):
+                require(r["launches"] == want, f"(c) rank launches {r['launches']} != {want}")
+        out["c"] = dict(metric_gaps=gaps, grad_gap=floor1, grad_gap_own=own,
+                        peak_gib=[r["peak_gib"] for r in ranks], ranks_seconds=ranks_s)
+
+        # (d) train --segmented through the CLI
+        phase("segmented step (d): train --segmented through the CLI")
+        if decoders["native"] or decoders["cv2"] or decoders["pil"]:
+            workdir = tempfile.mkdtemp(prefix="chip_smoke_seg_cli_")
+            try:
+                log_train = cli(["train", "--config", "cswin_simam_512", "--segmented",
+                                 "--no-progress", "--image-dir", os.path.join(DATA_DIR, "images"),
+                                 "--mask-dir", os.path.join(DATA_DIR, "masks"), "--output-dir",
+                                 workdir, "--epochs", "1"], "train --segmented --epochs 1")
+            finally:
+                shutil.rmtree(workdir, ignore_errors=True)
+            line = [ln for ln in log_train.splitlines() if "auto residual policy" in ln]
+            require("step: segmented" in log_train and "Epoch [1/1]" in log_train and line,
+                    "(d) cli train --segmented: no segmented epoch")
+            log(f"(d) {line[0].strip()}")
+            out["d"] = dict(ran=True, policy_line=line[0].strip())
+        else:
+            log("(d) no JPEG decoder on this machine: the CLI reads JPEG files only; not run")
+            out["d"] = dict(ran=False)
+
+        # (e) a planted NaN, named by the debug checks
+        phase("segmented step (e): enable_debug_checks")
+        net = build_model("cswin_simam_512", device=dev, seed=SEED)
+        x = disc_batch(torch, IMG, 1, dev)[0].float() / 255.0
+        x[0, 7, 9, 1] = float("nan")
+        named = ""
+        with enable_debug_checks(net):
+            try:
+                net(x)
+            except FloatingPointError as e:
+                named = str(e)
+        log(f"(e) enable_debug_checks on a NaN pixel: {named!r}")
+        require("module 'stage1_conv_embed.0'" in named, f"(e) debug checks: {named!r}")
+        out["e"]["debug_checks"] = named
+        del net, x
+    finally:
+        shutil.rmtree(tracedir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3974,6 +4307,11 @@ def main() -> int:
     # ---- 10. spatial sharding ----
     sp_run = spatial_phase(torch, _build, build_model, dropout, attention, stripe_attention, dev)
 
+    # ---- 11. the segmented step ----
+    seg_run_out = segmented_phase(torch, engine, _build, build_model, TRAIN_CONFIGS,
+                                  per_step2048, per_forward2048, decoders, dev)
+    seg_launches = seg_run_out["a"]["recompute"]["launches"]
+
     # ---- results ----
     sources = {
         "K-A": ("csu_stripe_attention_fwd", "cswin_simam_unet_tpu_torch/csrc/stripe_attention.cu",
@@ -4029,6 +4367,10 @@ def main() -> int:
             "launches": n_step, "launches_cswinunet_step": train_launches448.get(fn, 0),
             "launches_serving": launches.get(fn, 0),
             "launches_per_forward": batch8.get(fn, 0),
+            # the 2048^2 segmented step, every segment recomputed (phase 11)
+            "launches_segmented_2048_step": sum(
+                seg_launches.get(f"{fn}:{m}", 0) for m in _build.FLASH_MODES)
+            if label in window_replaces else seg_launches.get(fn, 0),
             "max_abs_err": row.get("abs32", row["err32"]),
             "max_abs_err_bf16": row["err16"],
             "err_scaled_by_max_plain": "abs32" in row,
@@ -4154,6 +4496,7 @@ def main() -> int:
     log("unet: " + json.dumps(unet_run))
     log("data parallelism: " + json.dumps(dp_run))
     log("spatial sharding: " + json.dumps(sp_run))
+    log("segmented step: " + json.dumps(seg_run_out))
     log(f"f32 gradient gaps, kernels on vs off at drops 0.3: cswin_simam_512 {grad_gap:.3e}, "
         f"cswinunet {grad_gap448:.3e}; cswin_simam_2048 at depth (1,1,1,1), attention drop "
         f"0: {grad_gap2048:.3e}; cswin_simam_512_dp {grad_gap_dp:.3e}; K-A keep rate "

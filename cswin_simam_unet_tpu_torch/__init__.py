@@ -8,9 +8,12 @@ images in, probabilities out) and train (``train/engine.py``: the binary
 and the multi-class step, gradient accumulation, AdamW or L2-coupled Adam,
 dropout and drop-path at the configs' rates, augmentation on the device,
 the eval step and ``fit`` with its plateau schedule and checkpoints) at
-224^2 to 2048^2, from JPEG files (``data/``) or the command line
+224^2 to 2048^2, at 2048^2 through the segmented step that recomputes
+segments of the forward to bound activation memory
+(``train/segmented.py``), from JPEG files (``data/``) or the command line
 (``cli.py``), on one card or data-parallel over several ranks
-(``parallel/``: one process a card, ``torch.distributed``).  CSWin-SimAM-UNet runs through hand-written CUDA kernels,
+(``parallel/``: one process a card, ``torch.distributed``), with a
+profiler trace, a throughput meter and NaN checks (``utils/``).  CSWin-SimAM-UNet runs through hand-written CUDA kernels,
 each an autograd Function whose CPU path
 is its plain PyTorch version: stripe attention K-A / K-A'
 (``ops/stripe_attention.py``, windows that one block holds whole), the

@@ -29,11 +29,17 @@ the checkpoints, the CSV, the plot and the weights.  Otherwise rank 0 says
 why, as JAX does, and trains alone exactly as one process would, while the
 other ranks stand aside.
 
+``train --segmented`` trains a CSWin config with the segmented step
+(``train/segmented.py``), which recomputes segments of the forward in the
+backward to bound activation memory; it is on by default where the config
+says so (``cswin_simam_2048``, ``cswin_simam_2048_dp``), and
+``--no-segmented`` takes the monolithic step.
+
 Not ported: ``export-serving`` (``jax.export`` artifacts are JAX's own; the
 port serves in process, ``serving.Server``), ``--remat`` and
-``--scan-stages`` (XLA's compile-size devices), ``--segmented`` (ROADMAP
-queue A item 10) and ``--pallas`` (the port always runs its kernels on the
-card).  Each exits with an error that says so.
+``--scan-stages`` (XLA's compile-size devices) and ``--pallas`` (the port
+always runs its kernels on the card).  Each exits with an error that says
+so.
 """
 
 from __future__ import annotations
@@ -64,7 +70,6 @@ NOT_PORTED = {
     "pallas": "--pallas has no meaning here: the port always runs its CUDA kernels on the card",
     "remat": "--remat is an XLA compile-size device of the JAX package; not ported",
     "scan_stages": "--scan-stages is an XLA compile-size device of the JAX package; not ported",
-    "segmented": "--segmented: the segmented step is not ported yet (ROADMAP queue A item 10)",
 }
 
 
@@ -84,8 +89,6 @@ def _not_ported(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pallas", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--remat", default=None, help=argparse.SUPPRESS)
     p.add_argument("--scan-stages", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--segmented", action=argparse.BooleanOptionalAction, default=None,
-                   help=argparse.SUPPRESS)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -120,6 +123,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="also print a metrics line every N batches (0: off)")
     t.add_argument("--cache-decoded", action="store_true",
                    help="keep the decoded samples in host memory after their first load")
+    t.add_argument("--segmented", action=argparse.BooleanOptionalAction, default=None,
+                   help="train with the segmented step, which recomputes segments of the "
+                        "forward in the backward (bounded activation memory; CSWin "
+                        "configs). Default: the config's; --no-segmented forces the "
+                        "monolithic step")
     _not_ported(t)
 
     pr = sub.add_parser("predict", help="segment a directory of images with trained weights")
@@ -263,6 +271,7 @@ def _train(args) -> int:
                              cache_decoded=args.cache_decoded,
                              sharding=batch_sharding(mesh) if mesh else None)
 
+    segmented = run.segmented if args.segmented is None else args.segmented
     model = build_model(cfg.model, device=device, seed=run.seed)
     opt = make_optimizer(run.optimizer, run.learning_rate, run.weight_decay,
                          model.parameters())
@@ -279,6 +288,7 @@ def _train(args) -> int:
         "epochs": run.num_epochs,
         "augment": augment,
         "dtype": cfg.model.dtype,
+        "step": f"segmented (depth split {run.seg_depth_split})" if segmented else "monolithic",
         "params": sum(p.numel() for p in model.parameters()),
     }))
 
@@ -290,6 +300,7 @@ def _train(args) -> int:
         plateau_factor=run.plateau_factor, plateau_patience=run.plateau_patience,
         plateau_min_lr=run.plateau_min_lr, seed=run.seed, checkpoint_manager=store,
         checkpoint_every=args.checkpoint_every, grad_accum=run.grad_accum,
+        segmented=segmented, seg_depth_split=run.seg_depth_split,
         progress=not args.no_progress, log_every=args.log_every,
         tensorboard_dir=args.tensorboard_dir)
     if args.init_weights:

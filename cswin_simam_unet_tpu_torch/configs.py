@@ -17,12 +17,15 @@ call (``forward``/``predict``/``make_train_step``, on by default), not here.
 configs (``configs.py:154``, ``:171``): the flagship's geometry at 1024^2
 (windows of 512 tokens in stage 3, a 1024-token global window in stage 4)
 and 2048^2 (windows of 512 and 1024 tokens, a 4096-token global window on
-the flash path), AdamW lr 1e-4, weight decay 1e-4, batch 2 and 1.  What
-the JAX entries add is not ported: ``scan_stages`` (an XLA compile-size
-device) and the segmented step (queue A item 10; the port trains 2048^2 in
-one eager step).  ``cswin_simam_1024`` trains with ``grad_accum=2``, as its
-JAX entry does, and ``cswin_simam_2048`` without data parallelism, as its
-JAX entry does.
+the flash path), AdamW lr 1e-4, weight decay 1e-4, batch 2 and 1, trained
+with augmentation as every config is.  ``cswin_simam_1024`` trains with
+``grad_accum=2``, as its JAX entry does.  ``cswin_simam_2048`` trains with
+the segmented step (``train/segmented.py``: ``segmented=True``, stages
+deeper than ``seg_depth_split=3`` blocks cut into chunks of 3), without
+data parallelism, as its JAX entry does; ``cswin_simam_2048_dp``
+(``configs.py:182-188``) is the same at a global batch of 8, data-parallel
+over the ranks of the run.  What the JAX entries add and the port leaves
+out is ``scan_stages``, an XLA compile-size device.
 
 ``cswin_simam_512_dp`` is the JAX package's multi-class entry
 (``configs.py:142-147``): the flagship's geometry with 4 classes, SimAM,
@@ -107,6 +110,10 @@ class TrainConfig:
     augment: Optional[AugmentConfig] = AugmentConfig()
     num_workers: int = 4
     data_parallel: bool = True  # split the batch over the ranks of the run
+    # the segmented step (train/segmented.py), stages deeper than
+    # seg_depth_split blocks cut into chunks of that many (0: one a stage)
+    segmented: bool = False
+    seg_depth_split: int = 0
     checkpoint_dir: Optional[str] = None
     output_prefix: str = "cswin_simam_512"
 
@@ -138,6 +145,7 @@ CONFIGS = {
     "cswin_simam_512_dp": ModelConfig(num_classes=4, dtype="float32", **DROPS),
     "cswin_simam_1024": ModelConfig(img_size=1024, **DROPS),
     "cswin_simam_2048": ModelConfig(img_size=2048, **DROPS),
+    "cswin_simam_2048_dp": ModelConfig(img_size=2048, **DROPS),
     "cswin_tiny_224": ModelConfig(img_size=224, embed_dim=32, depth=(1, 2, 2, 1),
                                   split_size=(1, 2, 2, 7), num_heads=(2, 2, 4, 8),
                                   use_simam=False, dtype="float32", **DROPS),
@@ -152,7 +160,9 @@ TRAIN_CONFIGS = {name: TrainConfig(output_prefix=name, **kw) for name, kw in (
     ("cswinunet", dict(batch_size=2)),
     ("cswin_simam_512_dp", dict(batch_size=16)),
     ("cswin_simam_1024", dict(batch_size=2, grad_accum=2)),
-    ("cswin_simam_2048", dict(batch_size=1, data_parallel=False)),
+    ("cswin_simam_2048", dict(batch_size=1, data_parallel=False, segmented=True,
+                              seg_depth_split=3)),
+    ("cswin_simam_2048_dp", dict(batch_size=8, segmented=True, seg_depth_split=3)),
     ("cswin_tiny_224", dict(batch_size=2)),
     ("cswin_simam_224", dict(batch_size=8)),
 )}

@@ -155,37 +155,69 @@ class CSWinUNet(nn.Module):
     def device(self) -> torch.device:
         return self.output.weight.device
 
-    def features(self, x: torch.Tensor, use_kernels: bool = True,
-                 rng: DropoutRng | None = None) -> torch.Tensor:
-        """x (B, img, img, in_chans) float -> the decoder's normalised
-        tokens (B, (img/4)^2, embed_dim) in the compute dtype; dropout and
-        drop-path act only with an ``rng``."""
-        r = self.resos
+    def embed(self, x: torch.Tensor, rng: DropoutRng | None = None) -> torch.Tensor:
+        """x (B, img, img, in_chans) float -> the patch embed's tokens
+        (B, (img/4)^2, embed_dim), with dropout where an ``rng`` is given."""
         img = self.stage1_conv_embed[0](x.to(self.dtype))
         if self.use_simam:
             img = simam(img)
         tokens = self.stage1_conv_embed[2](nhwc_to_tokens(img))
         if rng is not None:
             tokens = fast_dropout(tokens, self.drop_rates[0], rng.generator)
+        return tokens
 
+    def run_blocks(self, stage: str, tokens: torch.Tensor, use_kernels: bool,
+                   rng: DropoutRng | None, lo: int = 0, hi: int | None = None) -> torch.Tensor:
+        """Blocks [lo, hi) (all by default) of the stage named ``stage``
+        (``stage3``, ``stage_up4``, ...)."""
+        blocks = getattr(self, stage)
+        for i in range(lo, len(blocks) if hi is None else hi):
+            tokens = blocks[i](tokens, use_kernels, rng)
+        return tokens
+
+    def merge(self, s: int, tokens: torch.Tensor) -> torch.Tensor:
+        """Encoder stage s's downsampling merge."""
+        return getattr(self, f"merge{s + 1}")(tokens, self.resos[s], self.resos[s])
+
+    def fuse_skip(self, s: int, tokens: torch.Tensor, skip: torch.Tensor,
+                  use_kernels: bool) -> torch.Tensor:
+        """Decoder stage s's entry: CARAFE 2x up of ``tokens``, the skip
+        concatenated in front, the linear fusion."""
+        r = self.resos[s + 1]
+        tokens = getattr(self, f"upsample{s + 2}")(tokens, r, r, use_kernels)
+        return getattr(self, f"concat_linear{s + 2}")(torch.cat([skip, tokens], dim=-1))
+
+    def features(self, x: torch.Tensor, use_kernels: bool = True,
+                 rng: DropoutRng | None = None) -> torch.Tensor:
+        """x (B, img, img, in_chans) float -> the decoder's normalised
+        tokens (B, (img/4)^2, embed_dim) in the compute dtype; dropout and
+        drop-path act only with an ``rng``."""
+        tokens = self.embed(x, rng)
         skips = []
         for s in range(4):
-            for blk in getattr(self, f"stage{s + 1}"):
-                tokens = blk(tokens, use_kernels, rng)
+            tokens = self.run_blocks(f"stage{s + 1}", tokens, use_kernels, rng)
             if s < 3:
                 skips.append(tokens)
-                tokens = getattr(self, f"merge{s + 1}")(tokens, r[s], r[s])
+                tokens = self.merge(s, tokens)
         tokens = self.norm(tokens)
-
-        for blk in self.stage_up4:
-            tokens = blk(tokens, use_kernels, rng)
+        tokens = self.run_blocks("stage_up4", tokens, use_kernels, rng)
         for s in (2, 1, 0):
-            tokens = getattr(self, f"upsample{s + 2}")(tokens, r[s + 1], r[s + 1], use_kernels)
-            tokens = getattr(self, f"concat_linear{s + 2}")(
-                torch.cat([skips[s], tokens], dim=-1))
-            for blk in getattr(self, f"stage_up{s + 1}"):
-                tokens = blk(tokens, use_kernels, rng)
+            tokens = self.fuse_skip(s, tokens, skips[s], use_kernels)
+            tokens = self.run_blocks(f"stage_up{s + 1}", tokens, use_kernels, rng)
         return self.norm_up(tokens)
+
+    def head(self, tokens: torch.Tensor, use_kernels: bool = True,
+             flat_logits: bool = False) -> torch.Tensor:
+        """The normalised tokens of :meth:`features` -> logits, as
+        :meth:`forward` gives them."""
+        r0, S = self.resos[0], FLAT_HEAD_FACTOR
+        if use_kernels:
+            y, enc, b = self.upsample1.head_precursor(tokens, r0, r0)
+            logits = self.output.flat(y, enc, b)  # (B, r0, r0, 16*F), lane s*F + f
+            return logits if flat_logits else pixel_shuffle(logits, S)
+        tokens = self.upsample1(tokens, r0, r0, False)
+        logits = self.output.image(tokens_to_nhwc(tokens, self.img_size, self.img_size))
+        return pixel_unshuffle(logits, S) if flat_logits else logits
 
     def dropout_rng(self, train: bool, rng: int | None) -> DropoutRng | None:
         """The randomness of one forward: None unless ``train`` and a drop
@@ -207,15 +239,8 @@ class CSWinUNet(nn.Module):
         is the UNet's (BatchNorm over the ranks' global batch): the
         CSWin-UNet normalises per token and per sample only, so it changes
         nothing here."""
-        r0, S = self.resos[0], FLAT_HEAD_FACTOR
         tokens = self.features(x, use_kernels, self.dropout_rng(train, rng))
-        if use_kernels:
-            y, enc, b = self.upsample1.head_precursor(tokens, r0, r0)
-            logits = self.output.flat(y, enc, b)  # (B, r0, r0, 16*F), lane s*F + f
-            return logits if flat_logits else pixel_shuffle(logits, S)
-        tokens = self.upsample1(tokens, r0, r0, False)
-        logits = self.output.image(tokens_to_nhwc(tokens, self.img_size, self.img_size))
-        return pixel_unshuffle(logits, S) if flat_logits else logits
+        return self.head(tokens, use_kernels, flat_logits)
 
     def predict(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
         """Probabilities (sigmoid for one class, softmax over classes else)

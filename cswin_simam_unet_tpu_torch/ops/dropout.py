@@ -205,3 +205,13 @@ class DropoutRng:
     def next_seed(self) -> int:
         self._calls += 1
         return mix_seed(self.seed, self._calls)
+
+    def state(self) -> tuple:
+        """Where the draws stand: the generator's state and the count of
+        attention calls.  :meth:`restore` of it makes the calls that follow
+        draw again what they drew after it was taken."""
+        return self.generator.get_state(), self._calls
+
+    def restore(self, state: tuple) -> None:
+        self.generator.set_state(state[0])
+        self._calls = state[1]

@@ -74,6 +74,7 @@ def main() -> None:
     from .configs import CONFIGS, NO_DROPS, TRAIN_CONFIGS, build_model
     from .serving import Server
     from .train import engine
+    from .utils.profiling import device_span_and_busy
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -131,10 +132,7 @@ def main() -> None:
             traced_ms = (time.perf_counter() - t0) / args.steps * 1e3
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not events:
-            raise RuntimeError("the profiler recorded no device activity")
-        span_us, busy_us = _span_and_busy(
-            [(e.time_range.start, e.time_range.end) for e in events])
+        span_us, busy_us = device_span_and_busy(prof)
         busy_ms = busy_us / args.steps / 1e3
         windows.append(dict(untraced_wall_ms=wall_ms, traced_wall_ms=traced_ms,
                             span_ms=span_us / args.steps / 1e3, busy_ms=busy_ms,
@@ -174,20 +172,6 @@ def main() -> None:
         "windows": [{k: v for k, v in w.items() if k != "events"} for w in windows],
         "activities_per_forward": len(events) / args.steps,
         "groups_ms": {g: us / args.steps / 1e3 for g, us in by_group.items()}}))
-
-
-def _span_and_busy(intervals: list) -> tuple[float, float]:
-    """(last end - first start, length of the union) of (start, end) pairs."""
-    intervals = sorted(intervals)
-    busy, cur_start, cur_end = 0.0, intervals[0][0], intervals[0][1]
-    for start, end in intervals[1:]:
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
-    return max(end for _, end in intervals) - intervals[0][0], busy
 
 
 if __name__ == "__main__":

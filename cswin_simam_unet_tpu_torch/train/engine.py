@@ -44,7 +44,9 @@ attention masks come from a stream of each rank's own (:func:`rank_seed`),
 whose rank 0 is the stream of a run without a mesh.  A ``('spatial',)``
 mesh, which shards an image's height (``parallel.spatial_unet_apply``,
 ``parallel.spatial_cswin_apply``), is refused, as JAX trains on none.  The
-segmented step (ROADMAP queue A item 10) is not ported yet.
+segmented step (``train/segmented.py``, ``FitConfig.segmented``) is this step
+run as a chain of segments that may recompute their forwards in the backward,
+which bounds the activation memory of the CSWin-UNet at 2048^2.
 """
 
 from __future__ import annotations
@@ -294,6 +296,22 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     one (``global_batch=`` the global batch's size, the rows that
     ``parallel.batch_sharding(mesh, grad_accum=A)`` gives this rank).  The
     returned metrics and ``.grad`` are the global batch's on every rank."""
+    def gradients(images_u8, masks_u8, rng, weight, rank, stats_mesh, draw_rows):
+        return compute_gradients(model, images_u8, masks_u8, n_classes, use_kernels, rng,
+                                 weight, augment, rank, stats_mesh, draw_rows)
+
+    return _make_step(model, optimizer, n_classes, augment, grad_accum, seed, mesh, gradients)
+
+
+def _make_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, n_classes: int,
+               augment: Optional[AugmentConfig], grad_accum: int, seed: int, mesh,
+               gradients: Callable) -> Callable:
+    """The step of :func:`make_train_step` over ``model`` around ``gradients(images_u8,
+    masks_u8, rng, weight, rank, stats_mesh, draw_rows) -> (loss, logits,
+    targets)``, which adds ``weight`` x one micro-batch's gradients to the
+    parameters' ``.grad`` as :func:`compute_gradients` does: the seeds, the
+    micro-batches, this rank's rows, the reduction over the ranks and the
+    optimizer's step."""
     if mesh is not None:
         require_data_axis(mesh)
     accum = int(grad_accum)
@@ -319,10 +337,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         for i, (lo, hi, w) in enumerate(micro_batches(images_u8.shape[0], accum)):
             # rows [lo, hi) of this rank are its share of global micro-batch i
             draw_rows = (rank * (hi - lo), n_global // accum) if split else None
-            mloss, logits, targets = compute_gradients(
-                model, images_u8[lo:hi], masks_u8[lo:hi], n_classes, use_kernels,
-                rng if accum == 1 else mix_seed(rng, i), w, augment, rank, stats_mesh,
-                draw_rows)
+            mloss, logits, targets = gradients(
+                images_u8[lo:hi], masks_u8[lo:hi], rng if accum == 1 else mix_seed(rng, i),
+                w, rank, stats_mesh, draw_rows)
             loss = loss + w * mloss
             sums = sums + _metric_sums(logits, targets, n_classes)
         if mesh is not None:
@@ -385,8 +402,10 @@ def evaluate(eval_step: Callable, loader, device, sharding=None) -> Dict[str, fl
 @dataclass
 class FitConfig:
     """``fit``'s settings, the JAX package's ``FitConfig``: it augments by
-    default, as JAX's does.  ``segmented`` / ``seg_depth_split`` (ROADMAP
-    queue A item 10) take only their off value."""
+    default, as JAX's does.  ``segmented`` trains a CSWin-UNet with the
+    segmented step (``train/segmented.py``, its residual policy "auto"),
+    whose stages deeper than ``seg_depth_split`` blocks are cut into chunks
+    of that many (0: one segment per stage)."""
     num_epochs: int = 100
     n_classes: int = 1
     augment: Optional[AugmentConfig] = AugmentConfig()
@@ -405,10 +424,6 @@ class FitConfig:
     checkpoint_every: int = 1
     tensorboard_dir: Optional[str] = None
     verbose: bool = True
-
-
-_NOT_PORTED = (("segmented", "the segmented step", 10),
-               ("seg_depth_split", "the segmented step", 10))
 
 
 def empty_history() -> Dict[str, list]:
@@ -445,10 +460,6 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
     and the learning rates are the same on every rank.  Rank 0 alone
     prints, writes the checkpoints and logs to TensorBoard; every rank
     waits for each checkpoint."""
-    for name, what, item in _NOT_PORTED:
-        if getattr(cfg, name):
-            raise NotImplementedError(f"FitConfig.{name}: {what} is not ported yet "
-                                      f"(ROADMAP queue A item {item})")
     device = model.device
     train_sharding = eval_sharding = None
     main = mesh is None or mesh.is_main
@@ -460,9 +471,16 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
         train_sharding = batch_sharding(mesh, grad_accum=cfg.grad_accum)
         eval_sharding = batch_sharding(mesh)
     verbose = cfg.verbose and main
-    train_step = make_train_step(model, optimizer, cfg.n_classes, augment=cfg.augment,
-                                 grad_accum=cfg.grad_accum, mesh=mesh)
-    eval_step = make_eval_step(model, cfg.n_classes, mesh=mesh)
+    if cfg.segmented:
+        from .segmented import make_segmented_train_step
+        train_step = make_segmented_train_step(
+            model, optimizer, cfg.n_classes, augment=cfg.augment, grad_accum=cfg.grad_accum,
+            mesh=mesh, depth_split=cfg.seg_depth_split)
+        eval_step = train_step.eval_step
+    else:
+        train_step = make_train_step(model, optimizer, cfg.n_classes, augment=cfg.augment,
+                                     grad_accum=cfg.grad_accum, mesh=mesh)
+        eval_step = make_eval_step(model, cfg.n_classes, mesh=mesh)
     if scheduler is None:
         scheduler = make_plateau_scheduler(optimizer, cfg.plateau_factor,
                                            cfg.plateau_patience, cfg.plateau_min_lr)

@@ -420,18 +420,38 @@ def test_device_prefetch_keeps_order():
     assert list(device_prefetch([], "cpu")) == []
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("segmented", True, 10), ("seg_depth_split", 2, 10),
-    ("mesh", Mesh(1, 0, torch.device("cpu"), ("data", "model")), 9)])
-def test_fit_rejects_what_is_not_ported(field, value, item):
-    """The segmented step (item 10) and a mesh with a tensor-parallel axis
-    (item 9d; the data axis is ported)."""
+def test_fit_rejects_what_is_not_ported():
+    """A mesh with a tensor-parallel axis (item 9d; the data axis is ported)."""
     model = CSWinUNet(**TINY, use_simam=True, device="cpu")
     opt = engine.make_optimizer("adamw", LR, WD, model.parameters())
-    cfg, kw = engine.FitConfig(num_epochs=1, verbose=False), {}
-    if field == "mesh":
-        kw["mesh"] = value
-    else:
-        cfg = dataclasses.replace(cfg, **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A item {item}"):
-        engine.fit(model, opt, [], [], cfg, **kw)
+    cfg = engine.FitConfig(num_epochs=1, verbose=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
+        engine.fit(model, opt, [], [], cfg, mesh=Mesh(1, 0, torch.device("cpu"),
+                                                      ("data", "model")))
+
+
+@pytest.mark.parametrize("seg_depth_split", [1, -1])
+def test_fit_segmented(seg_depth_split):
+    """``FitConfig(segmented=True)`` trains with the segmented step, whose
+    steps equal the monolithic step's (drops 0.3, one seed a step): the
+    same history and weights.  A negative ``seg_depth_split`` is refused."""
+    rs = np.random.RandomState(11)
+    train = [_binary_batch(rs, 2) for _ in range(2)]
+    test = [_binary_batch(rs, 2)]
+    runs = []
+    for segmented in (True, False):
+        model = CSWinUNet(**TINY, use_simam=True, device="cpu", **DROPS)
+        opt = engine.make_optimizer("adamw", LR, WD, model.parameters())
+        cfg = engine.FitConfig(num_epochs=1, augment=None, segmented=segmented,
+                               seg_depth_split=seg_depth_split, verbose=False)
+        if seg_depth_split < 0 and segmented:
+            with pytest.raises(ValueError, match="depth_split must be >= 0"):
+                engine.fit(model, opt, train, test, cfg)
+            return
+        history, step = engine.fit(model, opt, train, test, cfg)
+        runs.append((history, step, [p.detach().clone() for p in model.parameters()]))
+    (h_seg, n_seg, p_seg), (h_mono, n_mono, p_mono) = runs
+    assert n_seg == n_mono == 2
+    for key, series in h_mono.items():
+        np.testing.assert_allclose(h_seg[key], series, rtol=1e-6, atol=0, err_msg=key)
+    assert all(float((a - b).abs().max()) <= 1e-6 for a, b in zip(p_seg, p_mono))
