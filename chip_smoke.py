@@ -23,7 +23,11 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    and the SFU/ALU floor of its exps and hashes; K-A (and K-A' in phase 4)
    also at a window offset (the flagship's horizontal stripes on the last of
    two H-slabs, the mask keyed on the whole image's windows, as phase 10
-   runs them) against the plain version at the same offset.  K-C (and K-C' in phase 4)
+   runs them) against the plain version at the same offset, and at a head
+   offset (each branch of the flagship whose heads split over two model
+   ranks on the second rank's heads, and the tiled pair on 512-token
+   stripes, the mask keyed on the layer's head numbers, as phase 12 runs
+   them).  K-C (and K-C' in phase 4)
    at each of the three decoder CARAFEs, each output also against its own
    max|plain|, and timed on the device behind a spin kernel at the 512^2
    (batch 8), 2048^2 (batch 1) and ``cswinunet`` (448^2, batch 2, float32)
@@ -186,6 +190,17 @@ Phases, in order; any failed check raises and the exit code is non-zero:
    ``cswin_simam_512`` for 1 epoch; the trace files hold the port's
    kernels, and ``enable_debug_checks`` names the module whose output first
    holds a planted NaN.
+12. tensor parallelism (``parallel/sharding.py``): two ranks share the card
+   over gloo on a (1, 2) ``('data', 'model')`` mesh, ``cswin_simam_512`` at
+   full width split by ``params_shardings`` (each rank half of each
+   branch's heads and of every MLP; stage 1's one-head branches whole):
+   batch 2, drops 0.3, against one process, float32 (train-mode logits
+   within 1e-3 x max(1, max|ref|), every gathered gradient within 1e-3 x
+   its max|g|) and bf16 (2e-2; the gradients as one output), the loss,
+   Dice and IoU of a training step and of the eval step, each rank's K-A /
+   K-A' launches one process's, the replicated state bit-identical over the
+   model group; a record of bf16 steps at the config's batch of 8: ms a
+   step, peak memory a rank, the model group's all-reduces and their bytes.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -479,6 +494,27 @@ def offset_geometries(geoms: dict, shards: int = 2) -> list:
                                          attn_drop=DROP, seed=DROP_SEED,
                                          win0=(shards - 1) * nwin, nwin_global=shards * nwin)))
     return out
+
+
+def head_offset_geometries(geoms: dict, m: int = 2) -> list:
+    """The branches of ``geoms`` (attention_geometries) whose heads split
+    over m model ranks, as the last rank of phase 12's tensor-parallel path
+    runs them: (reso, its channels, the keywords of the call on its heads at
+    dropout 0.3, ``head0`` its first head's number in the branch)."""
+    out = []
+    for reso, Cb, heads, hsp, wsp in sorted(geoms):
+        if heads % m:  # one-head branches stay whole on every rank
+            continue
+        n = heads // m
+        out.append((reso, Cb // m, dict(H=reso, W=reso, hsp=hsp, wsp=wsp, num_heads=n,
+                                         attn_drop=DROP, seed=DROP_SEED, head0=(m - 1) * n)))
+    return out
+
+
+# the tiled pair at a head offset: 512-token stripes at head dim 32 (no
+# whole-window K-A' block holds them), heads 2-3 of 4
+TILED_HEAD_OFFSET = (16 * 512, 64, dict(H=16, W=512, hsp=1, wsp=512, num_heads=2,
+                                        attn_drop=DROP, seed=DROP_SEED, head0=2))
 
 
 def disc_arrays(img: int, batch: int, n_classes: int = 1, seed: int = SEED + 1):
@@ -3263,6 +3299,215 @@ def segmented_phase(torch, engine, _build, build_model, train_configs, per_step2
     return out
 
 
+# ---- 12. tensor parallelism ----
+
+TP_SHAPE = (1, 2)                   # phase 12: a ('data', 'model') mesh of two ranks on one card
+TP_CHECK_BATCH = 2                  # (a): images of the checked runs
+TP_RNG = 20263                      # the dropout seed of phase 12
+TP_WARMUP = 2                       # (b): untimed steps, then
+TP_STEPS = 5                        # timed steps at the config's batch
+TP_TIMEOUT_S = 300                  # the ranks of phase 12 together
+TOL_TP = 1e-3                       # f32: logits x max(1, max|ref|), gradients x max|g|
+                                    # (phase 10's bounds)
+TP_KERNELS = ("csu_stripe_attention_fwd", "csu_stripe_attention_bwd")
+
+
+def tp_checked(torch, engine, _build, net, mesh, images, masks) -> dict:
+    """(a) on ``net`` (one process where ``mesh`` is None): a train-mode
+    forward at TP_RNG and the backward of sum(o cos o) (the logits, every
+    gradient, the launches of the pass), then one AdamW training step and
+    an eval step on the uint8 batch (their metrics)."""
+    x = images.float() / 255.0
+    net.zero_grad(set_to_none=True)
+    box = []
+
+    def fwd_bwd():
+        o = net(x, train=True, rng=TP_RNG)
+        of = o.float()
+        (of * torch.cos(of)).sum().backward()
+        box.append(of.detach().cpu())
+
+    from cswin_simam_unet_tpu_torch.parallel import gather_tensor
+    launched = launches_of(torch, _build, fwd_bwd)
+    grads = {n: (p.grad if mesh is None else gather_tensor(net, n, p.grad, mesh)).float().cpu()
+             for n, p in net.named_parameters()}
+    opt = engine.make_optimizer("adamw", 1e-4, 1e-4, net.parameters())
+    step = engine.make_train_step(net, opt, mesh=mesh)
+    metrics = {k: float(v) for k, v in step(images, masks, rng=TP_RNG).items()}
+    evals = {k: float(v) for k, v in engine.make_eval_step(net, mesh=mesh)(images,
+                                                                           masks).items()}
+    return dict(logits=box[0], grads=grads, launches=launched, metrics=metrics, eval=evals,
+                opt=opt)
+
+
+def tp_rank(rank: int) -> dict:
+    """One rank of phase 12 (spawned; the process group is formed) on a
+    TP_SHAPE ('data', 'model') mesh: ``cswin_simam_512`` at full width,
+    split by ``params_shardings`` (``shard_state``), (a) in float32 and in
+    bf16 (drops 0.3, batch TP_CHECK_BATCH) with the replicated state
+    checked bit-identical over the model group after the step, then (b)
+    bf16 steps at the config's batch: ms a step, peak memory, the model
+    group's all-reduces of one step."""
+    import torch
+    from cswin_simam_unet_tpu_torch import _build
+    from cswin_simam_unet_tpu_torch.configs import TRAIN_CONFIGS, build_model
+    from cswin_simam_unet_tpu_torch.parallel import (collectives, make_mesh, params_shardings,
+                                                     replicas_equal, shard_state)
+    from cswin_simam_unet_tpu_torch.train import engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(TP_SHAPE, ("data", "model"))
+    dev = mesh.device
+    torch.cuda.set_device(dev)
+    out = {"device": str(dev), "shape": mesh.shape, "coords": (mesh.along("data").rank,
+                                                               mesh.along("model").rank)}
+    images, masks = disc_batch(torch, IMG, TP_CHECK_BATCH, dev)
+    for key, dtype in (("f32", "float32"), ("bf16", None)):
+        net = build_model("cswin_simam_512", device=dev, seed=SEED,
+                          **({"dtype": dtype} if dtype else {}))
+        whole = sum(p.numel() for p in net.parameters())
+        shardings = params_shardings(net, mesh)
+        shard_state(net, None, mesh, shardings)
+        run = tp_checked(torch, engine, _build, net, mesh, images, masks)
+        opt = run.pop("opt")
+        split = {n for n, s in shardings.items() if not s.replicated}
+        held = [(n, t) for n, p in net.named_parameters()
+                for t in (p, p.grad, *(opt.state[p][k] for k in ("exp_avg", "exp_avg_sq")))]
+        run.update(split=len(split), held=sum(p.numel() for p in net.parameters()),
+                   whole=whole,
+                   model_replicas=replicas_equal([t for n, t in held if n not in split],
+                                                 mesh.along("model")),
+                   heads=sorted({(m.num_heads, m.head0) for m in net.modules()
+                                 if type(m).__name__ == "LePEAttention"}))
+        if rank:
+            run.update(logits=None, grads=None)
+        out[key] = run
+        del net, opt
+        torch.cuda.empty_cache()
+
+    # (b) the config's batch in bf16
+    tcfg = TRAIN_CONFIGS["cswin_simam_512"]
+    net = build_model("cswin_simam_512", device=dev, seed=SEED)
+    opt = engine.make_optimizer(tcfg.optimizer, tcfg.learning_rate, tcfg.weight_decay,
+                                net.parameters())
+    shard_state(net, opt, mesh, params_shardings(net, mesh))
+    step = engine.make_train_step(net, opt, mesh=mesh)
+    images, masks = disc_batch(torch, IMG, tcfg.batch_size, dev)
+    losses = []
+    for i in range(TP_WARMUP):
+        collectives(net, reset=True)
+        losses.append(float(step(images, masks, rng=TP_RNG + i)["loss"]))
+    coll = collectives(net)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    box = [step(images, masks, rng=TP_RNG + TP_WARMUP + i) for i in range(TP_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TP_STEPS * 1e3
+    losses += [float(m["loss"]) for m in box]
+    split = getattr(net, "tp_shardings", {})
+    out["b"] = dict(step_ms=step_ms, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    losses=losses, all_reduces=coll["all_reduces"], bytes=coll["bytes"],
+                    batch=tcfg.batch_size,
+                    grad_bytes=sum(p.numel() * 4 for n, p in net.named_parameters()
+                                   if n not in split))
+    return out
+
+
+def tp_phase(torch, engine, _build, build_model, one_step: dict, dev) -> dict:
+    """Phase 12: tensor parallelism (``parallel/sharding.py``), two ranks
+    sharing the one card over gloo on a TP_SHAPE ('data', 'model') mesh:
+    ``cswin_simam_512`` at full width, its CSWin blocks' qkv, proj, fc1, fc2
+    and ``get_v`` split over the model axis (each rank its half of each
+    branch's heads, K-A / K-A' on them at their ``head0``; stage 1's
+    one-head branches stay whole), the Megatron block's four all-reduces
+    made through gloo.  (a) Batch TP_CHECK_BATCH, drops 0.3, against this
+    process on the same batch and seed: in float32 the train-mode logits
+    within TOL_TP x max(1, max|ref|) and every gathered gradient of sum(o
+    cos o) within TOL_TP x its max|g|; in bf16 the logits within TOL_BF16 x
+    max(1, max|ref|) and the gradients, held together as one output, within
+    TOL_BF16 x max(1, max|g|); each rank's K-A and K-A' launches one
+    process's; the loss, Dice and IoU of one training step and of the eval
+    step; the replicated parameters, gradients and AdamW moments
+    bit-identical over the model group after the step.  (b) a record: the
+    config's batch of 8 in bf16, TP_WARMUP + TP_STEPS steps, finite losses,
+    ms a step (host clock), each rank's peak memory, the all-reduces of one
+    step and their bytes.  Two ranks on one card through the host measure
+    no tensor-parallel scaling."""
+    from cswin_simam_unet_tpu_torch.parallel import run_ranks
+    t_phase = time.perf_counter()
+    phase(f"tensor parallelism: a {TP_SHAPE} ('data', 'model') mesh, 2 ranks on "
+          f"{torch.cuda.device_count()} card (gloo), against one process")
+    torch.cuda.empty_cache()
+    images, masks = disc_batch(torch, IMG, TP_CHECK_BATCH, dev)
+    ref = {}
+    for key, dtype in (("f32", "float32"), ("bf16", None)):
+        net = build_model("cswin_simam_512", device=dev, seed=SEED,
+                          **({"dtype": dtype} if dtype else {}))
+        ref[key] = tp_checked(torch, engine, _build, net, None, images, masks)
+        ref[key].pop("opt")
+        del net
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, 2, timeout_s=TP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    require([tuple(r["coords"]) for r in ranks] == [(0, 0), (0, 1)], "the ranks' coordinates")
+    out = {"ranks_seconds": ranks_s}
+    for key, tol in (("f32", TOL_TP), ("bf16", TOL_BF16)):
+        want, got = ref[key], ranks[0][key]
+        top = max(1.0, float(want["logits"].abs().max()))
+        logits = float((got["logits"] - want["logits"]).abs().max()) / top
+        own = sp_gap(got["grads"], want["grads"])
+        whole = max(float((got["grads"][n] - g).abs().max()) for n, g in want["grads"].items()) \
+            / max([1.0] + [float(g.abs().max()) for g in want["grads"].values()])
+        metric_gap = max(abs(r[key][part][k] - want[part][k]) / max(1.0, abs(want[part][k]))
+                         for r in ranks for part in ("metrics", "eval") for k in METRIC_KEYS)
+        launches = [r[key]["launches"] for r in ranks]
+        attn = [{k: n for k, n in c.items() if k in TP_KERNELS}
+                for c in launches + [want["launches"]]]
+        log(f"(a) {key}, batch {TP_CHECK_BATCH}, drops {DROP}: logits {logits:.3e} x max(1, "
+            f"max|ref|) (tol {tol:g}); gathered gradients {own[0]:.3e} x their own max|g| "
+            f"({own[1]}), all together {whole:.3e} x max(1, max|g|); step and eval metrics "
+            f"{metric_gap:.3e} (tol {tol:g}); {ranks[0][key]['split']} tensors split, a rank "
+            f"holds {ranks[0][key]['held']} of {ranks[0][key]['whole']} parameters; branch "
+            f"(heads, head0) per rank {[r[key]['heads'] for r in ranks]}; replicated state "
+            f"bit-identical over the model group: {[r[key]['model_replicas'] for r in ranks]}; "
+            f"K-A/K-A' launches a rank {attn[:-1]} (one process {attn[-1]})")
+        require(logits <= tol, f"(a) {key} logits {logits:.3e}")
+        if key == "f32":
+            require(own[0] <= TOL_TP, f"(a) f32 gradient of {own[1]}: {own[0]:.3e}")
+        require(whole <= tol, f"(a) {key} gradients {whole:.3e}")
+        require(metric_gap <= tol, f"(a) {key} metrics {metric_gap:.3e}")
+        require(all(r[key]["model_replicas"] for r in ranks),
+                f"(a) {key}: the model group's replicated state differs")
+        for name in TP_KERNELS:
+            require(all(c.get(name, 0) == want["launches"].get(name, 0) > 0 for c in launches),
+                    f"(a) {key} {name}: launches {launches} != one process's {want['launches']}")
+        require(ranks[0][key]["held"] < ranks[0][key]["whole"], f"(a) {key}: nothing split")
+        out[key] = dict(logits=logits, grad_own=own[0], grad_own_name=own[1], grads=whole,
+                        metrics=metric_gap, split=ranks[0][key]["split"],
+                        held=ranks[0][key]["held"], whole=ranks[0][key]["whole"],
+                        launches=launches[0])
+    b = [r["b"] for r in ranks]
+    for r in b:
+        require(all(math.isfinite(v) for v in r["losses"]), f"(b) losses {r['losses']}")
+    log(f"(b) cswin_simam_512 bf16, batch {b[0]['batch']}, drops {DROP}, {TP_SHAPE} mesh: "
+        f"{[round(r['step_ms'], 2) for r in b]} ms a step (mean of {TP_STEPS}, host clock, "
+        f"{TP_WARMUP} untimed); one process {one_step['step_ms']:.2f} ms (phase 6); peak memory "
+        f"a rank {[round(r['peak_gib'], 3) for r in b]} GiB (one process "
+        f"{one_step['peak_gib']:.3f}); model-group all-reduces a step {b[0]['all_reduces']}, "
+        f"{b[0]['bytes'] / 2 ** 20:.1f} MiB a rank, and the step's all-reduce of the "
+        f"replicated gradients ({b[0]['grad_bytes'] / 2 ** 20:.1f} MiB); losses "
+        f"{[round(v, 4) for v in b[0]['losses']]}. "
+        f"Two ranks share one card through gloo: no tensor-parallel scaling is measured")
+    out["b"] = dict(ranks=b, one_process_step_ms=one_step["step_ms"],
+                    one_process_peak_gib=one_step["peak_gib"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['seconds']:.1f} s (the ranks {ranks_s:.1f} s)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3478,6 +3723,35 @@ def main() -> int:
             lambda q, k, v, w, kw=kwo: attention.stripe_attention(q, k, v, w, **kw), make,
             own=True)
         for key, val in zip(("err32_offset", "err16_offset"), errs):
+            ka[key] = max(ka[key], val)
+    # at a head offset: each branch on the last of 2 model ranks' heads
+    # (phase 12's path), the mask keyed on the layer's head numbers; and the
+    # tiled K-A there
+    ka.update(err32_head_offset=0.0, err16_head_offset=0.0, err32_tiled_head_offset=0.0,
+              err16_tiled_head_offset=0.0)
+    cases = [(r * r, c, kw, False) for r, c, kw in head_offset_geometries(geoms)]
+    cases.append((*TILED_HEAD_OFFSET, True))
+    for L, Cl, kwh, tiled in cases:
+        def make(B, dtype, L=L, Cl=Cl):
+            qkv = randn(B, L, 6 * Cl, scale=0.5, dtype=dtype)
+            return (qkv[..., :Cl], qkv[..., 2 * Cl:3 * Cl], qkv[..., 4 * Cl:5 * Cl],
+                    randn(3, 3, 1, Cl, scale=1 / 3, dtype=dtype))
+
+        if tiled:
+            def kernel(q, k, v, w, kw=kwh):
+                return stripe_attention.tiled_fwd(q, k, v, w, **kw)[0]
+        else:
+            def kernel(q, k, v, w, kw=kwh):
+                return stripe_attention.stripe_attention(q, k, v, w, **kw)
+        errs = check_pair(
+            f"{'tiled K-A' if tiled else 'K-A'} window {kwh['hsp']}x{kwh['wsp']} of "
+            f"{kwh['H']}x{kwh['W']}, {kwh['num_heads']} heads of {Cl // kwh['num_heads']} from "
+            f"head {kwh['head0']}, dropout 0.3", torch, kernel,
+            lambda q, k, v, w, kw=kwh: attention.stripe_attention(q, k, v, w, **kw), make,
+            own=True)
+        keys = (("err32_tiled_head_offset", "err16_tiled_head_offset") if tiled
+                else ("err32_head_offset", "err16_head_offset"))
+        for key, val in zip(keys, errs):
             ka[key] = max(ka[key], val)
 
     # K-C at the three decoder CARAFEs, each output also at its own scale
@@ -3821,6 +4095,25 @@ def main() -> int:
                            f"{kwo['wsp']} Cb {Cb} dropout 0.3 at window offset {kwo['win0']} of "
                            f"{kwo['nwin_global']}", kwo, make_bwd(rows * reso, Cb))[:2],
                  ("err32_offset", "err16_offset"))
+    # at a head offset, as K-A in phase 3, and the tiled K-A' there
+    kab.update(err32_head_offset=0.0, err16_head_offset=0.0, err32_tiled_head_offset=0.0,
+               err16_tiled_head_offset=0.0)
+    for reso, Cl, kwh in head_offset_geometries(geoms):
+        fold_bwd(check_bwd(f"K-A' reso {reso} window {kwh['hsp']}x{kwh['wsp']}, "
+                           f"{kwh['num_heads']} heads of {Cl // kwh['num_heads']} from head "
+                           f"{kwh['head0']}, dropout 0.3", kwh, make_bwd(reso * reso, Cl))[:2],
+                 ("err32_head_offset", "err16_head_offset"))
+    L, Cl, kwt = TILED_HEAD_OFFSET
+
+    def tiled_pair_bwd(q, k, v, w, g, kw=kwt):
+        _, lse = stripe_attention.tiled_fwd(q, k, v, w, **kw)
+        return stripe_attention.tiled_bwd(q, k, v, w, lse, g, **kw)
+
+    fold_bwd(check_outputs(
+        f"tiled K-A' window 1x512 of 16x512, 2 heads of 32 from head 2, dropout 0.3", torch,
+        tiled_pair_bwd, lambda q, k, v, w, g: attention.stripe_attention_bwd_reference(
+            q, k, v, w, g, **kwt), make_bwd(L, Cl))[:2],
+        ("err32_tiled_head_offset", "err16_tiled_head_offset"))
     table["K-A'"] = kab
 
     # K-C' at the three decoder CARAFEs, dx and denc also at their own scale
@@ -4312,6 +4605,9 @@ def main() -> int:
                                   per_step2048, per_forward2048, decoders, dev)
     seg_launches = seg_run_out["a"]["recompute"]["launches"]
 
+    # ---- 12. tensor parallelism ----
+    tp_run = tp_phase(torch, engine, _build, build_model, runs["cswin_simam_512 drops 0.3"], dev)
+
     # ---- results ----
     sources = {
         "K-A": ("csu_stripe_attention_fwd", "cswin_simam_unet_tpu_torch/csrc/stripe_attention.cu",
@@ -4417,6 +4713,11 @@ def main() -> int:
         if "err32_offset" in row:  # the mask at a window offset (phase 10's slabs)
             entry.update(max_abs_err_window_offset=row["err32_offset"],
                          max_abs_err_bf16_window_offset=row["err16_offset"])
+        if "err32_head_offset" in row:  # the mask at a head offset (phase 12's heads)
+            entry.update(max_abs_err_head_offset=row["err32_head_offset"],
+                         max_abs_err_bf16_head_offset=row["err16_head_offset"],
+                         max_abs_err_tiled_head_offset=row["err32_tiled_head_offset"],
+                         max_abs_err_bf16_tiled_head_offset=row["err16_tiled_head_offset"])
         if label == "flash fwd":
             entry.update({k: row[k] for k in ("device_ms_window", "device_ms_flash",
                                               "bands_window_ms", "bands_flash_ms")})
@@ -4497,6 +4798,7 @@ def main() -> int:
     log("data parallelism: " + json.dumps(dp_run))
     log("spatial sharding: " + json.dumps(sp_run))
     log("segmented step: " + json.dumps(seg_run_out))
+    log("tensor parallelism: " + json.dumps(tp_run))
     log(f"f32 gradient gaps, kernels on vs off at drops 0.3: cswin_simam_512 {grad_gap:.3e}, "
         f"cswinunet {grad_gap448:.3e}; cswin_simam_2048 at depth (1,1,1,1), attention drop "
         f"0: {grad_gap2048:.3e}; cswin_simam_512_dp {grad_gap_dp:.3e}; K-A keep rate "

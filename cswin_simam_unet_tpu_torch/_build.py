@@ -39,9 +39,9 @@ _U = ctypes.c_uint32
 _SIGNATURES = {
     # dtype, q, k, v, lepe_w, out, lse, ldq, ldk, ldv, ldo,
     # B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, win0,
-    # nwin_global, stream
+    # nwin_global, head0, stream
     "csu_stripe_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
-                                 _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _U, _U, _P],
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _U, _U, _U, _P],
     # dtype, x, enc, out, B, H, W, C, S, vec, pass pixels, pc, stream
     "csu_carafe_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, enc, bias, fb, s1, s2, B, H, W, C, S, vec, pass pixels, pc, stream
@@ -52,10 +52,10 @@ _SIGNATURES = {
                            _F, _I, _I, _P],
     # dtype, q, k, v, lepe_w, dout, lse, delta, dq, dk, dv, dw_part, ldq, ldk, ldv,
     # ldg, B, H, W, hsp, wsp, heads, head_dim, scale, seed, threshold, inv_keep, win0,
-    # nwin_global, stream
+    # nwin_global, head0, stream
     "csu_stripe_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
                                  _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _U, _U,
-                                 _P],
+                                 _U, _P],
     # dtype, x, enc, dacc, dx, denc, B, H, W, C, S, vec, px, rows, stream
     "csu_carafe_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, fb, dy, mu, var, w, part, B, H, W, C, G, F, vec, lam, pc, stream
@@ -67,19 +67,19 @@ _SIGNATURES = {
     # dtype, fb, dy, part, B, H, W, C, G, F, vec, pc, stream
     "csu_head_bwd1_nogate": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, q, k, v, lepe_w, out, lse, ldq, ldk, ldv, B, H, W, hsp, wsp, heads,
-    # head_dim, scale, mask_tile, seed, threshold, inv_keep, win0, nwin_global, stream
+    # head_dim, scale, mask_tile, seed, threshold, inv_keep, win0, nwin_global, head0, stream
     "csu_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,
-                                _I, _I, _F, _I, _U, _U, _F, _U, _U, _P],
+                                _I, _I, _F, _I, _U, _U, _F, _U, _U, _U, _P],
     # dtype, q, k, v, dout, lse, delta, delta_given, dq, ldq, ldk, ldv, ldg, B, H,
     # W, hsp, wsp, heads, head_dim, scale, mask_tile, seed, threshold, inv_keep, win0,
-    # nwin_global, stream
+    # nwin_global, head0, stream
     "csu_flash_attention_dq": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _L, _L, _L, _L, _I, _I,
-                               _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _U, _P],
+                               _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _U, _U, _P],
     # dtype, q, k, v, lepe_w, dout, lse, delta, dk, dv, dw_part, ldq, ldk, ldv, ldg,
     # B, H, W, hsp, wsp, heads, head_dim, scale, mask_tile, seed, threshold,
-    # inv_keep, win0, nwin_global, stream
+    # inv_keep, win0, nwin_global, head0, stream
     "csu_flash_attention_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
-                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _U, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _U, _U, _U, _P],
     # dtype, x, enc, dy, w, dx, denc, db_part, B, H, W, C, S, F, vec, px, rows, stream
     "csu_carafe_head_bwd_nogate": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _P],

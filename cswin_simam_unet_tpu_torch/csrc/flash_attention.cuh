@@ -112,9 +112,10 @@ __device__ __forceinline__ bool flash_keep(const AttnDrop& d, uint32_t win_head,
                    d.threshold);
 }
 
-// The (window, head) part of the tile id, the window numbered by drop_window.
+// The (window, head) part of the tile id, the window numbered by drop_window
+// and the head by drop_head.
 __device__ __forceinline__ uint32_t win_head_id(const AttnDrop& d, int win, int head) {
-  return drop_window(d, win) * 1000003u + (uint32_t)head;
+  return drop_window(d, win) * 1000003u + drop_head(d, head);
 }
 
 // x . y over DL columns, y in shared memory (16-byte aligned, broadcast).

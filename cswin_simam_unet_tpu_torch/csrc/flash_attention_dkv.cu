@@ -524,11 +524,12 @@ CSU_EXPORT int csu_flash_attention_dkv(int dtype, const void* q, const void* k,
                                        int64_t ldg, int B, int H, int W, int hsp, int wsp,
                                        int heads, int head_dim, float scale, int mask_tile,
                                        uint32_t seed, uint32_t threshold, float inv_keep,
-                                       uint32_t win0, uint32_t nwin_global, void* stream) {
+                                       uint32_t win0, uint32_t nwin_global, uint32_t head0,
+                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const csu::FlashArgs a{H, W, hsp, wsp, heads, mask_tile, scale,
                          csu::attn_drop(seed, threshold, inv_keep, H, W, hsp, wsp, win0,
-                                        nwin_global), ldq, ldk, ldv, ldg};
+                                        nwin_global, head0), ldq, ldk, ldv, ldg};
   if (dtype == csu::kFloat32)
     return (int)csu::dispatch_flash_dkv<float>(head_dim, q, k, v, lepe_w, dout, lse, delta,
                                                dk, dv, dw_part, B, a, s);

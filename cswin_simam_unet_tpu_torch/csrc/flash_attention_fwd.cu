@@ -185,20 +185,22 @@ CSU_EXPORT int csu_attention_body(int dtype, int head_dim) {
 // lepe_w: (C, 9) float32 taps (window mode) or null (flash mode).  out:
 // (B, H*W, heads*head_dim) contiguous; lse: (B * windows, hsp*wsp, heads)
 // float32.  mask_tile: the dropout mask's tile edge; seed, threshold,
-// inv_keep: the attention dropout (threshold 0: none); win0, nwin_global: the
-// windows' numbering in the mask (csu::attn_drop).  The tensor-core body
-// reads rows 16 bytes at a time: q, k, v base and row strides 16-byte aligned.
+// inv_keep: the attention dropout (threshold 0: none); win0, nwin_global,
+// head0: the windows' and heads' numbering in the mask (csu::attn_drop).  The
+// tensor-core body reads rows 16 bytes at a time: q, k, v base and row
+// strides 16-byte aligned.
 CSU_EXPORT int csu_flash_attention_fwd(int dtype, const void* q, const void* k,
                                        const void* v, const void* lepe_w, void* out,
                                        void* lse, int64_t ldq, int64_t ldk, int64_t ldv,
                                        int B, int H, int W, int hsp, int wsp, int heads,
                                        int head_dim, float scale, int mask_tile,
                                        uint32_t seed, uint32_t threshold, float inv_keep,
-                                       uint32_t win0, uint32_t nwin_global, void* stream) {
+                                       uint32_t win0, uint32_t nwin_global, uint32_t head0,
+                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const csu::FlashArgs a{H, W, hsp, wsp, heads, mask_tile, scale,
                          csu::attn_drop(seed, threshold, inv_keep, H, W, hsp, wsp, win0,
-                                        nwin_global), ldq, ldk, ldv, 0};
+                                        nwin_global, head0), ldq, ldk, ldv, 0};
   if (dtype == csu::kFloat32)
     return (int)csu::dispatch_flash_fwd<float>(head_dim, q, k, v, lepe_w, out, lse, B, a, s);
   if (csu::mma::serves(dtype, head_dim))

@@ -60,7 +60,8 @@ stripe_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wy = (win / nw) % nh, wx = win % nw;
   const int64_t row0 = (int64_t)b * H * W;
   const int c0 = head * D;
-  const uint32_t hbase = DROP ? drop_base(drop.seed, drop_window(drop, win), head) : 0u;
+  const uint32_t hbase =
+      DROP ? drop_base(drop.seed, drop_window(drop, win), drop_head(drop, head)) : 0u;
   // token n of the window (row-major in hsp x wsp) -> row of (B, H*W, C)
   auto tok = [&](int n) -> int64_t {
     const int ty = n / wsp, tx = n - ty * wsp;
@@ -250,7 +251,8 @@ static cudaError_t dispatch_attention_mma(int head_dim, const void* q, const voi
 // of each row is read, rows ldq/ldk/ldv elements apart; lepe_w: (C, 9) float32
 // taps, tap (dy+1)*3 + (dx+1) multiplies v at (y+dy, x+dx); out rows ldo apart.
 // seed, threshold, inv_keep: the attention dropout (threshold 0: none); win0,
-// nwin_global: the windows' numbering in the mask (csu::attn_drop).  The
+// nwin_global, head0: the windows' and heads' numbering in the mask
+// (csu::attn_drop).  The
 // tensor-core body reads and writes rows 16 bytes at a time: q, k, v and out
 // base and row strides 16-byte aligned; where lse is not null it also writes
 // each row's L = m + log(l), (B * windows, hsp*wsp, heads) float32, which
@@ -261,10 +263,12 @@ CSU_EXPORT int csu_stripe_attention_fwd(int dtype, const void* q, const void* k,
                                         int64_t ldo, int B, int H, int W, int hsp,
                                         int wsp, int heads, int head_dim, float scale,
                                         uint32_t seed, uint32_t threshold, float inv_keep,
-                                        uint32_t win0, uint32_t nwin_global, void* stream) {
+                                        uint32_t win0, uint32_t nwin_global, uint32_t head0,
+                                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const csu::AttnDrop drop =
-      csu::attn_drop(seed, threshold, inv_keep, H, W, hsp, wsp, win0, nwin_global);
+      csu::attn_drop(seed, threshold, inv_keep, H, W, hsp, wsp, win0, nwin_global,
+                     head0);
   if (dtype == csu::kFloat32)
     return (int)csu::dispatch_head_dim<float>(head_dim, q, k, v, lepe_w, out, ldq, ldk,
                                               ldv, ldo, B, H, W, hsp, wsp, heads,

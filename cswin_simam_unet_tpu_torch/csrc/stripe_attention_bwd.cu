@@ -80,7 +80,8 @@ stripe_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wy = (win / nw) % nh, wx = win % nw;
   const int64_t row0 = (int64_t)b * H * W;
   const int c0 = head * D;
-  const uint32_t hbase = DROP ? drop_base(drop.seed, drop_window(drop, win), head) : 0u;
+  const uint32_t hbase =
+      DROP ? drop_base(drop.seed, drop_window(drop, win), drop_head(drop, head)) : 0u;
   auto tok = [&](int n) -> int64_t {
     const int ty = n / wsp, tx = n - ty * wsp;
     return row0 + (int64_t)(wy * hsp + ty) * W + (wx * wsp + tx);
@@ -326,8 +327,8 @@ static cudaError_t dispatch_bwd_head_dim(int head_dim, const void* q, const void
 // (B * windows * ceil(hsp*wsp / 64), 9, heads*head_dim) float32; the
 // CUDA-core body ignores lse and delta and writes dw_part (B * windows, 9,
 // heads*head_dim).  The caller sums dw_part over its first axis.  seed,
-// threshold, inv_keep, win0 and nwin_global must be the forward's.  Two kernels, one after the
-// other on the stream, in the tensor-core body, one in the CUDA-core body.
+// threshold, inv_keep, win0, nwin_global and head0 must be the forward's.  Two
+// kernels, one after the other on the stream, in the tensor-core body, one in the CUDA-core body.
 CSU_EXPORT int csu_stripe_attention_bwd(int dtype, const void* q, const void* k,
                                         const void* v, const void* lepe_w,
                                         const void* dout, const void* lse, void* delta,
@@ -336,10 +337,11 @@ CSU_EXPORT int csu_stripe_attention_bwd(int dtype, const void* q, const void* k,
                                         int B, int H, int W, int hsp, int wsp, int heads,
                                         int head_dim, float scale, uint32_t seed,
                                         uint32_t threshold, float inv_keep, uint32_t win0,
-                                        uint32_t nwin_global, void* stream) {
+                                        uint32_t nwin_global, uint32_t head0, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const csu::AttnDrop drop =
-      csu::attn_drop(seed, threshold, inv_keep, H, W, hsp, wsp, win0, nwin_global);
+      csu::attn_drop(seed, threshold, inv_keep, H, W, hsp, wsp, win0, nwin_global,
+                     head0);
   if (dtype == csu::kFloat32)
     return (int)csu::dispatch_bwd_head_dim<float>(head_dim, q, k, v, lepe_w, dout, dq,
                                                   dk, dv, dw_part, ldq, ldk, ldv, ldg, B,

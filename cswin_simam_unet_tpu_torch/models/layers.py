@@ -14,6 +14,13 @@ Dropout, attention dropout and drop-path act only where a forward is given
 an ``rng`` (:class:`..ops.dropout.DropoutRng`, which the model makes for a
 training forward); with ``rng=None`` every one of them is the identity.
 They never read the module's ``training`` flag.
+
+Under tensor parallelism (``parallel.shard_state`` with
+``parallel.params_shardings``) a :class:`CSWinBlock` holds this rank's
+shard of its attention group and MLP, and its ``tp``
+(``parallel.sharding.BlockShard``) makes the model group's sums: the
+Megatron block of ``parallel/sharding.py``.  Without it (``tp`` None) the
+block is the whole block.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention, carafe, carafe_head, carafe_kernels, layernorm, stripe_attention
-from ..ops.dropout import DropoutRng, drop_path, fast_dropout
+from ..ops.dropout import DropoutRng, drop_path, fast_dropout, keep_mask
 from ..ops.simam import LAMBDA, simam, simam_flat
 from ..ops.simam_head import flat_head_chain, simam_head
 from ..ops.windows import nhwc_to_tokens, stripe_geometry, tokens_to_nhwc
@@ -35,16 +42,21 @@ def _param(*shape: int) -> nn.Parameter:
 
 
 class Linear(nn.Module):
-    """``nn.Linear`` parameters (weight (out, in)), computed in x's dtype."""
+    """``nn.Linear`` parameters (weight (out, in)), computed in x's dtype.
+    ``reduce`` (a row-split layer under tensor parallelism) sums the
+    partial product over the ranks before the bias is added."""
 
     def __init__(self, fan_in: int, fan_out: int, bias: bool = True):
         super().__init__()
         self.weight = _param(fan_out, fan_in)
         self.bias = _param(fan_out) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, reduce=None) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), b)
+        if reduce is None:
+            return F.linear(x, self.weight.to(x.dtype), b)
+        y = reduce(F.linear(x, self.weight.to(x.dtype)))
+        return y if b is None else y + b
 
 
 class Conv2d(nn.Module):
@@ -104,7 +116,11 @@ def _dropout(x: torch.Tensor, rate: float, rng: DropoutRng | None) -> torch.Tens
 
 
 class Mlp(nn.Module):
-    """Linear -> exact-erf GELU -> dropout -> Linear -> dropout."""
+    """Linear -> exact-erf GELU -> dropout -> Linear -> dropout.  With
+    ``tp`` (``parallel.sharding.BlockShard`` of a split MLP) fc1 holds this
+    rank's hidden units and fc2 their columns: the hidden dropout draws the
+    whole hidden tensor's mask and keeps this rank's columns, and fc2's
+    partial products are summed over the model group."""
 
     def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
@@ -112,20 +128,31 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, dim)
         self.drop = drop
 
-    def forward(self, x: torch.Tensor, rng: DropoutRng | None = None) -> torch.Tensor:
-        x = _dropout(F.gelu(self.fc1(x)), self.drop, rng)
-        return _dropout(self.fc2(x), self.drop, rng)
+    def forward(self, x: torch.Tensor, rng: DropoutRng | None = None, tp=None) -> torch.Tensor:
+        if tp is None:
+            x = _dropout(F.gelu(self.fc1(x)), self.drop, rng)
+            return _dropout(self.fc2(x), self.drop, rng)
+        h = F.gelu(self.fc1(tp.copy_in(x)))
+        if rng is not None and self.drop > 0.0:
+            width, lo, hi = tp.hidden
+            keep = keep_mask((*h.shape[:-1], width), self.drop, rng.generator, h.device)
+            h = fast_dropout(h, self.drop, keep=keep[..., lo:hi])
+        return _dropout(self.fc2(h, reduce=tp.reduce_out), self.drop, rng)
 
 
 class LePEAttention(nn.Module):
     """One stripe/global attention branch; owns the depthwise 3x3 ``get_v``
     whose bias is added after attention, as the JAX layer does.  With an
-    ``rng``, the scores drop at ``attn_drop`` under a seed of their own."""
+    ``rng``, the scores drop at ``attn_drop`` under a seed of their own.
+    Under tensor parallelism the branch holds ``num_heads`` of the layer's
+    heads from ``head0`` on (their channels of q, k, v and ``get_v``), and
+    its dropout mask is keyed on those heads' numbers in the layer."""
 
     def __init__(self, dim: int, resolution: int, idx: int, split_size: int,
                  num_heads: int, qk_scale: float | None = None, attn_drop: float = 0.0):
         super().__init__()
         self.resolution, self.num_heads, self.qk_scale = resolution, num_heads, qk_scale
+        self.head0 = 0
         self.hsp, self.wsp = stripe_geometry(resolution, split_size, idx)
         self.attn_drop = attn_drop
         self.get_v = Conv2d(dim, dim, 3, padding=1, groups=dim)
@@ -137,7 +164,7 @@ class LePEAttention(nn.Module):
             rng is not None and self.attn_drop > 0.0) else {}
         out = impl(q, k, v, lepe_kernel, H=self.resolution, W=self.resolution,
                    hsp=self.hsp, wsp=self.wsp, num_heads=self.num_heads,
-                   scale=self.qk_scale, **drop)
+                   scale=self.qk_scale, head0=self.head0, **drop)
         return out + self.get_v.bias.to(out.dtype)
 
 
@@ -145,7 +172,8 @@ class CSWinBlock(nn.Module):
     """Pre-norm CSWin block: two half-channel stripe branches (or one global
     branch in the last stage), projection, MLP, both residual, each residual
     branch under drop-path.  The reference defines a projection dropout but
-    never applies it; neither does this block."""
+    never applies it; neither does this block.  ``tp``: this rank's share
+    under tensor parallelism (see the module's docstring), or None."""
 
     def __init__(self, dim: int, reso: int, num_heads: int, split_size: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
@@ -166,23 +194,26 @@ class CSWinBlock(nn.Module):
             branches = [LePEAttention(dim // 2, reso, i, split_size, num_heads // 2,
                                       qk_scale, attn_drop) for i in (0, 1)]
         self.attns = nn.ModuleList(branches)
+        self.tp = None
 
     def _drop_path(self, x: torch.Tensor, rng: DropoutRng | None) -> torch.Tensor:
         return x if rng is None else drop_path(x, self.drop_path, rng.generator)
 
     def forward(self, x: torch.Tensor, kernels: bool,
                 rng: DropoutRng | None = None) -> torch.Tensor:
-        C = x.shape[-1]
-        q, k, v = self.qkv(self.norm1(x)).chunk(3, dim=-1)
+        split = self.tp is not None and self.tp.attn
+        xn = self.norm1(x)
+        q, k, v = self.qkv(self.tp.copy_in(xn) if split else xn).chunk(3, dim=-1)
         if self.last:
             a = self.attns[0](q, k, v, kernels, rng)
         else:
-            h = C // 2
+            h = q.shape[-1] // 2
             a = torch.cat([self.attns[0](q[..., :h], k[..., :h], v[..., :h], kernels, rng),
                            self.attns[1](q[..., h:], k[..., h:], v[..., h:], kernels, rng)],
                           dim=-1)
-        x = x + self._drop_path(self.proj(a), rng)
-        return x + self._drop_path(self.mlp(self.norm2(x), rng), rng)
+        x = x + self._drop_path(self.proj(a, reduce=self.tp.reduce_out if split else None), rng)
+        mlp_tp = self.tp if self.tp is not None and self.tp.hidden else None
+        return x + self._drop_path(self.mlp(self.norm2(x), rng, mlp_tp), rng)
 
 
 class MergeBlock(nn.Module):

@@ -13,9 +13,9 @@ rounding point of the TPU kernel (``pallas_attention_v2.py:211-213``), which
 the CUDA kernels share.  The JAX package's XLA path drops the probabilities
 after rounding (``ops/attention.py:99-110``); in float32 the two agree.  The
 keep mask is :func:`..dropout.window_keep_mask` of the call's ``seed``, its
-windows numbered from ``win0`` among ``nwin_global`` an image (the defaults:
-as the call numbers them), or an explicit ``keep`` (B*nWin, heads, N, N) bool
-tensor.
+windows numbered from ``win0`` among ``nwin_global`` an image and its heads
+from ``head0`` (the defaults: as the call numbers them), or an explicit
+``keep`` (B*nWin, heads, N, N) bool tensor.
 """
 
 from __future__ import annotations
@@ -63,17 +63,17 @@ def lepe_taps(lepe_kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _dropout_mask(attn_drop: float, seed: int | None, keep, n_windows: int, heads: int,
                   n: int, device, nwin: int | None = None, win0: int = 0,
-                  nwin_global: int | None = None):
+                  nwin_global: int | None = None, head0: int = 0):
     """(keep (n_windows, heads, n, n) bool, 1 / (1 - rate)), or None when
     the rate rounds to a zero threshold; the windows numbered as
-    :func:`..dropout.mask_windows` numbers them."""
+    :func:`..dropout.mask_windows` numbers them, the heads from ``head0``."""
     if u32_threshold(attn_drop) == 0:
         return None
     if keep is None:
         if seed is None:
             raise ValueError("attention dropout needs a seed (or an explicit keep mask)")
         keep = window_keep_mask(seed, n_windows, heads, n, u32_threshold(attn_drop), device,
-                                nwin=nwin, win0=win0, nwin_global=nwin_global)
+                                nwin=nwin, win0=win0, nwin_global=nwin_global, head0=head0)
     if keep.shape != (n_windows, heads, n, n):
         raise ValueError(f"keep must be {(n_windows, heads, n, n)}, got {tuple(keep.shape)}")
     return keep, 1.0 / (1.0 - attn_drop)
@@ -91,12 +91,13 @@ def stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      wsp: int, num_heads: int, scale: float | None = None,
                      attn_drop: float = 0.0, seed: int | None = None,
                      keep: torch.Tensor | None = None, win0: int = 0,
-                     nwin_global: int | None = None) -> torch.Tensor:
+                     nwin_global: int | None = None, head0: int = 0) -> torch.Tensor:
     """One attention branch over (B, L, C) tokens with windows (hsp, wsp);
     returns (B, L, C) in image order.  ``attn_drop > 0`` drops scores with
     the keep mask of ``seed`` (or ``keep``), the windows of the (H, W) grid
     being windows [win0, win0 + (H/hsp)(W/wsp)) of an image of
-    ``nwin_global``."""
+    ``nwin_global`` and the heads heads [head0, head0 + num_heads) of the
+    layer."""
     B, L, C = q.shape
     if L != H * W:
         raise ValueError(f"token count {L} != {H}*{W}")
@@ -113,7 +114,7 @@ def stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     attn = torch.matmul((qh * scale).float(), kh.float().transpose(-1, -2))
     mask = _dropout_mask(attn_drop, seed, keep, Bw, num_heads, N, q.device,
-                         (H // hsp) * (W // wsp), win0, nwin_global)
+                         (H // hsp) * (W // wsp), win0, nwin_global, head0)
     attn = _drop(torch.softmax(attn, dim=-1), mask).to(q.dtype)
     out = torch.matmul(attn.float(), vh.float()).to(q.dtype) + lepe_h
     out = out.permute(0, 2, 1, 3).reshape(Bw, N, C)
@@ -158,7 +159,7 @@ def stripe_attention_bwd_reference(q, k, v, lepe_kernel, dout, *, H: int, W: int
                                    hsp: int, wsp: int, num_heads: int,
                                    scale: float | None = None, attn_drop: float = 0.0,
                                    seed: int | None = None, keep=None, win0: int = 0,
-                                   nwin_global: int | None = None):
+                                   nwin_global: int | None = None, head0: int = 0):
     """Gradients of :func:`stripe_attention` with ``pallas_attention_v2.
     _attn_bwd_kernel``'s rounding points: (dq, dk, dv) (B, L, C) in q's dtype
     and dw (3, 3, 1, C) in lepe_kernel's dtype.  With dropout, the keep mask
@@ -176,7 +177,7 @@ def stripe_attention_bwd_reference(q, k, v, lepe_kernel, dout, *, H: int, W: int
     s = torch.matmul((qh * scale).float(), kh.transpose(-1, -2))
     p = torch.softmax(s, dim=-1)
     mask = _dropout_mask(attn_drop, seed, keep, qh.shape[0], num_heads, hsp * wsp, q.device,
-                         (H // hsp) * (W // wsp), win0, nwin_global)
+                         (H // hsp) * (W // wsp), win0, nwin_global, head0)
     dvh = torch.matmul(_drop(p, mask).to(q.dtype).float().transpose(-1, -2), gh)
     dp = _drop(torch.matmul(gh, vh.transpose(-1, -2)), mask)
     ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(q.dtype).float()

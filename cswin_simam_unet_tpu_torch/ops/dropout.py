@@ -20,7 +20,10 @@ Counterpart of ``cswin_simam_unet_tpu/ops/dropout.py::fast_dropout``,
   tiled kernels of such windows), tiles of ``_pick_tile(N)`` in band order
   for the flash path.  A window is keyed on its number in the whole image
   (:func:`mask_windows`), so that an H-slab of an image (the spatial
-  sharding of ``parallel/spatial_cswin.py``) draws its windows' bits.
+  sharding of ``parallel/spatial_cswin.py``) draws its windows' bits, and a
+  head on its number in the whole layer (``head0`` + its index in the
+  call), so that a rank's own heads (the tensor parallelism of
+  ``parallel/sharding.py``) draw those heads' bits.
 * :class:`DropoutRng`: the randomness of one training forward, made from one
   host seed: the generator for the two above and a fresh 32-bit seed per
   attention call, derived on the host so that no step reads the device.
@@ -114,33 +117,35 @@ def mask_windows(n_windows: int, nwin: int | None = None, win0: int = 0,
 
 def window_keep_mask(seed: int, n_windows: int, heads: int, n: int, threshold: int,
                      device=None, *, nwin: int | None = None, win0: int = 0,
-                     nwin_global: int | None = None) -> torch.Tensor:
+                     nwin_global: int | None = None, head0: int = 0) -> torch.Tensor:
     """The keep mask of every score of a partitioned branch, (n_windows,
     heads, n, n), windows numbered as ``windows.img2windows`` orders them
     (batch-major, then window rows, then window columns) and tokens
     row-major within a window.  ``nwin``, ``win0``, ``nwin_global``: the
     windows are windows [win0, win0 + nwin) of each image of
     ``nwin_global`` (:func:`mask_windows`), the rows of the mask of that
-    whole image."""
+    whole image.  ``head0``: the heads are heads [head0, head0 + heads) of
+    the layer, the columns of the mask of all its heads."""
     ar = lambda m: torch.arange(m, device=device)  # noqa: E731
     windows = mask_windows(n_windows, nwin, win0, nwin_global, device)
     return hash_keep_mask(seed, windows[:, None, None, None],
-                          ar(heads)[None, :, None, None], ar(n)[None, None, :, None],
+                          (head0 + ar(heads))[None, :, None, None], ar(n)[None, None, :, None],
                           ar(n)[None, None, None, :], threshold, n)
 
 
 def kernel_drop_args(attn_drop: float, seed: int | None, win0: int = 0,
-                     nwin_global: int | None = None) -> tuple[int, int, float, int, int]:
-    """(seed, u32 threshold, 1 / (1 - rate), win0, nwin_global) of an
-    attention call for the kernels; threshold 0 is no dropout, nwin_global
-    0 the launch's own window count (``common.cuh::attn_drop``)."""
+                     nwin_global: int | None = None,
+                     head0: int = 0) -> tuple[int, int, float, int, int, int]:
+    """(seed, u32 threshold, 1 / (1 - rate), win0, nwin_global, head0) of
+    an attention call for the kernels; threshold 0 is no dropout,
+    nwin_global 0 the launch's own window count (``common.cuh::attn_drop``)."""
     threshold = u32_threshold(attn_drop)
     if not threshold:
-        return 0, 0, 1.0, 0, 0
+        return 0, 0, 1.0, 0, 0, 0
     if seed is None:
         raise ValueError("attention dropout needs a seed")
     return (int(seed) & MASK32, threshold, 1.0 / (1.0 - attn_drop), int(win0),
-            int(nwin_global or 0))
+            int(nwin_global or 0), int(head0))
 
 
 def keep_mask(shape, rate: float, generator: torch.Generator | None = None,

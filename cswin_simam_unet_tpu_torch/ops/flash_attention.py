@@ -136,7 +136,7 @@ def _taps(mode: str, lepe_kernel, dtype):
 
 
 def kernel_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None,
-               attn_drop=0.0, seed=None, mode, win0=0, nwin_global=None):
+               attn_drop=0.0, seed=None, mode, win0=0, nwin_global=None, head0=0):
     """The forward kernel on CUDA tensors: (out (B, L, C) in q's dtype, L
     (B * windows, N, heads) float32)."""
     head_dim = check_args(q, k, v, lepe_kernel, H, W, hsp, wsp, num_heads)
@@ -156,13 +156,13 @@ def kernel_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None,
                   v.data_ptr(), None if taps is None else taps.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), ldq, ldk, ldv, B, H, W, hsp, wsp, num_heads, head_dim,
                   float(scale), _mask_tile(mode, N),
-                  *kernel_drop_args(attn_drop, seed, win0, nwin_global),
+                  *kernel_drop_args(attn_drop, seed, win0, nwin_global, head0),
                   mode=mode, body=body)
     return out, lse
 
 
 def _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp, num_heads, scale,
-              attn_drop, seed, mode, win0, nwin_global):
+              attn_drop, seed, mode, win0, nwin_global, head0):
     """Validated arguments shared by the dq and dk/dv kernels: (q, k, v and
     dout with strides the body takes, the shape arguments, the row strides,
     the body)."""
@@ -183,7 +183,8 @@ def _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp, num_heads,
     if scale is None:
         scale = head_dim ** -0.5
     shape = (q.shape[0], H, W, hsp, wsp, num_heads, head_dim, float(scale),
-             _mask_tile(mode, N), *kernel_drop_args(attn_drop, seed, win0, nwin_global))
+             _mask_tile(mode, N),
+             *kernel_drop_args(attn_drop, seed, win0, nwin_global, head0))
     if body == "mma":
         q, k, v, dout = (rows_aligned(t) for t in (q, k, v, dout))
     strides = _build.token_strides((q, "q"), (k, "k"), (v, "v"), (dout, "dout"))
@@ -191,7 +192,7 @@ def _bwd_args(q, k, v, lepe_kernel, lse, dout, delta, H, W, hsp, wsp, num_heads,
 
 
 def kernel_dq(q, k, v, lse, dout, *, H, W, hsp, wsp, num_heads, scale=None, attn_drop=0.0,
-              seed=None, delta=None, mode, win0=0, nwin_global=None):
+              seed=None, delta=None, mode, win0=0, nwin_global=None, head0=0):
     """The dq kernel on CUDA tensors: (dq contiguous in q's dtype, delta).
     Flash mode takes ``delta`` = rowsum(dO * O) per head, (B * windows, N,
     heads) float32; window mode computes it here and returns it for
@@ -200,7 +201,7 @@ def kernel_dq(q, k, v, lse, dout, *, H, W, hsp, wsp, num_heads, scale=None, attn
         raise ValueError("flash mode takes delta; window mode computes it")
     q, k, v, dout, shape, strides, body = _bwd_args(q, k, v, None, lse, dout, delta, H, W,
                                                     hsp, wsp, num_heads, scale, attn_drop,
-                                                    seed, mode, win0, nwin_global)
+                                                    seed, mode, win0, nwin_global, head0)
     delta_given = delta is not None
     if delta is None:
         delta = torch.empty_like(lse)
@@ -212,13 +213,15 @@ def kernel_dq(q, k, v, lse, dout, *, H, W, hsp, wsp, num_heads, scale=None, attn
 
 
 def kernel_dkv(q, k, v, lepe_kernel, lse, delta, dout, *, H, W, hsp, wsp, num_heads,
-               scale=None, attn_drop=0.0, seed=None, mode, win0=0, nwin_global=None):
+               scale=None, attn_drop=0.0, seed=None, mode, win0=0, nwin_global=None,
+               head0=0):
     """The dk/dv kernel on CUDA tensors: (dk, dv) contiguous in q's dtype
     and, in window mode, dw (3, 3, 1, C) in lepe_kernel's dtype (None in
     flash mode)."""
     q, k, v, dout, shape, strides, body = _bwd_args(q, k, v, lepe_kernel, lse, dout, delta,
                                                     H, W, hsp, wsp, num_heads, scale,
-                                                    attn_drop, seed, mode, win0, nwin_global)
+                                                    attn_drop, seed, mode, win0, nwin_global,
+                                                    head0)
     taps = _taps(mode, lepe_kernel, q.dtype)
     B, L, C = q.shape
     dk, dv = (torch.empty(B, L, C, dtype=q.dtype, device=q.device) for _ in range(2))
@@ -265,18 +268,19 @@ def _scaled_q(qb: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
 
 
 def _tile_keep(attn_drop: float, seed: int | None, G: int, heads: int, N: int, T: int,
-               device, windows: torch.Tensor | None = None):
+               device, windows: torch.Tensor | None = None, head0: int = 0):
     """A function of the key tile's first column giving the keep mask of
     that tile's columns for all rows, (G, heads, N, T) bool, and the
     rescale; None without dropout.  ``windows``: the mask's number of each
-    band (0 .. G - 1 by default)."""
+    band (0 .. G - 1 by default); ``head0``: the mask's number of the first
+    head."""
     threshold = u32_threshold(attn_drop)
     if not threshold:
         return None
     if seed is None:
         raise ValueError("attention dropout needs a seed")
     g = (torch.arange(G, device=device) if windows is None else windows)[:, None, None, None]
-    h = torch.arange(heads, device=device)[None, :, None, None]
+    h = (head0 + torch.arange(heads, device=device))[None, :, None, None]
     rows = torch.arange(N, device=device)[None, None, :, None]
 
     def keep(j0: int) -> torch.Tensor:
@@ -294,16 +298,16 @@ def flash_delta(out: torch.Tensor, dout: torch.Tensor, heads: int) -> torch.Tens
 
 def flash_attention_reference(qb, kb, vb, *, heads: int, scale: float | None = None,
                               attn_drop: float = 0.0, seed: int | None = None,
-                              windows: torch.Tensor | None = None):
+                              windows: torch.Tensor | None = None, head0: int = 0):
     """``_flash_fwd_bands`` in plain PyTorch on bands (G, N, Cb): (O (G, N,
     Cb) in the compute dtype, L (G, N, heads) float32), the online softmax
-    swept over key tiles of :func:`pick_tile`; ``windows`` as
-    :func:`_tile_keep` takes it."""
+    swept over key tiles of :func:`pick_tile`; ``windows`` and ``head0`` as
+    :func:`_tile_keep` takes them."""
     G, N, Cb = qb.shape
     if scale is None:
         scale = (Cb // heads) ** -0.5
     T = pick_tile(N)
-    drop = _tile_keep(attn_drop, seed, G, heads, N, T, qb.device, windows)
+    drop = _tile_keep(attn_drop, seed, G, heads, N, T, qb.device, windows, head0)
     qs, kh, vh = _scaled_q(qb, heads, scale), _heads(kb, heads), _heads(vb, heads)
     m = torch.full((G, heads, N, 1), -torch.inf, device=qb.device)
     l = torch.zeros_like(m)
@@ -326,7 +330,7 @@ def flash_attention_reference(qb, kb, vb, *, heads: int, scale: float | None = N
 def flash_attention_bwd_reference(qb, kb, vb, out, lse, dout, *, heads: int,
                                   scale: float | None = None, attn_drop: float = 0.0,
                                   seed: int | None = None,
-                                  windows: torch.Tensor | None = None):
+                                  windows: torch.Tensor | None = None, head0: int = 0):
     """``_flash_bwd_bands`` in plain PyTorch: (dq, dk, dv) (G, N, Cb) in the
     compute dtype from the forward's O and L and the cotangent ``dout``;
     delta = rowsum(dO * O) per head, p = exp(s - L)."""
@@ -334,7 +338,7 @@ def flash_attention_bwd_reference(qb, kb, vb, out, lse, dout, *, heads: int,
     if scale is None:
         scale = (Cb // heads) ** -0.5
     T = pick_tile(N)
-    drop = _tile_keep(attn_drop, seed, G, heads, N, T, qb.device, windows)
+    drop = _tile_keep(attn_drop, seed, G, heads, N, T, qb.device, windows, head0)
     L = lse.permute(0, 2, 1)[..., None]
     delta = flash_delta(out, dout, heads).permute(0, 2, 1)[..., None]
     qs, qu = _scaled_q(qb, heads, scale), _heads(qb, heads)
@@ -378,7 +382,7 @@ def _band_windows(x: torch.Tensor, geometry: dict) -> torch.Tensor:
 class FlashAttention(torch.autograd.Function):
     """Attention without LePE over full-width bands of (B, H*W, C) tokens
     (``geometry``: H, W, hsp, wsp == W, num_heads, scale, attn_drop, seed,
-    win0, nwin_global): the flash kernels on CUDA tensors, the plain flash
+    win0, nwin_global, head0): the flash kernels on CUDA tensors, the plain flash
     versions on CPU tensors."""
 
     @staticmethod
@@ -389,7 +393,7 @@ class FlashAttention(torch.autograd.Function):
                 _bands(q, geometry), _bands(k, geometry), _bands(v, geometry),
                 heads=geometry["num_heads"], scale=geometry["scale"],
                 attn_drop=geometry["attn_drop"], seed=geometry["seed"],
-                windows=_band_windows(q, geometry))
+                windows=_band_windows(q, geometry), head0=geometry.get("head0", 0))
             out = out.reshape(q.shape)
         else:
             out, lse = kernel_fwd(q, k, v, None, **geometry, mode="flash")
@@ -404,7 +408,7 @@ class FlashAttention(torch.autograd.Function):
             grads = flash_attention_bwd_reference(
                 *(_bands(t, geo) for t in (q, k, v, out)), lse, _bands(dout, geo),
                 heads=geo["num_heads"], scale=geo["scale"], attn_drop=geo["attn_drop"],
-                seed=geo["seed"], windows=_band_windows(q, geo))
+                seed=geo["seed"], windows=_band_windows(q, geo), head0=geo.get("head0", 0))
             return (*(g.reshape(q.shape) for g in grads), None)
         delta = flash_delta(_bands(out, geo), _bands(dout, geo), geo["num_heads"])
         dq, dk, dv, _ = kernel_bwd(q, k, v, None, lse, dout, **geo, delta=delta,
@@ -428,12 +432,12 @@ def stripe_attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lepe_kernel: torch.Tensor, *, H: int, W: int, hsp: int,
                            wsp: int, num_heads: int, scale: float | None = None,
                            attn_drop: float = 0.0, seed: int | None = None, win0: int = 0,
-                           nwin_global: int | None = None) -> torch.Tensor:
+                           nwin_global: int | None = None, head0: int = 0) -> torch.Tensor:
     """``stripe_attention_pallas_flash``: flash attention over the band
     layout, plus the LePE of the plain depthwise conv; (B, L, C) tokens in
     and out, lepe_kernel (3, 3, 1, C); differentiable.  The bands are the
     windows of ``img2windows``'s order, numbered in the mask from ``win0``
-    among ``nwin_global`` an image."""
+    among ``nwin_global`` an image, their heads from ``head0``."""
     B, L, C = q.shape
     flip, Ht, Wt, wht = band_geometry(H, W, hsp, wsp)
 
@@ -447,7 +451,8 @@ def stripe_attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = (C // num_heads) ** -0.5
     geometry = dict(H=Ht, W=Wt, hsp=wht, wsp=Wt, num_heads=num_heads, scale=float(scale),
-                    attn_drop=attn_drop, seed=seed, win0=win0, nwin_global=nwin_global)
+                    attn_drop=attn_drop, seed=seed, win0=win0, nwin_global=nwin_global,
+                    head0=head0)
     attn = FlashAttention.apply(q, k, v_b, geometry)
     if flip:
         attn = transpose(attn, Ht, Wt)

@@ -35,7 +35,10 @@ same mask, so kernel and plain drop the same scores.  ``attn_drop == 0``
 launches the kernels without the hash.  ``win0`` and ``nwin_global`` key
 the mask on the windows' numbers in a whole image of which the call's grid
 is an H-slab (``ops/dropout.py::mask_windows``; the spatial sharding's
-horizontal stripes); the defaults number the windows as the call does.
+horizontal stripes), ``head0`` on the heads' numbers in a layer of which the
+call's heads are heads [head0, head0 + num_heads) (a rank's own heads under
+tensor parallelism, ``parallel/sharding.py``); the defaults number the
+windows and heads as the call does.
 """
 
 from __future__ import annotations
@@ -91,7 +94,8 @@ def _check(q, k, v, lepe_kernel, H, W, hsp, wsp, num_heads, smem) -> tuple[int, 
 
 
 def attention_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None,
-                  attn_drop=0.0, seed=None, with_lse=False, win0=0, nwin_global=None):
+                  attn_drop=0.0, seed=None, with_lse=False, win0=0, nwin_global=None,
+                  head0=0):
     """K-A on CUDA tensors: (B, L, C) tokens in and out, lepe_kernel (3, 3, 1, C).
     bf16 at head dims 16, 32 and 64 runs the tensor-core body ("mma", counted
     in ``_build.BODY_LAUNCHES``), which takes q, k and v with 16-byte aligned
@@ -104,7 +108,7 @@ def attention_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None
                             lambda N, D, _: smem_bytes(N, D))
     if body == "mma":
         q, k, v = (flash_attention.rows_aligned(t) for t in (q, k, v))
-    drop = kernel_drop_args(attn_drop, seed, win0, nwin_global)
+    drop = kernel_drop_args(attn_drop, seed, win0, nwin_global, head0)
     B, L, C = q.shape
     ldq, ldk, ldv = _build.token_strides((q, "q"), (k, "k"), (v, "v"))
     taps = attention.lepe_taps(lepe_kernel, q.dtype)
@@ -123,7 +127,7 @@ def attention_fwd(q, k, v, lepe_kernel, *, H, W, hsp, wsp, num_heads, scale=None
 
 
 def attention_bwd(q, k, v, lepe_kernel, dout, *, H, W, hsp, wsp, num_heads, scale=None,
-                  attn_drop=0.0, seed=None, lse=None, win0=0, nwin_global=None):
+                  attn_drop=0.0, seed=None, lse=None, win0=0, nwin_global=None, head0=0):
     """(dq, dk, dv, dw) of :func:`attention_fwd` for the output cotangent
     ``dout`` and the forward's ``attn_drop`` and ``seed``: K-A' on CUDA
     tensors, the plain version on CPU tensors.  dq, dk, dv come out
@@ -132,11 +136,12 @@ def attention_bwd(q, k, v, lepe_kernel, dout, *, H, W, hsp, wsp, num_heads, scal
     ``lse`` (``attention_fwd(..., with_lse=True)``) and raises without it;
     the CUDA-core body does not read it."""
     kw = dict(H=H, W=W, hsp=hsp, wsp=wsp, num_heads=num_heads, scale=scale,
-              attn_drop=attn_drop, seed=seed, win0=win0, nwin_global=nwin_global)
+              attn_drop=attn_drop, seed=seed, win0=win0, nwin_global=nwin_global,
+              head0=head0)
     if q.device.type == "cpu":
         return attention.stripe_attention_bwd_reference(q, k, v, lepe_kernel, dout, **kw)
     head_dim, body = _check(q, k, v, lepe_kernel, H, W, hsp, wsp, num_heads, smem_bytes_bwd)
-    drop = kernel_drop_args(attn_drop, seed, win0, nwin_global)
+    drop = kernel_drop_args(attn_drop, seed, win0, nwin_global, head0)
     B, L, C = q.shape
     N, n_win = hsp * wsp, B * (H // hsp) * (W // wsp)
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
@@ -226,16 +231,18 @@ def stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lepe_kernel: torch.Tensor, *, H: int, W: int, hsp: int,
                      wsp: int, num_heads: int, scale: float | None = None,
                      attn_drop: float = 0.0, seed: int | None = None, win0: int = 0,
-                     nwin_global: int | None = None) -> torch.Tensor:
+                     nwin_global: int | None = None, head0: int = 0) -> torch.Tensor:
     """softmax(scale q k^T) v + LePE(v) per window and head, the scores
     dropped at rate ``attn_drop`` by the keep mask of ``seed`` (its windows
-    numbered from ``win0`` among ``nwin_global`` an image); (B, L, C)
+    numbered from ``win0`` among ``nwin_global`` an image, its heads from
+    ``head0``); (B, L, C)
     tokens in and out, lepe_kernel (3, 3, 1, C); differentiable.  Windows
     of more than 2048 tokens take the flash path."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
     geometry = dict(H=H, W=W, hsp=hsp, wsp=wsp, num_heads=num_heads, scale=scale,
-                    attn_drop=attn_drop, seed=seed, win0=win0, nwin_global=nwin_global)
+                    attn_drop=attn_drop, seed=seed, win0=win0, nwin_global=nwin_global,
+                    head0=head0)
     if hsp * wsp > flash_attention.FLASH_MIN_TOKENS:
         return flash_attention.stripe_attention_flash(q, k, v, lepe_kernel, **geometry)
     recorded = torch.is_grad_enabled() and any(

@@ -203,6 +203,9 @@ def spatial_cswin_apply(model, x: torch.Tensor, mesh: Mesh, train: bool = False,
     versions."""
     n = mesh.size
     validate_spatial_cswin(model.img_size, n, model.split_size)
+    if getattr(model, "tp_shardings", None):
+        raise ValueError("a model split over a 'model' axis (parallel.shard_state with "
+                         "params_shardings) runs through its own forward, not H-sharded")
     if tuple(x.shape[1:3]) != (model.img_size // n, model.img_size):
         raise ValueError(f"rank {mesh.rank}'s slab must be {model.img_size // n} x "
                          f"{model.img_size}, got {tuple(x.shape[1:3])}")

@@ -41,9 +41,17 @@ whole by every rank, and its gradients, loss and counts are averaged.
 Augmentation draws the global (micro-)batch's parameters and each rank
 applies its rows', so it equals one process; dropout, drop-path and the
 attention masks come from a stream of each rank's own (:func:`rank_seed`),
-whose rank 0 is the stream of a run without a mesh.  A ``('spatial',)``
-mesh, which shards an image's height (``parallel.spatial_unet_apply``,
-``parallel.spatial_cswin_apply``), is refused, as JAX trains on none.  The
+whose rank 0 is the stream of a run without a mesh.  On a ``('data',
+'model')`` mesh the rows and the streams are the data axis's: the model
+ranks of one data coordinate take the same rows and draw from the same
+stream.  A model that ``parallel.shard_state(..., params_shardings=)``
+split runs its CSWin blocks tensor-parallel over the model axis
+(``parallel/sharding.py``): the step averages each split parameter's
+gradient over the data axis, and every other gradient, the loss and the
+counts over the whole mesh (:func:`_reduce_step`).  A
+``('spatial',)`` mesh, which shards an image's height
+(``parallel.spatial_unet_apply``, ``parallel.spatial_cswin_apply``), is
+refused, as JAX trains on none.  The
 segmented step (``train/segmented.py``, ``FitConfig.segmented``) is this step
 run as a chain of segments that may recompute their forwards in the backward,
 which bounds the activation memory of the CSWin-UNet at 2048^2.
@@ -63,7 +71,7 @@ from ..data.pipeline import device_prefetch
 from ..models.cswin import FLAT_HEAD_FACTOR
 from ..ops.dropout import mix_seed
 from ..ops.windows import pixel_unshuffle
-from ..parallel.mesh import batch_sharding, require_data_axis, shard_state
+from ..parallel.mesh import DATA_AXIS, batch_sharding, require_data_axis, shard_state
 from .losses import segmentation_loss
 from .reporting import EpochProgress, TensorBoardLogger
 from .schedule import make_plateau_scheduler
@@ -247,27 +255,56 @@ def _local_rows(sharding, images_u8, masks_u8, global_batch: Optional[int]):
     return images_u8, masks_u8, int(global_batch), sharding.splits(global_batch)
 
 
-def _reduce_over_ranks(mesh, grads: list, loss: torch.Tensor, sums: torch.Tensor,
-                       split: bool):
-    """One all-reduce a dtype over the ranks: the gradients (``grads``, in
-    place) and the loss averaged; the metric counts summed for a split
-    batch, averaged for one that every rank computed whole.  The loss and
-    counts travel in the float32 buffer."""
+def _mean_over(mesh, grads: list, stats: Optional[torch.Tensor] = None):
+    """One all-reduce a dtype over the ranks of ``mesh``: ``grads`` averaged
+    in place; ``stats`` (float32) travels in the float32 buffer and comes
+    back summed."""
     n = mesh.size
-    stats = torch.cat([loss.detach().float().reshape(1), sums.detach().float().reshape(-1)])
     groups: dict = {torch.float32: []}
     for g in grads:
         groups.setdefault(g.dtype, []).append(g)
     for dtype, group in groups.items():
-        parts = [g.reshape(-1) for g in group] + ([stats] if dtype == torch.float32 else [])
-        flat = mesh.all_reduce_(torch.cat(parts))
+        extra = [stats] if dtype == torch.float32 and stats is not None else []
+        if not group and not extra:
+            continue
+        flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in group] + extra))
         offset = 0
         for g in group:
             g.copy_(flat[offset:offset + g.numel()].view_as(g)).div_(n)
             offset += g.numel()
-        if dtype == torch.float32:
+        if extra:
             stats = flat[offset:]
-    return stats[0] / n, stats[1:].reshape(sums.shape) / (1 if split else n)
+    return stats
+
+
+def _reduce_over_ranks(mesh, grads: list, loss: torch.Tensor, sums: torch.Tensor,
+                       split: bool, copies: int = 1):
+    """One all-reduce a dtype over the ranks: the gradients (``grads``, in
+    place) and the loss averaged; the metric counts summed for a split
+    batch (and divided by ``copies``, the ranks of ``mesh`` that hold each
+    row: the model ranks of a ``('data', 'model')`` mesh), averaged for one
+    that every rank computed whole.  The loss and counts travel in the
+    float32 buffer."""
+    n = mesh.size
+    stats = _mean_over(mesh, grads, torch.cat([loss.detach().float().reshape(1),
+                                              sums.detach().float().reshape(-1)]))
+    return stats[0] / n, stats[1:].reshape(sums.shape) / (copies if split else n)
+
+
+def _reduce_step(model, mesh, data, loss, sums, split: bool):
+    """The step's reduction over a mesh: the gradients of the parameters
+    split over the model axis (``parallel.shard_state``'s shards) averaged
+    over the data axis, every other gradient, the loss and the counts over
+    the whole mesh.  The model ranks of a data coordinate hold equal
+    replicated gradients but for the last bits of nondeterministic kernels
+    (cuDNN's convolution backward), which their mean removes, so that the
+    replicated parameters stay bit-identical over the model group."""
+    split_names = getattr(model, "tp_shardings", None) or {}
+    grads = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+    if split_names:
+        _mean_over(data, [g for n, g in grads if n in split_names])
+    return _reduce_over_ranks(mesh, [g for n, g in grads if n not in split_names], loss, sums,
+                              split, mesh.size // data.size)
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -321,7 +358,8 @@ def _make_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, n_class
         raise ValueError("class-id masks need augment.mask_nearest=True: bilinear "
                          "resampling blends neighbouring class ids")
     sharding = batch_sharding(mesh, grad_accum=accum) if mesh is not None else None
-    rank = mesh.rank if mesh is not None else 0
+    data = sharding.mesh if sharding is not None else None
+    rank = data.rank if data is not None else 0
     calls = [0]
 
     def step(images_u8, masks_u8, rng: Optional[int] = None,
@@ -331,7 +369,7 @@ def _make_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, n_class
             calls[0] += 1
         images_u8, masks_u8, n_global, split = _local_rows(sharding, images_u8, masks_u8,
                                                            global_batch)
-        stats_mesh = mesh if split else None
+        stats_mesh = data if split else None
         optimizer.zero_grad(set_to_none=True)
         loss, sums = 0.0, 0.0
         for i, (lo, hi, w) in enumerate(micro_batches(images_u8.shape[0], accum)):
@@ -342,9 +380,8 @@ def _make_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, n_class
                 w, rank, stats_mesh, draw_rows)
             loss = loss + w * mloss
             sums = sums + _metric_sums(logits, targets, n_classes)
-        if mesh is not None:
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            loss, sums = _reduce_over_ranks(mesh, grads, loss, sums, split)
+        if data is not None:
+            loss, sums = _reduce_step(model, mesh, data, loss, sums, split)
         optimizer.step()
         dice, iou = _metrics_from_sums(sums)
         return {"loss": loss, "dice": dice, "iou": iou}
@@ -371,7 +408,8 @@ def make_eval_step(model: torch.nn.Module, n_classes: int = 1, mesh=None) -> Cal
         loss = segmentation_loss(logits, targets, n_classes)
         sums = _metric_sums(logits, targets, n_classes)
         if mesh is not None:
-            loss, sums = _reduce_over_ranks(mesh, [], loss, sums, split)
+            loss, sums = _reduce_over_ranks(mesh, [], loss, sums, split,
+                                            mesh.size // mesh.along(DATA_AXIS).size)
         dice, iou = _metrics_from_sums(sums)
         return {"loss": loss, "dice": dice, "iou": iou}
 
@@ -453,11 +491,14 @@ def fit(model: torch.nn.Module, optimizer: torch.optim.Optimizer, train_loader, 
     epochs that ``checkpoint_every`` names, and the last, are saved; with
     ``cfg.tensorboard_dir`` each epoch's metrics are logged there.
 
-    With ``mesh`` (a ``parallel.Mesh``; every rank calls ``fit`` with the
-    same loaders, or with loaders sharded by ``parallel.batch_sharding``)
-    the state is replicated from rank 0 (``shard_state``), each rank moves
-    and trains on its rows of every batch, and the histories, the schedule
-    and the learning rates are the same on every rank.  Rank 0 alone
+    With ``mesh`` (a ``parallel.Mesh``, ``('data',)`` or ``('data',
+    'model')``; every rank calls ``fit`` with the same loaders, or with
+    loaders sharded by ``parallel.batch_sharding``) the state is replicated
+    from rank 0 over every axis (``shard_state`` without
+    ``params_shardings``, as JAX's ``fit`` places it), each rank moves and
+    trains on its rows of every batch (the data axis's split), and the
+    histories, the schedule and the learning rates are the same on every
+    rank.  Rank 0 alone
     prints, writes the checkpoints and logs to TensorBoard; every rank
     waits for each checkpoint."""
     device = model.device

@@ -227,7 +227,12 @@ def make_segmented_train_step(model: CSWinUNet, optimizer: torch.optim.Optimizer
     ``step.residual_policy()`` gives {segment: saves?}, None until "auto"
     is resolved.  ``step.eval_step`` is ``engine.make_eval_step``'s: a
     forward without gradients keeps no residuals, so it needs no segments.
-    JAX's ``cost_flops`` (XLA's cost analysis) has no eager counterpart."""
+    JAX's ``cost_flops`` (XLA's cost analysis) has no eager counterpart.
+    A mesh with a ``model`` axis is refused: JAX's segmented step takes a
+    ``('data',)`` mesh (its ``train/segmented.py:409``)."""
+    if mesh is not None and "model" in mesh.axis_names:
+        raise ValueError(f"the segmented step takes a ('data',) mesh, as JAX's does; got a "
+                         f"mesh over {tuple(mesh.axis_names)}")
     segments = build_segments(model, _flat_head(model, n_classes), depth_split)
     names = [seg.name for seg in segments]
     policy = _policy_of(save_residuals, names)

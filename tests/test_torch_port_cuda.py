@@ -850,6 +850,55 @@ def test_attention_dropout_window_offset(dev, dtype, H, W, hsp, C, heads):
     assert torch.equal(m, dropout.window_keep_mask(7, 6, 2, 16, dropout.u32_threshold(0.3),
                                                    nwin=3, win0=0, nwin_global=3))
 
+
+# a layer's heads split over 2 ranks: (H, W, hsp, C, heads), full-width
+# stripes; 256 tokens a window (whole-window K-A / K-A') and 512 (the tiled pair)
+HEAD_OFFSET_GEOMS = [(32, 128, 2, 128, 4), (16, 512, 1, 128, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,hsp,C,heads", HEAD_OFFSET_GEOMS)
+def test_attention_dropout_head_offset(dev, dtype, H, W, hsp, C, heads):
+    """K-A and K-A' (or the tiled pair) on heads [h0, h0 + n) of a layer (a
+    rank's own heads under tensor parallelism), their channels read in place
+    from one qkv projection, the mask keyed on the layer's head numbers
+    (``head0``), against the plain versions at the same ``head0`` and
+    against those heads' channels of the plain call on every head; head0 0
+    draws the mask of heads 0 .. n - 1, as before."""
+    B, n, d = 2, heads // 2, C // heads
+    qkv = _randn(dev, B, H * W, 3 * C, scale=0.5, seed=5).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    lk = _randn(dev, 3, 3, 1, C, scale=0.3, seed=6).to(dtype)
+    g = _randn(dev, B, H * W, C, seed=7).to(dtype)
+    kw = dict(H=H, W=W, hsp=hsp, wsp=W, attn_drop=0.3, seed=2 ** 31 + 13)
+    f32 = [t.float() for t in (q, k, v, lk, g)]
+    whole = attention.stripe_attention(*f32[:4], num_heads=heads, **kw)
+    whole_grads = attention.stripe_attention_bwd_reference(*f32, num_heads=heads, **kw)
+    tiled = not stripe_attention.whole_window(hsp * W, d)
+    for h0 in (0, n):
+        ch = slice(h0 * d, (h0 + n) * d)
+        sl = [t[..., ch] for t in (q, k, v, lk)] + [g[..., ch].contiguous()]
+        at = dict(kw, num_heads=n, head0=h0)
+        _build.reset_launches()
+        if tiled:
+            out, lse = stripe_attention.tiled_fwd(*sl[:4], **at)
+            grads = stripe_attention.tiled_bwd(*sl[:4], lse, sl[4], **at)
+        else:
+            out = stripe_attention.attention_fwd(*sl[:4], **at)
+            grads = _ka_bwd(*sl, **at)
+        assert sum(_build.LAUNCHES.values()) >= 2
+        ref = [t.float() for t in sl]
+        _check(out, attention.stripe_attention(*ref[:4], **at), dtype)
+        _check(out, whole[..., ch], dtype)
+        want = attention.stripe_attention_bwd_reference(*ref, **at)
+        for got, one, full in zip(grads, want, whole_grads):
+            _check_scaled(got, one, dtype)
+            _check_scaled(got, full[..., ch], dtype)
+        if h0:  # another numbering draws other bits
+            plain0 = attention.stripe_attention(*ref[:4], **dict(at, head0=0))
+            assert float((plain0 - out.float()).abs().max()) > 1e-2
+    assert tiled == (hsp * W > 256)  # both families are held
+
 # ---- gradients of a tiny model through the kernels ----
 
 TINY = dict(img_size=64, embed_dim=16, depth=(1, 1, 1, 1), split_size=(1, 2, 2, 2),

@@ -33,7 +33,7 @@ from cswin_simam_unet_tpu.train.schedule import ReduceLROnPlateau as JaxPlateau
 from cswin_simam_unet_tpu_torch.compat import cswin_state_dict, load_flax_params
 from cswin_simam_unet_tpu_torch.data import device_prefetch
 from cswin_simam_unet_tpu_torch.models import CSWinUNet
-from cswin_simam_unet_tpu_torch.parallel import Mesh
+from cswin_simam_unet_tpu_torch.parallel import Mesh, make_mesh
 from cswin_simam_unet_tpu_torch.train import engine, losses, metrics
 from cswin_simam_unet_tpu_torch.train.schedule import make_plateau_scheduler
 
@@ -421,13 +421,26 @@ def test_device_prefetch_keeps_order():
 
 
 def test_fit_rejects_what_is_not_ported():
-    """A mesh with a tensor-parallel axis (item 9d; the data axis is ported)."""
-    model = CSWinUNet(**TINY, use_simam=True, device="cpu")
-    opt = engine.make_optimizer("adamw", LR, WD, model.parameters())
-    cfg = engine.FitConfig(num_epochs=1, verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
-        engine.fit(model, opt, [], [], cfg, mesh=Mesh(1, 0, torch.device("cpu"),
-                                                      ("data", "model")))
+    """A mesh with a tensor-parallel axis, once refused, trains: ``fit`` on
+    a (1, 1) ``('data', 'model')`` mesh (the state replicated over both
+    axes, as JAX's ``fit`` places it; drops 0.3) gives the history and the
+    weights of ``fit`` without a mesh, bit for bit.  A mesh over another
+    axis is still refused."""
+    rs = np.random.RandomState(12)
+    train = [_binary_batch(rs, 2) for _ in range(2)]
+    test = [_binary_batch(rs, 2)]
+    runs = []
+    for mesh in (None, make_mesh((1, 1), ("data", "model"), device="cpu")):
+        model = CSWinUNet(**TINY, use_simam=True, device="cpu", **DROPS)
+        opt = engine.make_optimizer("adamw", LR, WD, model.parameters())
+        cfg = engine.FitConfig(num_epochs=1, augment=None, verbose=False)
+        history, step = engine.fit(model, opt, train, test, cfg, mesh=mesh)
+        runs.append((history, step, [p.detach().clone() for p in model.parameters()]))
+    (h_mesh, n_mesh, p_mesh), (h_one, n_one, p_one) = runs[1], runs[0]
+    assert n_mesh == n_one == 2 and h_mesh == h_one
+    assert all(torch.equal(a, b) for a, b in zip(p_mesh, p_one))
+    with pytest.raises(ValueError, match=r"take a \('data',\) or \('data', 'model'\) mesh"):
+        engine.fit(model, opt, [], [], cfg, mesh=Mesh(1, 0, torch.device("cpu"), ("model",)))
 
 
 @pytest.mark.parametrize("seg_depth_split", [1, -1])

@@ -232,22 +232,30 @@ def test_cli_two_ranks(discs, tmp_path):
 
 def test_single_process_runtime_and_refusals(monkeypatch):
     """One process: ``initialize_runtime`` is a no-op and the mesh has one
-    rank.  The tensor-parallel half (item 9d) refuses, naming its item."""
+    rank.  The tensor-parallel half: a (1, 1) ``('data', 'model')`` mesh
+    with its two one-rank axes, and ``state_sharding`` with
+    ``params_shardings``, under which a UNet (no rule matches it) is
+    replicated whole; a mesh that is not the world's is refused."""
     from cswin_simam_unet_tpu_torch.parallel import (global_batch_from_local,
-                                                     initialize_runtime, replicated,
-                                                     state_sharding)
+                                                     initialize_runtime, params_shardings,
+                                                     replicated, state_sharding)
     for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
         monkeypatch.delenv(name, raising=False)
     assert initialize_runtime() == (0, 1)
     mesh = make_mesh(device="cpu")
     assert (mesh.size, mesh.is_main, mesh.shape) == (1, True, {"data": 1})
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        make_mesh((1, 1), ("data", "model"), device="cpu")
+    hybrid = make_mesh((1, 1), ("data", "model"), device="cpu")
+    assert (hybrid.size, hybrid.is_main, hybrid.shape) == (1, True, {"data": 1, "model": 1})
+    assert [(m.size, m.rank, m.axis_names) for m in map(hybrid.along, ("data", "model"))] == [
+        (1, 0, ("data",)), (1, 0, ("model",))]
     with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh((2,), device="cpu")
+    with pytest.raises(ValueError, match="needs 4 processes"):
+        make_mesh((2, 2), ("data", "model"), device="cpu")
     model = UNet(base_features=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        state_sharding(model, mesh, params_shardings={})
+    shardings = state_sharding(model, hybrid, params_shardings(model, hybrid))
+    assert set(shardings) == set(model.state_dict())
+    assert all(s.replicated for s in shardings.values())
     assert set(state_sharding(model, mesh)) == set(model.state_dict())
     assert list(replicated(mesh).rows(3)) == [0, 1, 2]
     x = np.arange(12, dtype=np.uint8).reshape(3, 4)

@@ -273,11 +273,11 @@ def test_validate_spatial_geometry_message():
 def test_spatial_mesh_and_its_refusal_by_the_step():
     """``make_mesh((1,), ('spatial',))`` names its axis; the training step,
     the eval step and ``fit`` refuse a spatial mesh and name the spatial
-    forwards; any other axis is still item 9d."""
+    forwards; an axis the port has no mesh for is refused."""
     mesh = make_mesh((1,), ("spatial",), device="cpu")
     assert (mesh.size, mesh.rank, mesh.axis_names, mesh.shape) == (1, 0, ("spatial",),
                                                                    {"spatial": 1})
-    with pytest.raises(NotImplementedError, match="item 9d"):
+    with pytest.raises(ValueError, match="the port's meshes are"):
         make_mesh((1,), ("model",), device="cpu")
     model = CSWinUNet(img_size=64, embed_dim=16, depth=(1, 1, 1, 1), split_size=(1, 2, 2, 2),
                       num_heads=(2, 2, 2, 2), device="cpu")

@@ -247,7 +247,7 @@ def test_window_keep_mask_at_an_offset():
     assert torch.equal(dropout.window_keep_mask(11, 6, heads, n, thr), old)
     assert torch.equal(dropout.window_keep_mask(11, 6, heads, n, thr, nwin=3, win0=0,
                                                 nwin_global=3), old)
-    assert dropout.kernel_drop_args(0.3, 11) == (11, thr, 1.0 / 0.7, 0, 0)
+    assert dropout.kernel_drop_args(0.3, 11) == (11, thr, 1.0 / 0.7, 0, 0, 0)
 
 
 def test_validate_spatial_cswin_messages():
